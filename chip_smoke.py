@@ -4,17 +4,27 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from `tpu_pbrt_torch/csrc/`, holds
-each kernel against its plain PyTorch version on the card at the main
-path's shapes (Cornell box tables, 1920x1080 camera rays, seeded random
-bounce and shadow rays), renders 1920x1080 main-path frames (1 SPP,
-8 bounces, NEE + MIS, Russian roulette, counted rays, pool folds at bounces
-4-7) through `Renderer`, checks the image and that every kernel of the path
-was launched, holds a small frame rendered through the kernels against the
-same frame rendered by the plain versions on the CPU, writes a PNG under
-`chiprun_out/`, and prints one JSON line per result. The last line is the
-`{"ok": true, "device": ...}` summary. Any failure exits nonzero before it.
-It never falls back to the CPU: without a usable card it exits 2.
+It builds the hand-written CUDA kernels from `tpu_pbrt_torch/csrc/` and
+drives three paths through `Renderer` at 1920x1080, each with the kernels'
+launch counts set to 0 just before and read just after:
+
+* the main path: the Cornell box, 1 SPP, 8 bounces, NEE + MIS, Russian
+  roulette, counted rays, pool folds at bounces 4-7 (kernels 1-4: dense
+  closest hit, dense any hit, bounce fetch, row fetch);
+* the fused configuration of the same frame (`TRACE_FUSED` on, as
+  `TPU_PBRT_TRACE_FUSED=1` sets it): every traced bounce through the fused
+  closest-hit-and-shade kernel;
+* the big-scene path: the authored 25,280-triangle helmet mesh through the
+  glTF ingest, metallic 0.8 / roughness 0.4, default sky, 1 SPP,
+  4 bounces, folds at 1-3 (the resident-walk kernel's closest and any hit).
+
+Before each path it holds every kernel the path runs against its plain
+PyTorch version on the card at the path's shapes; after the paths it holds
+small frames rendered through the kernels against the same frames rendered
+by the plain versions on the CPU. It writes PNGs under `chiprun_out/` and
+prints one JSON line per result, then the `{"kernels": [...]}` line and,
+last, the `{"ok": true, "device": ...}` summary. Any failure exits nonzero
+before it. It never falls back to the CPU: without a usable card it exits 2.
 """
 
 from __future__ import annotations
@@ -29,9 +39,41 @@ import time
 import numpy as np
 
 WIDTH, HEIGHT = 1920, 1080
-FRAMES = 4                      # timed main-path frames
-SMALL_W, SMALL_H = 64, 48       # kernel-vs-plain frame check
+FRAMES = 4                      # timed frames per path
+SMALL_W, SMALL_H = 64, 48       # kernel-vs-plain frame checks
+SMALL_HELMET = (40, 28)         # 2,160 triangles: past the dense sweep
+SUBSET = 1 << 19                # seeded rays where a plain walk is slow
 SEED = 1234
+
+# One H100 SXM (NVIDIA's data sheet): HBM bytes/s, FP32 FLOP/s outside the
+# tensor cores. The least time for a kernel's work is the larger of its
+# bytes (each input read once, each output written once) over the first
+# and its FP32 arithmetic over the second.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# FP32 adds, subtracts, multiplies and divides per ray-triangle test
+# (compares and selects not counted): kernel 1 and the fused sweep (one
+# division per test), kernel 2 and the resident walk (det-scaled, no
+# division); and per ray for the bounce-row unpack.
+FLOPS_TEST_DIV = 46
+FLOPS_TEST_SCALED = 48
+FLOPS_UNPACK = 110
+
+# the path whose run supplies each kernel's launch count
+KERNEL_PATH = {
+    "dense_closest_hit": "cornell", "dense_any_hit": "cornell",
+    "fetch_bounce": "cornell", "fetch_rows": "cornell",
+    "dense_closest_hit_shade": "cornell_fused",
+    "resident_closest_hit": "helmet", "resident_any_hit": "helmet",
+}
+PATH_KERNELS = {
+    "cornell": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
+                "fetch_rows"),
+    "cornell_fused": ("dense_closest_hit_shade", "dense_closest_hit",
+                      "dense_any_hit", "fetch_bounce", "fetch_rows"),
+    "helmet": ("resident_closest_hit", "resident_any_hit", "fetch_bounce",
+               "fetch_rows"),
+}
 
 
 def fail(msg: str) -> None:
@@ -66,6 +108,19 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def plain_ms(fn) -> float:
+    """The plain version's time (a record, not a yardstick): fewer runs."""
+    return time_ms(fn, iters=3, warmup=1)
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = flops / PEAK_F32_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
 def max_abs(a, b) -> float:
     import torch
 
@@ -76,71 +131,130 @@ def max_abs(a, b) -> float:
     return float(torch.nan_to_num(d, nan=math.inf).max()) if d.numel() else 0.0
 
 
-def random_rays(n: int, device, seed: int):
-    """Seeded bounce-like rays: origins inside the Cornell box (meters),
-    directions uniform on the sphere, intervals (0, inf) with one lane in
-    eight carrying the empty interval of an inactive lane."""
+def v3(a, device):
+    """Vec3 of float32 device tensors from an (n, 3) array."""
     import torch
     from tpu_pbrt_torch.ops.vec import Vec3
 
+    return Vec3(*(torch.as_tensor(a[:, i].astype(np.float32), device=device)
+                  for i in range(3)))
+
+
+def random_rays(n: int, device, seed: int, lo, hi):
+    """Seeded bounce-like rays: origins uniform in [lo, hi], directions
+    uniform on the sphere, intervals (0, inf) with one lane in eight
+    carrying the empty interval of an inactive lane."""
+    import torch
+
     rng = np.random.default_rng(seed)
-    o = rng.uniform([0.05, 0.05, 0.05], [5.5, 5.4, 5.5], (n, 3))
+    o = rng.uniform(lo, hi, (n, 3))
     d = rng.normal(size=(n, 3))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     t_max = np.where(rng.uniform(size=n) < 0.125, -np.inf, np.inf)
-
-    def v3(a):
-        return Vec3(*(torch.as_tensor(a[:, i].astype(np.float32),
-                                      device=device) for i in range(3)))
-
-    return (v3(o), v3(d),
+    return (v3(o, device), v3(d, device),
             torch.zeros(n, dtype=torch.float32, device=device),
             torch.as_tensor(t_max.astype(np.float32), device=device))
 
 
-def shadow_rays(tracer, n: int, device, seed: int):
-    """Seeded NEE-like shadow rays: from random box points toward random
-    points on the light quad, t_max = dist * (1 - 1e-3)."""
+def mesh_rays(geometry, n: int, device, seed: int):
+    """Seeded bounce-like rays leaving points on the mesh in uniform
+    directions, t_min 1e-4, one lane in eight inactive."""
     import torch
-    from tpu_pbrt_torch.ops.vec import Vec3
 
     rng = np.random.default_rng(seed)
-    lt = tracer.light_table.cpu().numpy()
-    li = rng.integers(0, lt.shape[0], n)
-    su = np.sqrt(rng.uniform(size=n))
-    bv = rng.uniform(size=n)
-    p = (lt[li, 0:3] + lt[li, 3:6] * (su * (1 - bv))[:, None]
-         + lt[li, 6:9] * (su * bv)[:, None])
-    o = rng.uniform([0.05, 0.05, 0.05], [5.5, 5.4, 5.5], (n, 3))
-    to_l = p - o
-    dist = np.linalg.norm(to_l, axis=1)
-    wi = to_l / dist[:, None]
+    p, i = geometry.positions, geometry.indices
+    k = rng.integers(0, len(i), n)
+    a, b = rng.uniform(size=n), rng.uniform(size=n)
+    su = np.sqrt(a)
+    v0, v1, v2 = p[i[k, 0]], p[i[k, 1]], p[i[k, 2]]
+    o = (v0 * (1 - su)[:, None] + v1 * (su * (1 - b))[:, None]
+         + v2 * (su * b)[:, None])
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = np.where(rng.uniform(size=n) < 0.125, -np.inf, np.inf)
+    return (v3(o, device), v3(d, device),
+            torch.full((n,), 1e-4, dtype=torch.float32, device=device),
+            torch.as_tensor(t_max.astype(np.float32), device=device))
 
-    def v3(a):
-        return Vec3(*(torch.as_tensor(a[:, i].astype(np.float32),
-                                      device=device) for i in range(3)))
 
-    return (v3(o), v3(wi), 0.0,
+def segment_rays(n: int, device, seed: int, lo, hi, targets=None):
+    """Seeded shadow rays: from points uniform in [lo, hi] toward random
+    targets (given points, or uniform in the same box), t_max = dist *
+    (1 - 1e-3), as NEE's."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(lo, hi, (n, 3))
+    p = rng.uniform(lo, hi, (n, 3)) if targets is None else targets(rng, n)
+    to_p = p - o
+    dist = np.linalg.norm(to_p, axis=1)
+    return (v3(o, device), v3(to_p / dist[:, None], device), 0.0,
             torch.as_tensor((dist * (1 - 1e-3)).astype(np.float32),
                             device=device))
 
 
-def check_kernels(renderer, cam_rays, device) -> dict:
-    """Each kernel against its plain version on the card, at main-path
-    shapes; returns per-kernel {max_abs_err, ms, plain_ms}."""
+def light_targets(tracer):
+    """Random points on the scene's light triangles."""
+    lt = tracer.light_table.cpu().numpy()
+
+    def sample(rng, n):
+        li = rng.integers(0, lt.shape[0], n)
+        su = np.sqrt(rng.uniform(size=n))
+        bv = rng.uniform(size=n)
+        return (lt[li, 0:3] + lt[li, 3:6] * (su * (1 - bv))[:, None]
+                + lt[li, 6:9] * (su * bv)[:, None])
+    return sample
+
+
+def n_active(t_min, t_max, r: int) -> int:
+    import torch
+
+    return int((torch.as_tensor(t_max) > torch.as_tensor(t_min))
+               .expand(r).sum())
+
+
+def check_bounce_block(got, want, name: str) -> float:
+    """Bit-exact except the rsqrt rows (normals, light cosine) <= 1e-5 and
+    the front flag, which may differ only at grazing incidence."""
+    import torch
+    from tpu_pbrt_torch.ops import shade_table as st
+
+    rows = got.shape[0]
+    rsq = list(range(st._FB_FLAT, st._FB_LCOS + 1))
+    exact = [r for r in range(rows) if r not in rsq + [st._FB_FRONT]]
+    if not torch.equal(got[exact].view(torch.int32),
+                       want[exact].view(torch.int32)):
+        fail(f"{name}: rows outside the rsqrt rows differ bitwise")
+    tol = 1e-5
+    err = max_abs(got[rsq], want[rsq])
+    if err > tol:
+        fail(f"{name}: normal/cosine error {err} > {tol}")
+    flip = got[st._FB_FRONT] != want[st._FB_FRONT]
+    grazing = want[st._FB_LCOS].abs() < tol
+    if bool((flip & ~grazing).any()):
+        fail(f"{name}: front flag differs away from grazing rays")
+    return err
+
+
+def check_cornell_kernels(renderer, cam_rays, device) -> dict:
+    """Kernels 1-4 against their plain versions on the card at the main
+    path's shapes (2,073,600 camera rays, or as many seeded bounce and
+    shadow rays); times, bounds and, for the row fetch, the library call."""
     import torch
     from tpu_pbrt_torch.ops import shade_table as st
     from tpu_pbrt_torch.ops import traverse_dense as td
 
     tracer = renderer.tracer
     accel = tracer.accel
+    tp, ntri = accel.v0.shape[0], tracer.num_tris
     origin, direction, t_min, t_max = cam_rays
+    r = origin.x.shape[0]
     results = {}
 
     # --- kernel 1: dense closest hit (camera rays + bounce rays) ---------
     err = 0.0
-    for o, d, tmn, tmx in (cam_rays,
-                           random_rays(WIDTH * HEIGHT, device, SEED)):
+    for o, d, tmn, tmx in (cam_rays, random_rays(
+            r, device, SEED, [0.05, 0.05, 0.05], [5.5, 5.4, 5.5])):
         got = td.closest_hit_cuda(accel, o, d, tmn, tmx)
         want = td.closest_hit_plain(accel, o, d, tmn, tmx)
         torch.cuda.synchronize()
@@ -153,14 +267,18 @@ def check_kernels(renderer, cam_rays, device) -> dict:
             fail("dense_closest_hit: no ray hit anything")
         err = max(err, max_abs(got.t, want.t))
     results["dense_closest_hit"] = dict(
-        max_abs_err=err, tolerance="bit-exact t and tri",
+        max_abs_err=err, tolerance="bit-exact t and tri", rays=r,
         ms=time_ms(lambda: td.closest_hit_cuda(accel, origin, direction,
                                                t_min, t_max)),
-        plain_ms=time_ms(lambda: td.closest_hit_plain(
-            accel, origin, direction, t_min, t_max), iters=5))
+        plain_ms=plain_ms(lambda: td.closest_hit_plain(
+            accel, origin, direction, t_min, t_max)),
+        library_ms=None,
+        **bound(r * 32 + r * 8 + tp * 36,
+                n_active(t_min, t_max, r) * ntri * FLOPS_TEST_DIV))
 
     # --- kernel 2: dense any hit (shadow rays) ---------------------------
-    so, sd, stmin, stmax = shadow_rays(tracer, WIDTH * HEIGHT, device, SEED)
+    so, sd, stmin, stmax = segment_rays(r, device, SEED, [0.05] * 3,
+                                        [5.5, 5.4, 5.5], light_targets(tracer))
     got = td.any_hit_cuda(accel, so, sd, stmin, stmax)
     want = td.any_hit_plain(accel, so, sd, stmin, stmax)
     torch.cuda.synchronize()
@@ -169,12 +287,18 @@ def check_kernels(renderer, cam_rays, device) -> dict:
     frac = float(got.float().mean())
     if not 0.0 < frac < 1.0:
         fail(f"dense_any_hit: degenerate occluded fraction {frac}")
+    occ = int(got.sum())
     results["dense_any_hit"] = dict(
-        max_abs_err=max_abs(got, want), tolerance="exact",
+        max_abs_err=max_abs(got, want), tolerance="exact", rays=r,
         occluded_fraction=frac,
         ms=time_ms(lambda: td.any_hit_cuda(accel, so, sd, stmin, stmax)),
-        plain_ms=time_ms(lambda: td.any_hit_plain(accel, so, sd, stmin,
-                                                  stmax), iters=5))
+        plain_ms=plain_ms(lambda: td.any_hit_plain(accel, so, sd, stmin,
+                                                   stmax)),
+        library_ms=None,
+        # an occluded lane needs at least its blocker's test
+        **bound(r * 32 + r + tp * 40,
+                ((n_active(stmin, stmax, r) - occ) * ntri + occ)
+                * FLOPS_TEST_SCALED))
 
     # --- kernel 3: bounce fetch (slots of the camera rays' hits) ---------
     hit = td.closest_hit_cuda(accel, origin, direction, t_min, t_max)
@@ -183,72 +307,315 @@ def check_kernels(renderer, cam_rays, device) -> dict:
     got = st.fetch_bounce_block_cuda(sub, slot, origin, direction)
     want = st.fetch_bounce_block_plain(sub, slot, origin, direction)
     torch.cuda.synchronize()
-    exact_rows = [r for r in range(st.FB_OUT)
-                  if not st._FB_FLAT <= r <= st._FB_FRONT]
-    if not torch.equal(got[exact_rows], want[exact_rows]):
-        fail("fetch_bounce: position/material/tri rows differ bitwise")
-    # rsqrtf vs torch.rsqrt: normals and the light cosine within 1e-5
-    tol = 1e-5
-    err = max_abs(got[st._FB_FLAT:st._FB_LCOS + 1],
-                  want[st._FB_FLAT:st._FB_LCOS + 1])
-    if err > tol:
-        fail(f"fetch_bounce: normal/cosine error {err} > {tol}")
-    # the front flag may differ only at grazing incidence
-    flip = got[st._FB_FRONT] != want[st._FB_FRONT]
-    grazing = want[st._FB_LCOS].abs() < tol
-    if bool((flip & ~grazing).any()):
-        fail("fetch_bounce: front flag differs away from grazing rays")
+    err = check_bounce_block(got, want, "fetch_bounce")
     results["fetch_bounce"] = dict(
-        max_abs_err=err, tolerance=f"bit-exact except rsqrt rows <= {tol}",
+        max_abs_err=err, tolerance="bit-exact except rsqrt rows <= 1e-5",
+        rays=r,
         ms=time_ms(lambda: st.fetch_bounce_block_cuda(sub, slot, origin,
                                                       direction)),
-        plain_ms=time_ms(lambda: st.fetch_bounce_block_plain(
-            sub, slot, origin, direction), iters=5))
+        plain_ms=plain_ms(lambda: st.fetch_bounce_block_plain(
+            sub, slot, origin, direction)),
+        library_ms=None,
+        **bound(sub.numel() * 4 + r * 4 + r * 24 + r * st.FB_OUT * 4,
+                r * FLOPS_UNPACK))
 
     # --- kernel 4: 64-column row fetch (the G-buffer's fetch) ------------
     table = tracer.shade_table
     got = st.fetch_rows_cuda(table, slot)
     want = st.fetch_rows_plain(table, slot)
+    lib = torch.index_select(table.t(), 1, slot)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
+    if not torch.equal(got, want) or not torch.equal(got, lib):
         fail("fetch_rows: rows differ bitwise")
     results["fetch_rows"] = dict(
-        max_abs_err=max_abs(got, want), tolerance="bit-exact",
+        max_abs_err=max_abs(got, want), tolerance="bit-exact", rays=r,
         ms=time_ms(lambda: st.fetch_rows_cuda(table, slot)),
-        plain_ms=time_ms(lambda: st.fetch_rows_plain(table, slot), iters=5))
+        plain_ms=plain_ms(lambda: st.fetch_rows_plain(table, slot)),
+        library_ms=time_ms(lambda: torch.index_select(table.t(), 1, slot)),
+        library_call="torch.index_select(table.t(), 1, slot)",
+        **bound(table.numel() * 4 + r * 4 + r * table.shape[1] * 4, 0.0))
     return results
 
 
-def check_small_frame(scene, settings) -> dict:
+def check_fused_kernel(renderer, cam_rays, device) -> dict:
+    """The fused closest-hit-and-shade kernel on the Cornell camera rays and
+    seeded bounce rays, against its plain version and against kernel 1 +
+    kernel 3 composed."""
+    import torch
+    from tpu_pbrt_torch.ops import shade_table as st
+    from tpu_pbrt_torch.ops import trace_shade_fused as tsf
+    from tpu_pbrt_torch.ops import traverse_dense as td
+
+    tracer = renderer.tracer
+    accel = tracer.accel
+    tp, ntri = accel.v0.shape[0], tracer.num_tris
+    sub = st.bounce_subtable(tracer.shade_table)
+    origin, direction, t_min, t_max = cam_rays
+    r = origin.x.shape[0]
+    err = 0.0
+    for o, d, tmn, tmx in (cam_rays, random_rays(
+            r, device, SEED + 1, [0.05, 0.05, 0.05], [5.5, 5.4, 5.5])):
+        got = tsf.closest_hit_shade_cuda(accel, sub, o, d, tmn, tmx)
+        want = tsf.closest_hit_shade_plain(accel, sub, o, d, tmn, tmx)
+        hit = td.closest_hit_cuda(accel, o, d, tmn, tmx)
+        composed = st.fetch_bounce_block_cuda(
+            sub, torch.clamp(hit.tri, min=0), o, d)
+        torch.cuda.synchronize()
+        err = max(err, check_bounce_block(got, want,
+                                          "dense_closest_hit_shade"))
+        if not torch.equal(got[:st.FB_OUT], composed):
+            fail("dense_closest_hit_shade: differs from kernel 1 + kernel 3")
+        if not torch.equal(got[tsf.ROW_HIT_T], hit.t):
+            fail("dense_closest_hit_shade: hit t differs from kernel 1")
+        if not torch.equal(got[tsf.ROW_FOUND] > 0.5, hit.mask):
+            fail("dense_closest_hit_shade: found flags differ from kernel 1")
+    return dict(
+        max_abs_err=err,
+        tolerance="bit-exact except rsqrt rows <= 1e-5; == kernel 1 + 3",
+        rays=r,
+        ms=time_ms(lambda: tsf.closest_hit_shade_cuda(
+            accel, sub, origin, direction, t_min, t_max)),
+        plain_ms=plain_ms(lambda: tsf.closest_hit_shade_plain(
+            accel, sub, origin, direction, t_min, t_max)),
+        kernel1_plus_3_ms=time_ms(lambda: st.fetch_bounce_block_cuda(
+            sub, torch.clamp(td.closest_hit_cuda(
+                accel, origin, direction, t_min, t_max).tri, min=0),
+            origin, direction)),
+        library_ms=None,
+        # output: the rows closest_hit_shade reads (0-22, hit t, found),
+        # not the zero rows that pad the block to 32
+        **bound(r * 32 + tp * 36 + sub.numel() * 4
+                + r * (st.FB_OUT + 2) * 4,
+                n_active(t_min, t_max, r) * ntri * FLOPS_TEST_DIV
+                + r * FLOPS_UNPACK))
+
+
+def block_bounds(res):
+    """Each resident block's AABB, (NB, 3) lo and hi, from its packed rows
+    (v0, v0 + e1, v0 + e2; within an ulp of the vertices) over its real
+    triangles."""
+    import torch
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+
+    t = res.tris
+    v0, v1, v2 = t[:, 0:3], t[:, 0:3] + t[:, 3:6], t[:, 0:3] + t[:, 6:9]
+    real = (res.tri_id.view(-1, 1, trs.BLOCK) >= 0)
+    lo = torch.where(real, torch.minimum(torch.minimum(v0, v1), v2),
+                     math.inf).amin(-1)
+    hi = torch.where(real, torch.maximum(torch.maximum(v0, v1), v2),
+                     -math.inf).amax(-1)
+    return lo, hi
+
+
+def resident_needed_tests(res, rays, best, occlusion: bool) -> int:
+    """The ray-triangle tests the resident walk's function needs on this
+    run's data, at its 128-triangle block grain: for each lane, every block
+    whose AABB meets the lane's final segment [t0, t_end], where t_end is
+    the top of the lane's final key bin (a hit), else its far bound teff;
+    an occluded lane needs one test (its blocker). rays (Rp, 8) sorted,
+    best the walk's result on them."""
+    import torch
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+
+    lo, hi = block_bounds(res)
+    real = (lo <= hi).all(-1)
+    lo, hi = lo[real], hi[real]
+    o, d = rays[:, 0:3], rays[:, 3:6]
+    t0, t1 = rays[:, 6], rays[:, 7]
+    keep = -(1 << trs.idx_bits(res.tris.shape[0]))
+    if occlusion:
+        occluded = best > 0
+        t_end = torch.where(occluded, -math.inf, t1)
+        extra = int((occluded & (t1 > t0)).sum())
+    else:
+        top = (best | ~keep).view(torch.float32)
+        t_end = torch.where(best == trs.SENTINEL, t1, torch.minimum(t1, top))
+        extra = 0
+    inv = 1.0 / torch.where(d.abs() > 1e-12, d,
+                            torch.where(d >= 0, 1e-12, -1e-12))
+    pairs = 0
+    for s in range(0, rays.shape[0], 1 << 15):
+        e = s + (1 << 15)
+        a = (lo[None] - o[s:e, None]) * inv[s:e, None]
+        b = (hi[None] - o[s:e, None]) * inv[s:e, None]
+        near = torch.maximum(torch.minimum(a, b).amax(-1), t0[s:e, None])
+        far = torch.minimum(torch.maximum(a, b).amin(-1), t_end[s:e, None])
+        pairs += int((near <= far).sum())
+    return pairs * trs.BLOCK + extra
+
+
+def check_resident_kernels(renderer, scene, cam_rays, device) -> dict:
+    """The resident walk's closest hit on the helmet's 1080p camera rays
+    and on seeded bounce rays from the mesh, and its any hit on seeded
+    shadow rays, against the plain walk: keys, ids and occlusion exact.
+    Kernel times are of the walk alone, on the sorted rays."""
+    import torch
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+
+    res = renderer.tracer.accel
+    nb = res.tris.shape[0]
+    table_bytes = res.tris.numel() * 4 + 2 * 8 * nb * 4
+
+    def walk_bound(rays, best, occlusion):
+        rp = rays.shape[0]
+        tests = resident_needed_tests(res, rays, best, occlusion)
+        return dict(needed_tests=tests, **bound(
+            rp * 32 + rp * 4 + (rp // trs.CHUNK) * 4 + table_bytes,
+            tests * FLOPS_TEST_SCALED))
+
+    def check_closest(rays_in, name):
+        got = trs.closest_hit_cuda(res, *rays_in)
+        want = trs.closest_hit_plain(res, *rays_in)
+        torch.cuda.synchronize()
+        if not torch.equal(got.tri, want.tri):
+            fail(f"resident_closest_hit ({name}): "
+                 f"{int((got.tri != want.tri).sum())} tri ids differ")
+        if not torch.equal(got.t.view(torch.int32), want.t.view(torch.int32)):
+            fail(f"resident_closest_hit ({name}): key t differs bitwise")
+        frac = float(got.mask.float().mean())
+        if not 0.0 < frac < 1.0:
+            fail(f"resident_closest_hit ({name}): hit fraction {frac}")
+        rays, _, octs = trs.sort_rays(res, *rays_in)
+        wk = trs.walk_cuda(res, rays, octs, False)
+        wp, work = trs.walk_plain(res, rays, octs, False)
+        if not torch.equal(wk, wp):
+            fail(f"resident_closest_hit ({name}): walk keys differ")
+        return dict(
+            rays=rays_in[0].x.shape[0], hit_fraction=frac, lane_blocks=work,
+            max_abs_err=max_abs(got.t, want.t),
+            ms=time_ms(lambda: trs.walk_cuda(res, rays, octs, False)),
+            plain_ms=plain_ms(lambda: trs.walk_plain(res, rays, octs,
+                                                     False)),
+            entry_ms=time_ms(lambda: trs.closest_hit_cuda(res, *rays_in)),
+            library_ms=None, **walk_bound(rays, wk, False))
+
+    cam = check_closest(cam_rays, "camera")
+    bounce = check_closest(mesh_rays(scene.geometry, SUBSET, device, SEED),
+                           "bounce subset")
+
+    # any hit: segments between random points of the helmet's bounding box
+    so, sd, stmin, stmax = segment_rays(SUBSET, device, SEED + 2,
+                                        [-1.6] * 3, [1.6] * 3)
+    got = trs.any_hit_cuda(res, so, sd, stmin, stmax)
+    want = trs.any_hit_plain(res, so, sd, stmin, stmax)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"resident_any_hit: {int((got != want).sum())} lanes differ")
+    frac = float(got.float().mean())
+    if not 0.0 < frac < 1.0:
+        fail(f"resident_any_hit: degenerate occluded fraction {frac}")
+    rays, _, octs = trs.sort_rays(res, so, sd, stmin, stmax)
+    wk = trs.walk_cuda(res, rays, octs, True)
+    wp, work = trs.walk_plain(res, rays, octs, True)
+    if not torch.equal(wk, wp):
+        fail("resident_any_hit: walk flags differ")
+    anyh = dict(
+        rays=SUBSET, occluded_fraction=frac, lane_blocks=work,
+        max_abs_err=max_abs(got, want), tolerance="exact",
+        ms=time_ms(lambda: trs.walk_cuda(res, rays, octs, True)),
+        plain_ms=plain_ms(lambda: trs.walk_plain(res, rays, octs, True)),
+        entry_ms=time_ms(lambda: trs.any_hit_cuda(res, so, sd, stmin,
+                                                  stmax)),
+        library_ms=None, **walk_bound(rays, wk, True))
+    cam["tolerance"] = "bit-exact key and tri"
+    cam["bounce_subset"] = bounce
+    return {"resident_closest_hit": cam, "resident_any_hit": anyh}
+
+
+def run_path(name: str, renderer, camera) -> tuple[dict, np.ndarray]:
+    """FRAMES timed 1080p frames through `Renderer` with the launch counts
+    set to 0 just before and read just after; fails if a kernel of the
+    path was not launched."""
+    import torch
+    from tpu_pbrt_torch.ops import cuda
+
+    renderer.render(camera, 0)              # warm-up (allocator, caches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    acc = torch.zeros((HEIGHT, WIDTH, 3), device=renderer.device)
+    rays = torch.zeros((), dtype=torch.float64, device=renderer.device)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    for f in range(1, FRAMES + 1):
+        img, rc = renderer.render_with_stats(camera, f)
+        acc += img
+        rays += rc
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in cuda.KERNELS.values()}
+    for k in PATH_KERNELS[name]:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched by the {name} path")
+    img = (acc / FRAMES).cpu().numpy()
+    if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all():
+        fail(f"{name}: frame shape {img.shape} or non-finite pixels")
+    if img.mean() <= 0.01:
+        fail(f"{name}: frame is black (mean {img.mean()})")
+    total_rays = float(rays.item())
+    s = renderer.settings
+    return {
+        "resolution": [WIDTH, HEIGHT], "triangles": renderer.tracer.num_tris,
+        "tracer": renderer.tracer.kind, "bounces": s.bounces,
+        "spp": s.samples_per_pixel, "folds": list(s.compaction_schedule),
+        "frames": FRAMES, "ms_per_frame": wall * 1e3 / FRAMES,
+        "rays_per_frame": total_rays / FRAMES,
+        "mrays_per_s": total_rays / wall / 1e6,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "image_mean": float(img.mean()), "launches": launches,
+    }, img
+
+
+def check_cornell_image(name: str, img: np.ndarray) -> None:
+    # at 16:9 the box spans ~22%..78% of the width: sample the side walls
+    left = img[:, int(0.25 * WIDTH):int(0.30 * WIDTH)]
+    right = img[:, int(0.71 * WIDTH):int(0.76 * WIDTH)]
+    if not (left[..., 0].mean() > left[..., 1].mean()
+            and right[..., 1].mean() > right[..., 0].mean()):
+        fail(f"{name}: no red bleed on the left / green bleed on the right")
+    lum = img.mean(-1)
+    ys, _ = np.unravel_index(np.argmax(lum), lum.shape)
+    if ys >= HEIGHT // 3:
+        fail(f"{name}: brightest pixel at row {ys}, not in the top third")
+
+
+def check_small_frame(name: str, scene, settings, camera,
+                      min_hits: float) -> dict:
     """A 64x48 frame through the kernels on the card against the same frame
     through the plain versions on the CPU: G-buffer tri ids exact, frame
-    mean within 1e-3 relative, >= 99% of pixels within 1e-3 relative (a
-    one-ulp difference can flip a Russian-roulette or lobe decision)."""
-    import torch
-    from tpu_pbrt_torch.models.cornell import make_cornell_camera
+    mean within 1e-3 relative, >= 99% of all pixels and >= 99% of the
+    pixels with a primary hit within 1e-3 relative (a one-ulp difference
+    can flip a Russian-roulette or lobe decision), and at least `min_hits`
+    of the frame hit, so the hit pixels outnumber the 1% slack."""
     from tpu_pbrt_torch.render.renderer import Renderer, _render_frame
 
-    out = {}
+    out = {"triangles": int(scene.geometry.num_tris)}
     imgs = {}
     for dev in ("cuda", "cpu"):
         r = Renderer(scene, SMALL_W, SMALL_H, settings, device=dev)
-        cam = make_cornell_camera(SMALL_W, SMALL_H).data(device=r.device)
+        cam = camera(SMALL_W, SMALL_H).data(device=r.device)
         img, rays, gb = _render_frame(
             r.tracer, r.environment, r.light_count, cam, 7, width=SMALL_W,
             height=SMALL_H, settings=settings, with_gbuffer=True)
         imgs[dev] = (img.cpu().numpy(), gb.tri.cpu().numpy(), float(rays))
+        out["tracer"] = r.tracer.kind
     (gi, gt, gr), (ci, ct, cr) = imgs["cuda"], imgs["cpu"]
     if not np.isfinite(gi).all():
-        fail("small frame: non-finite pixels")
+        fail(f"small frame {name}: non-finite pixels")
     if not np.array_equal(gt, ct):
-        fail("small frame: G-buffer tri ids differ from the CPU frame")
+        fail(f"small frame {name}: G-buffer tri ids differ from the CPU's")
     rel_mean = abs(gi.mean() - ci.mean()) / max(abs(ci.mean()), 1e-12)
     d = np.abs(gi - ci).max(-1)
-    agree = float((d <= 1e-3 * np.maximum(1.0, np.abs(ci).max(-1))).mean())
-    out.update(mean_rel_diff=float(rel_mean), pixel_agreement=agree,
+    within = d <= 1e-3 * np.maximum(1.0, np.abs(ci).max(-1))
+    hit = (ct >= 0).reshape(within.shape)
+    out.update(mean_rel_diff=float(rel_mean),
+               pixel_agreement=float(within.mean()),
+               hit_pixel_agreement=float(within[hit].mean()),
+               hit_share=float(hit.mean()), gbuffer_hits=int(hit.sum()),
                rays_cuda=gr, rays_cpu=cr)
-    if rel_mean > 1e-3 or agree < 0.99:
-        fail(f"small frame disagrees with the CPU frame: {out}")
+    if (rel_mean > 1e-3 or out["pixel_agreement"] < 0.99
+            or out["hit_pixel_agreement"] < 0.99
+            or out["hit_share"] < min_hits):
+        fail(f"small frame {name} disagrees with the CPU frame: {out}")
     return out
 
 
@@ -260,17 +627,30 @@ def main() -> int:
               "GPU and never falls back to the CPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tpu_pbrt_torch.models import helmet
     from tpu_pbrt_torch.models.cornell import (make_cornell_box,
                                                make_cornell_camera)
+    from tpu_pbrt_torch.models.scene import environment_radiance
     from tpu_pbrt_torch.ops import cuda
+    from tpu_pbrt_torch.ops import trace_shade_fused as tsf
     from tpu_pbrt_torch.ops.tonemap import to_srgb8, apply as tonemap
     from tpu_pbrt_torch.passes.pathtrace import PathTraceSettings
     from tpu_pbrt_torch.render.camera import generate_rays
     from tpu_pbrt_torch.render.renderer import Renderer
+    from tpu_pbrt_torch.utils.image import write_png
 
     print(gpu_line(), flush=True)
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def save_png(name, img):
+        path = os.path.join(out_dir, name)
+        write_png(path, to_srgb8(tonemap(torch.as_tensor(img))).numpy())
+        return path
 
     # --- build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -280,87 +660,100 @@ def main() -> int:
     print(json.dumps({"build_seconds": build_s, "nvcc_seconds":
                       cuda.build_seconds, "ptxas": ptxas}), flush=True)
 
-    scene = make_cornell_box()
+    camera = make_cornell_camera(WIDTH, HEIGHT)
+    kres, paths, pngs = {}, {}, {}
+
+    # --- the main path: Cornell 1080p -------------------------------------
+    cornell = make_cornell_box()
     settings = PathTraceSettings(bounces=8, samples_per_pixel=1,
                                  count_rays=True,
                                  compaction_schedule=(4, 5, 6, 7))
-    renderer = Renderer(scene, WIDTH, HEIGHT, settings, device=device)
-    camera = make_cornell_camera(WIDTH, HEIGHT)
-
-    # --- kernels vs plain versions on the card ---------------------------
+    renderer = Renderer(cornell, WIDTH, HEIGHT, settings, device=device)
     cam_rays = generate_rays(camera.data(device=device), WIDTH, HEIGHT)
-    kres = check_kernels(renderer, cam_rays, device)
-    del cam_rays
+    kres.update(check_cornell_kernels(renderer, cam_rays, device))
+    print(json.dumps({"kernel_checks": {k: kres[k] for k in
+                                        PATH_KERNELS["cornell"]}}),
+          flush=True)
+    paths["cornell"], img = run_path("cornell", renderer, camera)
+    check_cornell_image("cornell", img)
+    print(json.dumps({"main_path": paths["cornell"]}), flush=True)
+    pngs["cornell"] = save_png("cornell_1080p.png", img)
+
+    # --- the fused configuration of the same frame ------------------------
+    tsf.TRACE_FUSED = True
+    if not renderer.tracer.supports_fused_shade():
+        fail("the Cornell tracer does not take the fused kernel")
+    kres["dense_closest_hit_shade"] = check_fused_kernel(renderer, cam_rays,
+                                                         device)
+    print(json.dumps({"kernel_checks": {
+        "dense_closest_hit_shade": kres["dense_closest_hit_shade"]}}),
+        flush=True)
+    paths["cornell_fused"], img = run_path("cornell_fused", renderer, camera)
+    check_cornell_image("cornell_fused", img)
+    paths["cornell_fused"]["unfused_ms_per_frame"] = (
+        paths["cornell"]["ms_per_frame"])
+    print(json.dumps({"fused_cornell": paths["cornell_fused"]}), flush=True)
+    pngs["cornell_fused"] = save_png("cornell_fused_1080p.png", img)
+    tsf.TRACE_FUSED = False
+    del renderer, cam_rays
     torch.cuda.empty_cache()
-    print(json.dumps({"kernel_checks": kres}), flush=True)
 
-    # --- the main path: 1080p frames through Renderer --------------------
-    renderer.render(camera, 0)              # warm-up (allocator, caches)
-    torch.cuda.synchronize()
-    cuda.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    acc = torch.zeros((HEIGHT, WIDTH, 3), device=device)
-    rays = torch.zeros((), dtype=torch.float64, device=device)
-    t0 = time.perf_counter()
-    for f in range(1, FRAMES + 1):
-        img, rc = renderer.render_with_stats(camera, f)
-        acc += img
-        rays += rc
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in cuda.KERNELS.values()}
-    total_rays = float(rays.item())
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched by the main path")
-    img = (acc / FRAMES).cpu().numpy()
-    if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all():
-        fail(f"frame shape {img.shape} or non-finite pixels")
-    if img.mean() <= 0.01:
-        fail(f"frame is black (mean {img.mean()})")
-    # at 16:9 the box spans ~22%..78% of the width: sample the side walls
-    left = img[:, int(0.25 * WIDTH):int(0.30 * WIDTH)]
-    right = img[:, int(0.71 * WIDTH):int(0.76 * WIDTH)]
-    if not (left[..., 0].mean() > left[..., 1].mean()
-            and right[..., 1].mean() > right[..., 0].mean()):
-        fail("no red bleed on the left / green bleed on the right")
-    lum = img.mean(-1)
-    ys, _ = np.unravel_index(np.argmax(lum), lum.shape)
-    if ys >= HEIGHT // 3:
-        fail(f"brightest pixel at row {ys}, not in the top third (light)")
-    ms_frame = wall * 1e3 / FRAMES
-    frame = {
-        "resolution": [WIDTH, HEIGHT], "bounces": settings.bounces,
-        "spp": settings.samples_per_pixel,
-        "folds": list(settings.compaction_schedule), "frames": FRAMES,
-        "ms_per_frame": ms_frame,
-        "rays_per_frame": total_rays / FRAMES,
-        "mrays_per_s": total_rays / wall / 1e6,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "image_mean": float(img.mean()), "launches": launches,
-    }
-    print(json.dumps({"main_path": frame}), flush=True)
+    # --- the big-scene path: the 25,280-triangle helmet -------------------
+    scene = helmet.make_scene()
+    renderer = Renderer(scene, WIDTH, HEIGHT, helmet.settings(),
+                        device=device)
+    if renderer.tracer.kind != "resident":
+        fail(f"helmet tracer kind {renderer.tracer.kind}, not resident")
+    cam_rays = generate_rays(camera.data(device=device), WIDTH, HEIGHT)
+    kres.update(check_resident_kernels(renderer, scene, cam_rays, device))
+    print(json.dumps({"kernel_checks": {
+        k: kres[k] for k in ("resident_closest_hit", "resident_any_hit")}}),
+        flush=True)
+    mask = renderer.tracer.closest_hit(*cam_rays).mask
+    sky = environment_radiance(renderer.environment, cam_rays[1])
+    sky = torch.stack([sky.x, sky.y, sky.z], -1).reshape(HEIGHT, WIDTH, 3)
+    mask = mask.reshape(HEIGHT, WIDTH).cpu().numpy()
+    sky = sky.cpu().numpy()
+    del cam_rays
+    paths["helmet"], img = run_path("helmet", renderer, camera)
+    if not 0.0 < mask.mean() < 0.5:
+        fail(f"helmet covers {mask.mean()} of the frame")
+    on_mesh = float(np.abs(img[mask] - sky[mask]).mean())
+    off_mesh = float(np.abs(img[~mask] - sky[~mask]).mean())
+    if on_mesh <= 0.05:
+        fail(f"helmet region does not differ from the sky ({on_mesh})")
+    paths["helmet"].update(screen_fraction=float(mask.mean()),
+                           mean_abs_diff_from_sky_on_mesh=on_mesh,
+                           mean_abs_diff_from_sky_off_mesh=off_mesh)
+    print(json.dumps({"helmet_path": paths["helmet"]}), flush=True)
+    pngs["helmet"] = save_png("helmet_1080p.png", img)
+    del renderer
+    torch.cuda.empty_cache()
 
-    # --- a small frame through the kernels vs the plain versions ---------
-    small = check_small_frame(scene, PathTraceSettings(
-        bounces=8, count_rays=True, compaction_schedule=(4, 5, 6, 7)))
-    print(json.dumps({"small_frame_vs_cpu": small}), flush=True)
+    # --- small frames through the kernels vs the plain versions ----------
+    small = {"cornell": check_small_frame(
+        "cornell", cornell, settings, make_cornell_camera, 0.5)}
+    tsf.TRACE_FUSED = True
+    small["cornell_fused"] = check_small_frame(
+        "cornell_fused", cornell, settings, make_cornell_camera, 0.5)
+    tsf.TRACE_FUSED = False
+    # a camera that frames the mesh: the bench's camera sees it at ~4%
+    small["helmet"] = check_small_frame(
+        "helmet", helmet.make_scene("helmet", *SMALL_HELMET),
+        helmet.settings(), helmet.make_camera, 0.2)
+    if small["helmet"]["tracer"] != "resident":
+        fail("the small helmet frame did not take the resident tracer")
+    print(json.dumps({"small_frames_vs_cpu": small}), flush=True)
+    print(json.dumps({"png": pngs, "seconds": time.perf_counter() - t_start}),
+          flush=True)
 
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    from PIL import Image
-
-    png = os.path.join(out_dir, "cornell_1080p.png")
-    Image.fromarray(to_srgb8(tonemap(torch.as_tensor(img))).numpy(),
-                    "RGB").save(png)
-    print(json.dumps({"png": png}), flush=True)
-
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": launches[k.name],
-         "max_abs_err": kres[k.name]["max_abs_err"],
-         "ms": kres[k.name]["ms"], "plain_ms": kres[k.name]["plain_ms"]}
+         "replaces": k.replaces, "path": KERNEL_PATH[k.name],
+         "launches": paths[KERNEL_PATH[k.name]]["launches"][k.name],
+         **{key: kres[k.name][key] for key in keys}}
         for k in cuda.KERNELS.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -47,7 +47,8 @@ def test_cornell_scene_bit_exact(tall, short):
 
 def test_cornell_camera_equal():
     want = jcornell.make_cornell_camera(64, 48).data(jitter=(0.25, -0.1))
-    got = tcornell.make_cornell_camera(64, 48).data(jitter=(0.25, -0.1))
+    got = tcornell.make_cornell_camera(64, 48).data(jitter=(0.25, -0.1),
+                                                    device="cpu")
     for name, w in zip(want._fields, want):
         np.testing.assert_array_equal(
             np.asarray(w, np.float32).reshape(-1),
@@ -78,7 +79,7 @@ def test_dense_prepare_bit_exact(n):
     v = [rng.normal(size=(n, 3)).astype(np.float32) for _ in range(3)]
     op = rng.uniform(size=n).astype(np.float32)
     want = jtd.prepare(*v, opacity=op)
-    got = ttd.prepare(*v, opacity=op)
+    got = ttd.prepare(*v, opacity=op, device="cpu")
     assert got.num == want.num == n
     for name in ("v0", "e1", "e2", "tri_id", "opacity"):
         np.testing.assert_array_equal(np.asarray(getattr(want, name)),
@@ -102,8 +103,10 @@ def test_build_for_scene_matches_reference_tracer():
     jtrc = jtracer.build_for_scene(jcornell.make_cornell_box())
     assert jtrc.kind == "dense"
     accel, table, light_table, cdf = _tracer_leaves(jtrc)
-    for trc in (ttracer.build_for_scene(tcornell.make_cornell_box()),
-                convert.tracer_from_numpy(accel, table, light_table, cdf)):
+    for trc in (ttracer.build_for_scene(tcornell.make_cornell_box(),
+                                        device="cpu"),
+                convert.tracer_from_numpy(accel, table, light_table, cdf,
+                                          device="cpu")):
         assert trc.kind == "dense" and trc.num_tris == accel["num"] == 36
         for name in ("v0", "e1", "e2", "tri_id", "opacity"):
             np.testing.assert_array_equal(accel[name],
@@ -131,3 +134,63 @@ def test_scene_from_numpy_round_trip():
     got = convert.scene_from_numpy(leaves(js.geometry), leaves(js.materials),
                                    leaves(js.environment), leaves(js.lights))
     _assert_tree_equal(tcornell.make_cornell_box(), got)
+
+
+@pytest.mark.parametrize("shape", ["sphere", "helmet"])
+def test_authored_glb_matches_reference(shape, tmp_path):
+    """The port's authored mesh (models/helmet.py) loaded by the port's
+    glTF ingest equals bench.py's .glb loaded by tpu_pbrt's, bit for bit:
+    geometry, material table and the whole scene, at the bench's 160 x 80
+    grid (25,280 triangles); the two .glb files are byte-identical."""
+    import bench
+    from tpu_pbrt.models import gltf as jgltf
+    from tpu_pbrt.models.material import make_table as jmake_table
+    from tpu_pbrt.models.mesh import build_geometry as jbuild_geometry
+    from tpu_pbrt.models.scene import make_environment, make_scene
+    from tpu_pbrt_torch.models import gltf as tgltf
+    from tpu_pbrt_torch.models import helmet
+
+    jpath, tpath = str(tmp_path / "ref.glb"), str(tmp_path / "port.glb")
+    bench._write_sphere_glb(jpath, False, shape)
+    helmet.write_glb(tpath, shape)
+    assert open(jpath, "rb").read() == open(tpath, "rb").read()
+    jm, tm = jgltf.load(jpath), tgltf.load(tpath)
+    jgeo = jbuild_geometry(jgltf.to_geometry_meshes(jm))
+    jmat = jmake_table(jm.materials)
+    _assert_tree_equal(jgeo, helmet.build_geometry(
+        tgltf.to_geometry_meshes(tm)))
+    assert jgeo.num_tris == 25280
+    np.testing.assert_array_equal(jmat.metallic, np.float32([0.8]))
+    np.testing.assert_array_equal(jmat.roughness, np.float32([0.4]))
+    _assert_tree_equal(make_scene(jgeo, jmat, make_environment()),
+                       helmet.make_scene(shape))
+
+
+def test_unported_gltf_texture_raises(tmp_path):
+    """A material that references an image waits for textures."""
+    import bench
+    from tpu_pbrt_torch.models import gltf as tgltf
+
+    path = str(tmp_path / "textured.glb")
+    bench._write_sphere_glb(path, True, "sphere", nu=8, nv=5)
+    with pytest.raises(NotImplementedError, match="texture"):
+        tgltf.load(path)
+
+
+def test_entry_points_require_a_device():
+    """No entry point picks the CPU on its own: each needs `device`."""
+    scene = tcornell.make_cornell_box()
+    acc = jtracer.build_for_scene(jcornell.make_cornell_box())
+    accel, table, light_table, cdf = _tracer_leaves(acc)
+    v = [np.zeros((4, 3), np.float32)] * 3
+    calls = (
+        lambda **kw: ttracer.build_for_scene(scene, **kw),
+        lambda **kw: convert.tracer_from_numpy(accel, table, light_table,
+                                               cdf, **kw),
+        lambda **kw: ttd.prepare(*v, **kw),
+        lambda **kw: tcornell.make_cornell_camera(8, 8).data(**kw),
+    )
+    for call in calls:
+        with pytest.raises(TypeError, match="device"):
+            call()
+        call(device="cpu")

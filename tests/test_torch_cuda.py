@@ -2,7 +2,9 @@
 card, at edge shapes the main-path run in chip_smoke.py does not reach:
 ray counts that are not whole blocks, several 128-row triangle chunks
 (the per-chunk interval shrink), empty intervals, out-of-table slots, and
-the wrappers' argument checks.
+the wrappers' argument checks; for the resident walk also chunks that
+straddle two octants, all-idle chunks and an all-pad last block; for the
+fused closest-hit-and-shade kernel soups up to its 1024-row gate.
 
 These need an NVIDIA GPU and nvcc; elsewhere they skip. On the card (no
 JAX there, so without the JAX-pinning conftest):
@@ -11,8 +13,9 @@ JAX there, so without the JAX-pinning conftest):
 
 Tolerances: tri ids, hit keys (t), occlusion and row fetches are
 bit-exact (-fmad=false: the kernels round op for op like PyTorch's
-separate kernels); the bounce fetch is bit-exact except the rows derived
-through rsqrtf (normals, light cosine), held to 1e-5.
+separate kernels); the bounce fetch and the fused kernel are bit-exact
+except the rows derived through rsqrtf (normals, light cosine), held to
+1e-5.
 """
 
 import numpy as np
@@ -21,7 +24,9 @@ import torch
 
 from tpu_pbrt_torch.ops import cuda
 from tpu_pbrt_torch.ops import shade_table as st
+from tpu_pbrt_torch.ops import trace_shade_fused as tsf
 from tpu_pbrt_torch.ops import traverse_dense as td
+from tpu_pbrt_torch.ops import traverse_resident as trs
 from tpu_pbrt_torch.ops.vec import Vec3
 
 pytestmark = pytest.mark.cuda
@@ -135,3 +140,150 @@ def test_launch_counts_move_only_on_launch(dev):
     td.any_hit(tris, o, d, 0.0, 1.0)
     assert cuda.KERNELS["dense_closest_hit"].launches == 1
     assert cuda.KERNELS["dense_any_hit"].launches == 1
+
+
+def _corners(n, seed):
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    v1 = v0 + rng.uniform(-0.4, 0.4, (n, 3)).astype(np.float32)
+    v2 = v0 + rng.uniform(-0.4, 0.4, (n, 3)).astype(np.float32)
+    op = (rng.random(n) > 0.3).astype(np.float32)
+    return v0, v1, v2, op
+
+
+def _with_pad_block(res: trs.ResidentTris) -> trs.ResidentTris:
+    """The accel with one more block, all padding, walked last by every
+    octant (entry key 3e38, as prepare gives all-pad blocks)."""
+    nb = res.tris.shape[0]
+    dev = res.tris.device
+    return res._replace(
+        tris=torch.cat([res.tris, torch.zeros_like(res.tris[:1])]),
+        tri_id=torch.cat([res.tri_id, torch.full(
+            (trs.BLOCK,), -1, dtype=torch.int32, device=dev)]),
+        orders=torch.cat([res.orders, torch.full(
+            (8, 1), nb, dtype=torch.int32, device=dev)], 1),
+        keys=torch.cat([res.keys, torch.full(
+            (8, 1), 3e38, dtype=torch.float32, device=dev)], 1))
+
+
+@pytest.mark.parametrize("pad_block", [False, True])
+@pytest.mark.parametrize("ntri", [1, 129, 700, 2500])
+@pytest.mark.parametrize("nray", [1, 255, 4099])
+def test_resident_kernels_exact(dev, ntri, nray, pad_block):
+    """Walk kernel vs plain walk on the same sorted rays: keys and
+    occlusion bit for bit; R not a multiple of 256 (pad rows), every 7th
+    lane idle, finite intervals on every 11th."""
+    res = trs.prepare(*_corners(ntri, ntri), device=dev)
+    if pad_block:
+        res = _with_pad_block(res)
+    o, d, tmin, tmax = _rays(nray, nray + 1, dev)
+    rays, perm, octs = trs.sort_rays(res, o, d, tmin, tmax)
+    for occlusion in (False, True):
+        got = trs.walk_cuda(res, rays, octs, occlusion)
+        want, _ = trs.walk_plain(res, rays, octs, occlusion)
+        assert torch.equal(got, want), occlusion
+    got = trs.closest_hit_cuda(res, o, d, tmin, tmax)
+    want = trs.closest_hit_plain(res, o, d, tmin, tmax)
+    assert torch.equal(got.tri, want.tri)
+    assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
+    far = torch.where(torch.isinf(tmax), torch.full_like(tmax, 2.0), tmax)
+    assert torch.equal(trs.any_hit_cuda(res, o, d, tmin, far),
+                       trs.any_hit_plain(res, o, d, tmin, far))
+
+
+def test_resident_chunk_straddles_octants(dev):
+    """Rays of two octants in one 256-ray chunk: the chunk walks the first
+    lane's octant order and its other lanes never pass the done test."""
+    res = trs.prepare(*_corners(700, 3), device=dev)
+    n = 300
+    rng = np.random.default_rng(5)
+    o = rng.uniform(-3, 3, (3, n)).astype(np.float32)
+    d = np.abs(rng.normal(size=(3, n))) + 0.1
+    d[0, 200:] *= -1.0                    # 200 lanes octant 7, 100 octant 6
+    d = (d / np.linalg.norm(d, axis=0)).astype(np.float32)
+    ov = Vec3(*(torch.as_tensor(c, device=dev) for c in o))
+    dv = Vec3(*(torch.as_tensor(c, device=dev) for c in d))
+    tmin = torch.zeros(n, device=dev)
+    tmax = torch.full((n,), float("inf"), device=dev)
+    rays, _, octs = trs.sort_rays(res, ov, dv, tmin, tmax)
+    sorted_oct = ((rays[:256, 3] >= 0).int() + 2 * (rays[:256, 4] >= 0).int()
+                  + 4 * (rays[:256, 5] >= 0).int())
+    active = rays[:256, 7] > rays[:256, 6]
+    assert len(set(sorted_oct[active].tolist())) == 2
+    for occlusion in (False, True):
+        got = trs.walk_cuda(res, rays, octs, occlusion)
+        want, _ = trs.walk_plain(res, rays, octs, occlusion)
+        assert torch.equal(got, want)
+
+
+def test_resident_all_idle(dev):
+    """Every lane inactive: every chunk returns at once, nothing hit."""
+    res = trs.prepare(*_corners(300, 4), device=dev)
+    o, d, tmin, _ = _rays(600, 9, dev)
+    tmax = torch.full_like(tmin, -float("inf"))
+    hit = trs.closest_hit_cuda(res, o, d, tmin, tmax)
+    assert bool((hit.tri == -1).all()) and bool(torch.isinf(hit.t).all())
+    assert not bool(trs.any_hit_cuda(res, o, d, tmin, tmax).any())
+
+
+def _fused_table(tris: td.DenseTris, v0, v1, v2, dev):
+    """A shade table whose rows follow the padded soup (normals = face
+    normals, tri id = row, -1 on padding)."""
+    tp = tris.v0.shape[0]
+    n = v0.shape[0]
+    table = np.zeros((tp, st.COLS), np.float32)
+    table[:n, st._P0:st._P0 + 3] = v0
+    table[:n, st._E1:st._E1 + 3] = v1 - v0
+    table[:n, st._E2:st._E2 + 3] = v2 - v0
+    nrm = np.cross(v1 - v0, v2 - v0)
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-9)
+    for k in range(3):
+        table[:n, st._N0 + 3 * k:st._N0 + 3 * k + 3] = nrm
+    table[:n, st._BASE:st._BASE + 3] = 0.5
+    table[:, st._TRI] = np.concatenate([np.arange(n), -np.ones(tp - n)])
+    return st.bounce_subtable(torch.as_tensor(table, device=dev))
+
+
+@pytest.mark.parametrize("ntri", [1, 36, 300, 1024])
+@pytest.mark.parametrize("nray", [1, 255, 4099])
+def test_fused_closest_hit_shade_kernel(dev, ntri, nray):
+    """The fused kernel vs its plain version (kernel-1 sweep + bounce
+    fetch): t, found and tri bit-exact, every row but the rsqrt ones
+    bit-exact, those within 1e-5; empty intervals on every 7th lane."""
+    v0, v1, v2, op = _corners(ntri, ntri + 2)
+    tris = td.prepare(v0, v1, v2, opacity=op, device=dev)
+    sub = _fused_table(tris, v0, v1, v2, dev)
+    o, d, tmin, tmax = _rays(nray, nray + 3, dev)
+    got = tsf.closest_hit_shade_cuda(tris, sub, o, d, tmin, tmax)
+    want = tsf.closest_hit_shade_plain(tris, sub, o, d, tmin, tmax)
+    rsq = list(range(st._FB_FLAT, st._FB_LCOS + 1))
+    exact = [i for i in range(tsf.OUT_ROWS) if i not in rsq + [st._FB_FRONT]]
+    assert torch.equal(got[exact].view(torch.int32),
+                       want[exact].view(torch.int32))
+    assert float((got[rsq] - want[rsq]).abs().max()) <= 1e-5
+    grazing = want[st._FB_LCOS].abs() < 1e-5
+    assert not bool(((got[st._FB_FRONT] != want[st._FB_FRONT])
+                     & ~grazing).any())
+    # and the composition of kernel 1 and kernel 3 gives the same block
+    hit = td.closest_hit_cuda(tris, o, d, tmin, tmax)
+    block = st.fetch_bounce_block_cuda(sub, torch.clamp(hit.tri, min=0), o, d)
+    assert torch.equal(got[:st.FB_OUT], block)
+    assert torch.equal(got[tsf.ROW_HIT_T], hit.t)
+
+
+def test_new_kernels_count_launches(dev):
+    res = trs.prepare(*_corners(300, 1), device=dev)
+    v0, v1, v2, op = _corners(36, 2)
+    tris = td.prepare(v0, v1, v2, opacity=op, device=dev)
+    sub = _fused_table(tris, v0, v1, v2, dev)
+    o, d, tmin, tmax = _rays(64, 2, dev)
+    cuda.reset_launches()
+    trs.closest_hit_plain(res, o, d, tmin, tmax)
+    tsf.closest_hit_shade_plain(tris, sub, o, d, tmin, tmax)
+    assert all(k.launches == 0 for k in cuda.KERNELS.values())
+    trs.closest_hit(res, o, d, tmin, tmax)
+    trs.any_hit(res, o, d, 0.0, 1.0)
+    tsf.closest_hit_shade(tris, sub, o, d, tmin, tmax)
+    assert cuda.KERNELS["resident_closest_hit"].launches == 1
+    assert cuda.KERNELS["resident_any_hit"].launches == 1
+    assert cuda.KERNELS["dense_closest_hit_shade"].launches == 1

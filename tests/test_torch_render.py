@@ -11,6 +11,7 @@ elsewhere, so per-pixel agreement is a share: at least 99% of pixels
 within 1e-3 relative, and the frame mean within 1e-3 relative.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -45,7 +46,7 @@ def _port_tracer(jtrc):
              tri_id=np.array(acc.tri_id), opacity=np.array(acc.opacity),
              num=acc.num),
         np.array(jtrc.shade_table), np.array(jtrc.light_table),
-        np.array(jtrc.light_cdf))
+        np.array(jtrc.light_cdf), device="cpu")
 
 
 _SETTINGS = {
@@ -56,22 +57,29 @@ _SETTINGS = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_cornell_frame(name):
+    """The reference's same-seed Cornell frame under _SETTINGS[name] (one
+    trace and compile per setting for the whole module)."""
+    js = JSettings(**_SETTINGS[name])
+    jr = jrenderer.Renderer(jcornell.make_cornell_box(), W, H, js)
+    cam = jcornell.make_cornell_camera(W, H).data()
+    return jax.jit(lambda trc, scene, c: jrenderer._render_frame(
+        trc, scene, c, np.uint32(FRAME), width=W, height=H, settings=js,
+        with_gbuffer=True))(jr.tracer, jr.scene, cam), jr.tracer
+
+
 @pytest.fixture(scope="module", params=sorted(_SETTINGS))
 def frames(request):
     kw = _SETTINGS[request.param]
-    js = JSettings(**kw)
-    jr = jrenderer.Renderer(jcornell.make_cornell_box(), W, H, js)
-    cam = jcornell.make_cornell_camera(W, H).data()
-    want = jax.jit(lambda trc, scene, c: jrenderer._render_frame(
-        trc, scene, c, np.uint32(FRAME), width=W, height=H, settings=js,
-        with_gbuffer=True))(jr.tracer, jr.scene, cam)
+    want, jtracer = _jax_cornell_frame(request.param)
     tr = trenderer.Renderer(tcornell.make_cornell_box(), W, H,
                             TSettings(**kw), device="cpu",
-                            tracer=_port_tracer(jr.tracer))
+                            tracer=_port_tracer(jtracer))
     got = trenderer._render_frame(
         tr.tracer, tr.environment, tr.light_count,
-        tcornell.make_cornell_camera(W, H).data(), FRAME, width=W, height=H,
-        settings=tr.settings, with_gbuffer=True)
+        tcornell.make_cornell_camera(W, H).data(device="cpu"), FRAME,
+        width=W, height=H, settings=tr.settings, with_gbuffer=True)
     return want, got
 
 
@@ -202,3 +210,141 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+# --- the big-scene path and the fused configuration ----------------------
+
+def _jax_helmet_scene(nu, nv, tmp_path):
+    """The reference's scene: bench.py's authored .glb through
+    tpu_pbrt.models.gltf, as bench.py's `_sphere_setup` builds it."""
+    import bench
+    from tpu_pbrt.models import gltf as jgltf
+    from tpu_pbrt.models.material import make_table
+    from tpu_pbrt.models.mesh import build_geometry
+    from tpu_pbrt.models.scene import make_environment, make_scene
+
+    path = str(tmp_path / "helmet.glb")
+    bench._write_sphere_glb(path, False, "helmet", nu=nu, nv=nv)
+    model = jgltf.load(path)
+    return make_scene(build_geometry(jgltf.to_geometry_meshes(model)),
+                      make_table(model.materials), make_environment())
+
+
+def _assert_frames_agree(want, got):
+    """G-buffer tri ids >= 99.9% equal, frame mean within 1e-3 relative,
+    >= 99% of pixels within 1e-3 relative, and >= 99% of the pixels with a
+    primary hit within 1e-3 relative (so sky pixels, which every tracer
+    shades alike, cannot carry the share)."""
+    (jimg, _, jgb), (timg, _, tgb) = want, got
+    jimg, timg = np.asarray(jimg), timg.numpy()
+    assert timg.shape == (H, W, 3) and np.isfinite(timg).all()
+    assert (np.asarray(jgb.tri) == tgb.tri.numpy()).mean() >= 0.999
+    rel_mean = abs(timg.mean() - jimg.mean()) / jimg.mean()
+    assert rel_mean <= 1e-3, rel_mean
+    d = np.abs(timg - jimg).max(-1)
+    within = d <= 1e-3 * np.maximum(1.0, np.abs(jimg).max(-1))
+    assert within.mean() >= 0.99, within.mean()
+    hit = np.asarray(jgb.valid).reshape(H, W)
+    assert within[hit].mean() >= 0.99, within[hit].mean()
+
+
+def _helmet_frames(tmp_path, camera):
+    """The reduced helmet (40 x 28 grid, 2,160 triangles) at 64x48 with the
+    helmet config's settings, through the reference's culled tracer and
+    the port's resident walk, under `camera` (the port's models/cornell or
+    models/helmet camera; the reference gets a Camera with its fields)."""
+    from tpu_pbrt.render import camera as jcamera
+    from tpu_pbrt_torch.models import helmet
+
+    kw = dict(bounces=4, samples_per_pixel=1, count_rays=True,
+              compaction_schedule=(1, 2, 3), cone_spread=0.0)
+    js = JSettings(**kw)
+    jr = jrenderer.Renderer(_jax_helmet_scene(40, 28, tmp_path), W, H, js)
+    assert jr.tracer.kind == "culled"
+    tcam = camera(W, H)
+    jcam = jcamera.Camera(position=tcam.position.copy(),
+                          rotation=tcam.rotation.copy(),
+                          vertical_fov_deg=tcam.vertical_fov_deg,
+                          aspect=tcam.aspect)
+    want = jax.jit(lambda trc, scene, c: jrenderer._render_frame(
+        trc, scene, c, np.uint32(FRAME), width=W, height=H, settings=js,
+        with_gbuffer=True))(jr.tracer, jr.scene, jcam.data())
+    tr = trenderer.Renderer(helmet.make_scene("helmet", 40, 28), W, H,
+                            helmet.settings(), device="cpu")
+    assert tr.tracer.kind == "resident"
+    got = trenderer._render_frame(
+        tr.tracer, tr.environment, tr.light_count, tcam.data(device="cpu"),
+        FRAME, width=W, height=H, settings=tr.settings, with_gbuffer=True)
+    _assert_frames_agree(want, got)
+    return got
+
+
+def test_helmet_frame_matches_reference(tmp_path):
+    """The reduced helmet under the bench's camera (make_cornell_camera):
+    the port's resident walk against the reference's culled tracer. The
+    mesh is visible and differs from the sky."""
+    got = _helmet_frames(tmp_path, tcornell.make_cornell_camera)
+    valid = got[2].valid.numpy().reshape(H, W)
+    assert 0.005 < valid.mean() < 0.5
+    img = got[0].numpy()
+    assert np.abs(img[valid] - img[~valid].mean((0,))).max() > 0.05
+
+
+def test_helmet_framed_frame_matches_reference(tmp_path):
+    """The reduced helmet under a camera that frames it
+    (models/helmet.make_camera), so the mesh's pixels outnumber the 1%
+    slack of the pixel gates many times over."""
+    from tpu_pbrt_torch.models import helmet
+
+    got = _helmet_frames(tmp_path, helmet.make_camera)
+    valid = got[2].valid.numpy().reshape(H, W)
+    assert 0.2 < valid.mean() < 0.6, valid.mean()
+
+
+def test_fused_cornell_frame_matches_reference(monkeypatch):
+    """The fused configuration (TRACE_FUSED on: every bounce through
+    closest_hit_shade) against the reference's unfused frame."""
+    from tpu_pbrt_torch.ops import trace_shade_fused as tfused
+
+    monkeypatch.setattr(tfused, "TRACE_FUSED", True)
+    kw = _SETTINGS["4b_fold2"]
+    want, _ = _jax_cornell_frame("4b_fold2")
+    tr = trenderer.Renderer(tcornell.make_cornell_box(), W, H,
+                            TSettings(**kw), device="cpu")
+    assert tr.tracer.supports_fused_shade()
+    got = trenderer._render_frame(
+        tr.tracer, tr.environment, tr.light_count,
+        tcornell.make_cornell_camera(W, H).data(device="cpu"), FRAME,
+        width=W, height=H, settings=tr.settings, with_gbuffer=True)
+    assert float(got[1]) == float(want[1])
+    _assert_frames_agree(want, got)
+
+
+def test_png_writer_round_trip(tmp_path):
+    """The port's PNG writer (no PIL): signature, IHDR, CRCs and the
+    filtered rows decode back to the image."""
+    import struct
+    import zlib
+
+    from tpu_pbrt_torch.utils.image import write_png
+
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (H, W, 3)).astype(np.uint8)
+    path = tmp_path / "x.png"
+    write_png(str(path), img)
+    data = path.read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(kind + body) & 0xFFFFFFFF
+        chunks[kind] = chunks.get(kind, b"") + body
+        pos += 12 + n
+    assert struct.unpack(">IIBBBBB", chunks[b"IHDR"]) == (W, H, 8, 2, 0, 0, 0)
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = rows.reshape(H, 1 + 3 * W)
+    assert not rows[:, 0].any()
+    np.testing.assert_array_equal(rows[:, 1:].reshape(H, W, 3), img)
+    assert b"IEND" in chunks

@@ -14,25 +14,30 @@ import torch
 from .models.material import MaterialTable
 from .models.mesh import Geometry
 from .models.scene import EmissiveLights, EnvironmentLight, Scene
-from .ops import traverse_dense
+from .ops import traverse_dense, traverse_resident
 from .ops.tracer import Tracer
+
+_INT_FIELDS = ("tri_id", "orders")
 
 
 def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
-                      light_table: np.ndarray, light_cdf: np.ndarray,
-                      device: str | torch.device = "cpu") -> Tracer:
-    """Port `Tracer` from a reference tracer's leaves: `accel` holds the
-    `DenseTris` fields (v0, e1, e2, tri_id, opacity as arrays, num as int)."""
+                      light_table: np.ndarray, light_cdf: np.ndarray, *,
+                      device: str | torch.device) -> Tracer:
+    """Port `Tracer` from a reference tracer's leaves. `accel` holds the
+    fields of a `DenseTris` (v0, e1, e2, tri_id, opacity) or of a
+    `ResidentTris` (tris, tri_id, orders, keys, lo, hi, scene_diag) as
+    arrays, and `num` as an int."""
 
     def t(a, dtype):
         return torch.as_tensor(np.array(a, dtype=dtype), device=device)
 
-    dense = traverse_dense.DenseTris(
-        v0=t(accel["v0"], np.float32), e1=t(accel["e1"], np.float32),
-        e2=t(accel["e2"], np.float32), tri_id=t(accel["tri_id"], np.int32),
-        opacity=t(accel["opacity"], np.float32), num=int(accel["num"]))
-    return Tracer(dense, t(shade_table, np.float32),
-                  t(light_table, np.float32), t(light_cdf, np.float32))
+    cls = (traverse_resident.ResidentTris if "tris" in accel
+           else traverse_dense.DenseTris)
+    fields = {f: t(accel[f], np.int32 if f in _INT_FIELDS else np.float32)
+              for f in cls._fields[:-1]}
+    return Tracer(cls(**fields, num=int(accel["num"])),
+                  t(shade_table, np.float32), t(light_table, np.float32),
+                  t(light_cdf, np.float32))
 
 
 def scene_from_numpy(geometry: dict, materials: dict, environment: dict,

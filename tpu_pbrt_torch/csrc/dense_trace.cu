@@ -5,7 +5,15 @@
 // tpu_pbrt/ops/traverse_dense.py::closest_hit, which the main path runs in
 // the G-buffer and at every bounce. tpb_dense_any_hit replaces
 // trace_shade_fused.py::any_hit and its twin traverse_dense.py::any_hit
-// (the NEE shadow ray of every bounce).
+// (the NEE shadow ray of every bounce). tpb_dense_closest_hit_shade
+// replaces the whole of trace_shade_fused.py::closest_hit_shade: the same
+// sweep, then the winning row of the bounce sub-table and its unpack
+// (bounce_unpack.cuh, the code of the bounce fetch), so the bounces of the
+// fused configuration (TPU_PBRT_TRACE_FUSED=1) write one (32, R) block
+// instead of a hit and a fetch. The TPU kernel fetches the row with a
+// one-hot MXU product; here it is one indexed load (the table stays in
+// L1/L2). Fused, it is bound by its bytes: 32 B of ray in and 128 B out
+// per ray.
 //
 // Design. One thread per ray; the block stages the triangles in shared
 // memory one 128-row chunk at a time (the reference's chunk), as SoA
@@ -14,8 +22,8 @@
 // tracer's 2048-triangle limit, with no dynamic-shared-memory opt-in.
 //
 // Bound on this card: arithmetic. Per (ray, triangle) pair the closest-hit
-// test is ~40 FP32 ops plus one IEEE division, the any-hit test ~35 ops
-// with no division; a ray's bytes (8 floats in, 8 bytes out) are paid once
+// test is ~54 FP32 ops including one IEEE division, the any-hit test ~56
+// ops with no division; a ray's bytes (8 floats in, 8 bytes out) are paid once
 // for all triangles. For the Cornell box (40 padded rows) a 1080p pool is
 // ~83M pairs, a few GFLOP: well under a millisecond at the card's FP32
 // rate, so the launch and the ray reads are what remain.
@@ -33,10 +41,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bounce_unpack.cuh"
+
 namespace {
 
 constexpr int kChunk = 128;
 constexpr int kThreads = 256;
+// the fused kernel's output rows (trace_shade_fused.py:58-62)
+constexpr int kRowHitT = 24;
+constexpr int kRowFound = 25;
+constexpr int kFusedRows = 32;
 
 struct TriChunk {
     float v0x[kChunk], v0y[kChunk], v0z[kChunk];
@@ -61,34 +75,18 @@ __device__ void load_chunk(TriChunk& s, const float* __restrict__ v0,
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-dense_closest_hit_kernel(const float* __restrict__ ox,
-                         const float* __restrict__ oy,
-                         const float* __restrict__ oz,
-                         const float* __restrict__ dx_,
-                         const float* __restrict__ dy_,
-                         const float* __restrict__ dz_,
-                         const float* __restrict__ tmin_,
-                         const float* __restrict__ tmax_,
-                         const float* __restrict__ v0,
-                         const float* __restrict__ e1,
-                         const float* __restrict__ e2,
-                         int t_pad, int chunk, int idx_bits, int n,
-                         float* __restrict__ out_t,
-                         int* __restrict__ out_tri) {
-    __shared__ TriChunk s;
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    const bool live = i < n;
+// The closest-hit sweep of one ray (every thread of the block calls it: it
+// stages each chunk with the block). Returns the packed u32 key: t's low
+// idx_bits mantissa bits replaced by the row, idx_mask where nothing was
+// hit. Each chunk shrinks the interval to the best t so far.
+__device__ __forceinline__ uint32_t closest_sweep(
+        TriChunk& s, const float* __restrict__ v0,
+        const float* __restrict__ e1, const float* __restrict__ e2,
+        int t_pad, int chunk, int idx_bits, bool live,
+        float o_x, float o_y, float o_z, float dx, float dy, float dz,
+        float tmin, float tmax) {
     const uint32_t idx_mask = (1u << idx_bits) - 1u;
     const uint32_t keep = ~idx_mask;
-
-    float o_x = 0.f, o_y = 0.f, o_z = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-    float tmin = 0.f, tmax = 0.f;
-    if (live) {
-        o_x = ox[i]; o_y = oy[i]; o_z = oz[i];
-        dx = dx_[i]; dy = dy_[i]; dz = dz_[i];
-        tmin = tmin_[i]; tmax = tmax_[i];
-    }
     uint32_t best = (__float_as_uint(fmaxf(tmax, 0.f)) & keep) | idx_mask;
 
     for (int base = 0; base < t_pad; base += chunk) {
@@ -126,10 +124,96 @@ dense_closest_hit_kernel(const float* __restrict__ ox,
         }
         best = min(best, cbest);
     }
+    return best;
+}
+
+__global__ void __launch_bounds__(kThreads)
+dense_closest_hit_kernel(const float* __restrict__ ox,
+                         const float* __restrict__ oy,
+                         const float* __restrict__ oz,
+                         const float* __restrict__ dx_,
+                         const float* __restrict__ dy_,
+                         const float* __restrict__ dz_,
+                         const float* __restrict__ tmin_,
+                         const float* __restrict__ tmax_,
+                         const float* __restrict__ v0,
+                         const float* __restrict__ e1,
+                         const float* __restrict__ e2,
+                         int t_pad, int chunk, int idx_bits, int n,
+                         float* __restrict__ out_t,
+                         int* __restrict__ out_tri) {
+    __shared__ TriChunk s;
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const bool live = i < n;
+    const uint32_t idx_mask = (1u << idx_bits) - 1u;
+
+    float o_x = 0.f, o_y = 0.f, o_z = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+    float tmin = 0.f, tmax = 0.f;
+    if (live) {
+        o_x = ox[i]; o_y = oy[i]; o_z = oz[i];
+        dx = dx_[i]; dy = dy_[i]; dz = dz_[i];
+        tmin = tmin_[i]; tmax = tmax_[i];
+    }
+    const uint32_t best = closest_sweep(s, v0, e1, e2, t_pad, chunk, idx_bits,
+                                        live, o_x, o_y, o_z, dx, dy, dz,
+                                        tmin, tmax);
     if (!live) return;
     const bool found = (best & idx_mask) != idx_mask;
-    out_t[i] = found ? __uint_as_float(best & keep) : __int_as_float(0x7f800000);
+    out_t[i] = found ? __uint_as_float(best & ~idx_mask)
+                     : __int_as_float(0x7f800000);
     out_tri[i] = found ? (int)(best & idx_mask) : -1;
+}
+
+// Closest hit + bounce fetch + unpack in one kernel: the closest_sweep of
+// kernel 1, an indexed load of the winning row of the (T, 30) bounce
+// sub-table (row 0 on a miss, as the reference's slot), and the unpack of
+// kernel 3, written as the reference's 32-row block: rows 0-22 the
+// post-unpack rows, 24 the hit t (+inf on a miss), 25 the found flag, the
+// rest zero.
+__global__ void __launch_bounds__(kThreads)
+dense_closest_hit_shade_kernel(const float* __restrict__ ox,
+                               const float* __restrict__ oy,
+                               const float* __restrict__ oz,
+                               const float* __restrict__ dx_,
+                               const float* __restrict__ dy_,
+                               const float* __restrict__ dz_,
+                               const float* __restrict__ tmin_,
+                               const float* __restrict__ tmax_,
+                               const float* __restrict__ v0,
+                               const float* __restrict__ e1,
+                               const float* __restrict__ e2,
+                               int t_pad, int chunk, int idx_bits,
+                               const float* __restrict__ sub, int t_rows,
+                               int n, float* __restrict__ out) {
+    __shared__ TriChunk s;
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const bool live = i < n;
+    const uint32_t idx_mask = (1u << idx_bits) - 1u;
+
+    float o_x = 0.f, o_y = 0.f, o_z = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+    float tmin = 0.f, tmax = 0.f;
+    if (live) {
+        o_x = ox[i]; o_y = oy[i]; o_z = oz[i];
+        dx = dx_[i]; dy = dy_[i]; dz = dz_[i];
+        tmin = tmin_[i]; tmax = tmax_[i];
+    }
+    const uint32_t best = closest_sweep(s, v0, e1, e2, t_pad, chunk, idx_bits,
+                                        live, o_x, o_y, o_z, dx, dy, dz,
+                                        tmin, tmax);
+    if (!live) return;
+    const bool found = (best & idx_mask) != idx_mask;
+    float row[tpb::kSubCols];
+    tpb::load_bounce_row(sub, t_rows, found ? (int)(best & idx_mask) : 0,
+                         row);
+    float* o = out + i;
+    const size_t R = (size_t)n;
+    tpb::unpack_bounce(row, o_x, o_y, o_z, dx, dy, dz, o, R);
+    o[tpb::kOutRows * R] = 0.0f;
+    o[kRowHitT * R] = found ? __uint_as_float(best & ~idx_mask)
+                            : __int_as_float(0x7f800000);
+    o[kRowFound * R] = found ? 1.0f : 0.0f;
+#pragma unroll
+    for (int k = kRowFound + 1; k < kFusedRows; ++k) o[k * R] = 0.0f;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -207,6 +291,23 @@ int tpb_dense_closest_hit(const float* ox, const float* oy, const float* oz,
         dense_closest_hit_kernel<<<blocks, kThreads, 0, stream>>>(
             ox, oy, oz, dx, dy, dz, tmin, tmax, v0, e1, e2,
             t_pad, chunk, idx_bits, n, out_t, out_tri);
+    }
+    return (int)cudaGetLastError();
+}
+
+int tpb_dense_closest_hit_shade(const float* ox, const float* oy,
+                                const float* oz, const float* dx,
+                                const float* dy, const float* dz,
+                                const float* tmin, const float* tmax,
+                                const float* v0, const float* e1,
+                                const float* e2, int t_pad, int chunk,
+                                int idx_bits, const float* sub, int t_rows,
+                                int n, float* out, cudaStream_t stream) {
+    if (n > 0) {
+        const int blocks = (n + kThreads - 1) / kThreads;
+        dense_closest_hit_shade_kernel<<<blocks, kThreads, 0, stream>>>(
+            ox, oy, oz, dx, dy, dz, tmin, tmax, v0, e1, e2, t_pad, chunk,
+            idx_bits, sub, t_rows, n, out);
     }
     return (int)cudaGetLastError();
 }

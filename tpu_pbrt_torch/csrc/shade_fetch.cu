@@ -27,7 +27,8 @@
 // one ray (fetch_rows: one ray of one column), so loads of the ray inputs
 // and stores of every output row are coalesced across the warp.
 //
-// Exactness. Built with -fmad=false: the unpack rounds op for op like the
+// Exactness. Built with -fmad=false: the unpack (bounce_unpack.cuh, shared
+// with the fused closest-hit-and-shade kernel) rounds op for op like the
 // plain PyTorch version, in the order of shade_table.py:376-443. The one
 // exception is rsqrtf (the reference's lax.rsqrt), an approximation within
 // 2 ulp: normals and the cosine derived from them agree within ~1e-6, not
@@ -36,26 +37,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bounce_unpack.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSubCols = 30;   // shade_table._BOUNCE_COLS
-constexpr int kOutRows = 23;   // shade_table._FB_TRI + 1
-
-// _BOUNCE_COLS positions inside the untextured sub-table
-constexpr int SB_P0 = 0, SB_E1 = 3, SB_E2 = 6, SB_N0 = 9;
-constexpr int SB_EMIT = 18, SB_BASE = 21;
-constexpr int SB_METAL = 24, SB_ROUGH = 25, SB_IOR = 26, SB_TRANS = 27,
-              SB_LPDF = 28, SB_TRI = 29;
-// post-unpack row layout (shade_table._FB_*)
-constexpr int FB_POS = 0, FB_FLAT = 3, FB_SHAD = 6, FB_LCOS = 9,
-              FB_FRONT = 10, FB_BASE = 11, FB_EMIT = 14, FB_METAL = 17,
-              FB_ROUGH = 18, FB_IOR = 19, FB_TRANS = 20, FB_LPDF = 21,
-              FB_TRI = 22;
-
-__device__ __forceinline__ float clip01(float x) {
-    return fminf(fmaxf(x, 0.0f), 1.0f);
-}
 
 __global__ void __launch_bounds__(kThreads)
 fetch_bounce_kernel(const int* __restrict__ slot,
@@ -66,77 +52,10 @@ fetch_bounce_kernel(const int* __restrict__ slot,
                     float* __restrict__ out) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const int sl = slot[i];
-    const bool in_table = sl >= 0 && sl < t_rows;
-    float row[kSubCols];
-#pragma unroll
-    for (int c = 0; c < kSubCols; ++c)
-        row[c] = in_table ? __ldg(sub + (size_t)sl * kSubCols + c) : 0.0f;
-
-    const float ox = ox_[i], oy = oy_[i], oz = oz_[i];
-    const float dx = dx_[i], dy = dy_[i], dz = dz_[i];
-    const float p0x = row[SB_P0], p0y = row[SB_P0 + 1], p0z = row[SB_P0 + 2];
-    const float e1x = row[SB_E1], e1y = row[SB_E1 + 1], e1z = row[SB_E1 + 2];
-    const float e2x = row[SB_E2], e2y = row[SB_E2 + 1], e2z = row[SB_E2 + 2];
-
-    // Möller–Trumbore barycentrics (ops/intersect.py semantics)
-    const float pvx = dy * e2z - dz * e2y;
-    const float pvy = dz * e2x - dx * e2z;
-    const float pvz = dx * e2y - dy * e2x;
-    const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-    const float inv_det = 1.0f / (fabsf(det) > 1e-12f ? det : 1.0f);
-    const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
-    float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-    const float qvx = tvy * e1z - tvz * e1y;
-    const float qvy = tvz * e1x - tvx * e1z;
-    const float qvz = tvx * e1y - tvy * e1x;
-    float v = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
-    u = clip01(u);
-    v = clip01(v);
-    const float w = 1.0f - u - v;
-
-    float* o = out + i;
-    const size_t R = (size_t)n;
-    o[(FB_POS + 0) * R] = p0x + e1x * u + e2x * v;
-    o[(FB_POS + 1) * R] = p0y + e1y * u + e2y * v;
-    o[(FB_POS + 2) * R] = p0z + e1z * u + e2z * v;
-
-    float fx = e1y * e2z - e1z * e2y;
-    float fy = e1z * e2x - e1x * e2z;
-    float fz = e1x * e2y - e1y * e2x;
-    const float finv = rsqrtf(fmaxf(fx * fx + fy * fy + fz * fz, 1e-20f));
-    fx = fx * finv; fy = fy * finv; fz = fz * finv;
-
-    float sx = row[SB_N0] * w + row[SB_N0 + 3] * u + row[SB_N0 + 6] * v;
-    float sy = row[SB_N0 + 1] * w + row[SB_N0 + 4] * u + row[SB_N0 + 7] * v;
-    float sz = row[SB_N0 + 2] * w + row[SB_N0 + 5] * u + row[SB_N0 + 8] * v;
-    const float sinv = rsqrtf(fmaxf(sx * sx + sy * sy + sz * sz, 1e-20f));
-    sx = sx * sinv; sy = sy * sinv; sz = sz * sinv;
-
-    const float lcos = -(fx * dx + fy * dy + fz * dz);
-    if (fx * sx + fy * sy + fz * sz < 0.0f) { fx = -fx; fy = -fy; fz = -fz; }
-    const bool front = (fx * dx + fy * dy + fz * dz) < 0.0f;
-    if (!front) { sx = -sx; sy = -sy; sz = -sz; }
-
-    o[(FB_FLAT + 0) * R] = fx;
-    o[(FB_FLAT + 1) * R] = fy;
-    o[(FB_FLAT + 2) * R] = fz;
-    o[(FB_SHAD + 0) * R] = sx;
-    o[(FB_SHAD + 1) * R] = sy;
-    o[(FB_SHAD + 2) * R] = sz;
-    o[FB_LCOS * R] = lcos;
-    o[FB_FRONT * R] = front ? 1.0f : 0.0f;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-        o[(FB_BASE + j) * R] = row[SB_BASE + j];
-        o[(FB_EMIT + j) * R] = row[SB_EMIT + j];
-    }
-    o[FB_METAL * R] = row[SB_METAL];
-    o[FB_ROUGH * R] = row[SB_ROUGH];
-    o[FB_IOR * R] = row[SB_IOR];
-    o[FB_TRANS * R] = row[SB_TRANS];
-    o[FB_LPDF * R] = row[SB_LPDF];
-    o[FB_TRI * R] = row[SB_TRI];
+    float row[tpb::kSubCols];
+    tpb::load_bounce_row(sub, t_rows, slot[i], row);
+    tpb::unpack_bounce(row, ox_[i], oy_[i], oz_[i], dx_[i], dy_[i], dz_[i],
+                       out + i, (size_t)n);
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -1,11 +1,12 @@
 """Build, load and launch the hand-written CUDA kernels of `csrc/`.
 
-All `csrc/*.cu` files compile with nvcc into one shared library with a plain
-C interface, loaded through ctypes (no PyTorch headers: the build takes
+Each `csrc/*.cu` file compiles with its own nvcc process, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded through ctypes (no PyTorch headers: the build takes
 seconds). The build runs at first use, from the checkout's sources only,
 into `tpu_pbrt_torch/_build/` (git-ignored); the library's file name carries
-a hash of the sources and flags, so an edited source is never served from a
-stale build.
+a hash of the sources, headers and flags, so an edited source is never
+served from a stale build.
 
 `-fmad=false` and no `--use_fast_math`: every kernel then rounds op for op
 like its plain PyTorch version on the card (each PyTorch op is its own
@@ -34,9 +35,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas", "-v",
 )
 
@@ -71,21 +72,42 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/*.cu into the build directory unless this exact build
-    is already there; returns the library path."""
+    is already there (one nvcc per source, run in parallel, then one link);
+    returns the library path."""
     global build_seconds, build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources())]
+    nvcc = nvcc_path()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs, failed = [], []
+    for src, proc in zip(_sources(), procs):
+        stdout, stderr = proc.communicate()
+        logs.append(f"== {src.name}\n{stdout}{stderr}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *(str(o) for o in objs)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    build_log = "\n".join(logs)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp, out)
     return out
 

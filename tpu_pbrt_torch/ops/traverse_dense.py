@@ -41,8 +41,8 @@ class DenseTris(NamedTuple):
     num: int               # real triangle count
 
 
-def prepare(v0, v1, v2, opacity=None,
-            device: str | torch.device = "cpu") -> DenseTris:
+def prepare(v0, v1, v2, opacity=None, *,
+            device: str | torch.device) -> DenseTris:
     """Pad host (T, 3) corner arrays for the sweep and move them onto
     `device`: small scenes pad to a multiple of 8 rows, scenes above one
     chunk to a whole number of chunks; padded rows have zero edges, id -1

@@ -1,0 +1,403 @@
+"""Resident sorted-chunk walk: the port's tracer for scenes past the dense
+sweep (port of `tpu_pbrt/ops/traverse_resident.py`).
+
+Triangles are Morton-sorted into 128-wide blocks packed as (NB, 16, 128)
+rows (v0, e1, e2, opacity). Rays are sorted by octant and Morton code into
+256-ray chunks; each chunk walks its octant's front-to-back block order,
+two blocks per step, shrinking every lane's interval to its best key before
+each block, and stops once every lane is done (checked every
+`DONE_PERIOD` steps: the lane's reachable point along the octant's sweep
+direction lies before the next block's entry key). The closest hit is the
+packed int32 key (t's low `idx_bits` mantissa bits replaced by the block
+slot); the occlusion query ORs opacity >= 0.5 hits.
+
+The walk order and the interval shrink decide which triangle wins inside
+one key quantization bin, so they are part of the function: the kernel
+(`csrc/resident_trace.cu`, on CUDA tensors) and the plain PyTorch walk
+(`walk_plain`, on CPU tensors) replay the same steps and agree bit for
+bit. The sort is PyTorch on either device: a stable sort of the
+octant+Morton key, so ties keep lane order.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import cuda
+from .bvh import interleave, morton3d
+from .traverse import Hit
+from .vec import Vec3
+
+BLOCK = 128        # triangles per block (kBlock in csrc/resident_trace.cu)
+CHUNK = 256        # rays per chunk (one thread block)
+DONE_PERIOD = 4    # steps between early-exit checks (power of two)
+_ROWS = 16         # v0(3) e1(3) e2(3) opacity(1) pad(6)
+_M32 = 0xFFFFFFFF
+SENTINEL = 0x7FFFFFFF
+INF = float("inf")
+
+_SOURCE = "tpu_pbrt_torch/csrc/resident_trace.cu"
+_REPLACES = "tpu_pbrt/ops/traverse_resident.py:166"
+CLOSEST_HIT_KERNEL = cuda.register("resident_closest_hit", _SOURCE, _REPLACES)
+ANY_HIT_KERNEL = cuda.register("resident_any_hit", _SOURCE, _REPLACES)
+
+
+class ResidentTris(NamedTuple):
+    tris: torch.Tensor        # (NB, 16, 128) f32: v0,e1,e2 + opacity row 9
+    tri_id: torch.Tensor      # (NB*128,) i32 original tri id, -1 pad
+    orders: torch.Tensor      # (8, NB) i32 per-octant front-to-back block ids
+    keys: torch.Tensor        # (8, NB) f32 sigma-projected block entry keys
+    lo: torch.Tensor          # (3,) scene vertex bounds (ray Morton sort)
+    hi: torch.Tensor          # (3,)
+    scene_diag: torch.Tensor  # () f32
+    num: int
+
+
+def prepare(v0, v1, v2, opacity=None, *,
+            device: str | torch.device) -> ResidentTris:
+    """Host build (numpy, the reference's arithmetic): Morton-sort the
+    triangles into 128-wide blocks, pack the kernel layout, precompute the
+    8 octant walk orders and entry keys, then move the tables onto
+    `device`."""
+    v0 = np.asarray(v0, np.float32)
+    v1 = np.asarray(v1, np.float32)
+    v2 = np.asarray(v2, np.float32)
+    t = v0.shape[0]
+    if opacity is None:
+        opacity = np.ones((t,), np.float32)
+    opacity = np.asarray(opacity, np.float32)
+
+    centroid = (v0 + v1 + v2) / 3.0
+    lo = centroid.min(0)
+    hi = centroid.max(0)
+    q = np.clip((centroid - lo) / np.maximum(hi - lo, 1e-12) * 1024.0,
+                0, 1023).astype(np.int64)
+    codes = interleave(torch.as_tensor(q)).numpy()
+    order = np.argsort(codes, kind="stable").astype(np.int32)
+    sv0, sv1, sv2 = v0[order], v1[order], v2[order]
+    sid = order
+    sop = opacity[order]
+
+    pad = (-t) % BLOCK
+    if pad:
+        z = np.zeros((pad, 3), np.float32)
+        sv0 = np.concatenate([sv0, z])
+        sv1 = np.concatenate([sv1, z])
+        sv2 = np.concatenate([sv2, z])
+        sid = np.concatenate([sid, np.full((pad,), -1, np.int32)])
+        sop = np.concatenate([sop, np.zeros((pad,), np.float32)])
+    nb = sv0.shape[0] // BLOCK
+
+    packed = np.zeros((nb, _ROWS, BLOCK), np.float32)
+    packed[:, 0:3] = sv0.reshape(nb, BLOCK, 3).transpose(0, 2, 1)
+    packed[:, 3:6] = (sv1 - sv0).reshape(nb, BLOCK, 3).transpose(0, 2, 1)
+    packed[:, 6:9] = (sv2 - sv0).reshape(nb, BLOCK, 3).transpose(0, 2, 1)
+    packed[:, 9] = sop.reshape(nb, BLOCK)
+
+    tri_min = np.minimum(np.minimum(sv0, sv1), sv2).reshape(nb, BLOCK, 3)
+    tri_max = np.maximum(np.maximum(sv0, sv1), sv2).reshape(nb, BLOCK, 3)
+    valid = (sid >= 0).reshape(nb, BLOCK, 1)
+    bmin = np.where(valid, tri_min, np.inf).min(1)
+    bmax = np.where(valid, tri_max, -np.inf).max(1)
+
+    orders = np.zeros((8, nb), np.int32)
+    keys = np.zeros((8, nb), np.float32)
+    for oct_ in range(8):
+        sx = 1.0 if oct_ & 1 else -1.0
+        sy = 1.0 if oct_ & 2 else -1.0
+        sz = 1.0 if oct_ & 4 else -1.0
+        # min over the block AABB of sigma.x: the block's entry key along
+        # the octant's sweep direction
+        k = (sx * np.where(sx > 0, bmin[:, 0], bmax[:, 0])
+             + sy * np.where(sy > 0, bmin[:, 1], bmax[:, 1])
+             + sz * np.where(sz > 0, bmin[:, 2], bmax[:, 2]))
+        k = np.where(np.isfinite(k), k, np.inf)   # all-pad blocks last
+        o = np.argsort(k, kind="stable").astype(np.int32)
+        orders[oct_] = o
+        keys[oct_] = k[o].astype(np.float32)
+    keys = np.where(np.isfinite(keys), keys, np.float32(3e38))
+
+    # full vertex bounds: the far-bound clamp needs the true extent (the
+    # centroid bounds above only quantize the Morton codes)
+    vlo = np.minimum(np.minimum(v0.min(0), v1.min(0)), v2.min(0))
+    vhi = np.maximum(np.maximum(v0.max(0), v1.max(0)), v2.max(0))
+    diag = float(np.linalg.norm(vhi - vlo) + 1e-3)
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    return ResidentTris(
+        tris=dev(packed), tri_id=dev(sid.astype(np.int32)),
+        orders=dev(orders), keys=dev(keys.astype(np.float32)),
+        lo=dev(vlo.astype(np.float32)), hi=dev(vhi.astype(np.float32)),
+        scene_diag=torch.tensor(diag, dtype=torch.float32, device=device),
+        num=t)
+
+
+def idx_bits(nb: int) -> int:
+    """Key bits that carry the block slot for nb blocks."""
+    return max((nb * BLOCK - 1).bit_length(), 1)
+
+
+def _lane(x, r: int, like: torch.Tensor) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return torch.broadcast_to(x.to(torch.float32), (r,)).contiguous()
+    return torch.full((r,), float(x), dtype=torch.float32, device=like.device)
+
+
+def sort_rays(tris: ResidentTris, origin: Vec3, direction: Vec3, t_min,
+              t_max):
+    """Octant+Morton ray sort (the reference's `_sort_for_traversal`).
+
+    Returns (rays (Rp, 8) f32 rows ox,oy,oz,dx,dy,dz,t0,teff in sorted
+    order, perm (Rp,) int64 lane of each sorted row, octs (Rp/256,) i32
+    chunk octants). teff is the ray's finite far bound: its scene-bbox
+    exit (or t_max if nearer), -1 for inactive lanes and lanes that miss
+    the bbox; those sort after the active lanes, and the pad rows (lane
+    >= R, key 0xFFFFFFFF) after them."""
+    r = origin.x.shape[0]
+    dev = origin.x.device
+    rp = -(-r // CHUNK) * CHUNK
+    octant = ((direction.x >= 0).to(torch.int64)
+              + 2 * (direction.y >= 0).to(torch.int64)
+              + 4 * (direction.z >= 0).to(torch.int64))
+    code = morton3d(torch.stack([origin.x, origin.y, origin.z], -1),
+                    tris.lo, tris.hi)
+    key = (octant << 27) | (code >> 5)
+    t_min = _lane(t_min, r, origin.x)
+    t_max = _lane(t_max, r, origin.x)
+    active = t_max > t_min
+    key = torch.where(active, key, 0xFFFFFFFE)
+
+    def axis(o_, d_, lo_, hi_):
+        inv = 1.0 / torch.where(torch.abs(d_) > 1e-12, d_,
+                                torch.where(d_ >= 0, 1e-12, -1e-12))
+        a = (lo_ - o_) * inv
+        b = (hi_ - o_) * inv
+        return torch.minimum(a, b), torch.maximum(a, b)
+
+    nx_, fx_ = axis(origin.x, direction.x, tris.lo[0], tris.hi[0])
+    ny_, fy_ = axis(origin.y, direction.y, tris.lo[1], tris.hi[1])
+    nz_, fz_ = axis(origin.z, direction.z, tris.lo[2], tris.hi[2])
+    t_enter = torch.maximum(torch.maximum(nx_, ny_), torch.maximum(nz_, t_min))
+    t_exit = torch.minimum(torch.minimum(fx_, fy_), fz_)
+    active = active & (t_exit >= t_enter)
+    teff = torch.minimum(t_max, t_exit * (1.0 + 1e-4) + 1e-5)
+    teff = torch.where(active, teff, -1.0)
+
+    rows = torch.stack([origin.x, origin.y, origin.z, direction.x,
+                        direction.y, direction.z, t_min, teff], -1)
+    if rp > r:
+        pad = torch.tensor([0, 0, 0, 0, 0, 1, 0, -1], dtype=torch.float32,
+                           device=dev)
+        rows = torch.cat([rows, pad.expand(rp - r, 8)])
+        key = torch.cat([key, torch.full((rp - r,), _M32, dtype=torch.int64,
+                                         device=dev)])
+    skey, perm = torch.sort(key, stable=True)
+    octs = torch.clamp(skey[::CHUNK] >> 27, max=7).to(torch.int32)
+    return rows[perm].contiguous(), perm, octs
+
+
+def _unpack_t(key: torch.Tensor, keep: int) -> torch.Tensor:
+    """t from an int32 packed key (slot bits zeroed); keys with an all-ones
+    exponent (the no-hit sentinel) read as +inf."""
+    t = (key & keep).view(torch.float32)
+    return torch.where(key >= 0x7F800000, INF, t)
+
+
+def _sweep(tr, bid, ray, best, occlusion: bool, keep: int):
+    """One 128-triangle block against every lane of the given chunks.
+    tr (n, 16, 128), bid (n,) block ids, ray columns (n, 256, 1), best
+    (n, 256) i32 -> new best. The det-scaled Möller-Trumbore of the
+    reference kernel, in its operation order."""
+    ox, oy, oz, dx, dy, dz, t0, t1 = ray
+    v0x, v0y, v0z = tr[:, 0:1], tr[:, 1:2], tr[:, 2:3]
+    e1x, e1y, e1z = tr[:, 3:4], tr[:, 4:5], tr[:, 5:6]
+    e2x, e2y, e2z = tr[:, 6:7], tr[:, 7:8], tr[:, 8:9]
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    s = torch.where(det >= 0, 1.0, -1.0)
+    ad = det * s
+    tvx = ox - v0x
+    tvy = oy - v0y
+    tvz = oz - v0z
+    un = (tvx * pvx + tvy * pvy + tvz * pvz) * s
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    vn = (dx * qvx + dy * qvy + dz * qvz) * s
+    tn = (e2x * qvx + e2y * qvy + e2z * qvz) * s
+    if occlusion:
+        teff = t1            # `best` holds the occluded flag, not a t
+    else:
+        teff = torch.minimum(t1, _unpack_t(best, keep)[..., None])
+    hit = ((ad > 1e-12) & (un >= 0.0) & (vn >= 0.0) & (un + vn <= ad)
+           & (tn > t0 * ad) & (tn < teff * ad))
+    if occlusion:
+        blocks = hit & (tr[:, 9:10] >= 0.5)
+        return best | blocks.any(-1).to(torch.int32)
+    t = torch.where(hit, tn / torch.where(hit, ad, 1.0), INF)
+    lane = torch.arange(BLOCK, dtype=torch.int32, device=tr.device)
+    slot = bid.to(torch.int32)[:, None, None] * BLOCK + lane
+    key = torch.where(hit, (t.view(torch.int32) & keep) | slot, SENTINEL)
+    return torch.minimum(best, key.amin(-1))
+
+
+_PLAIN_BATCH = 512   # chunks per plain sweep: bounds its (n, 256, 128) temps
+
+
+def walk_plain(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
+               occlusion: bool):
+    """Plain PyTorch walk, vectorized over the chunks still walking.
+
+    Replays the kernel's steps: chunks whose lanes are all idle (teff <=
+    t0) return at once; each step sweeps blocks orders[oct, 2j] and
+    orders[oct, min(2j+1, nb-1)]; every DONE_PERIOD-th step a chunk stops
+    when every lane passes the done test. Returns (best (Rp,) i32, the
+    lane-block sweeps the kernel does: lanes with work, i.e. not idle and,
+    for occlusion, not yet occluded, summed over the blocks their chunks
+    sweep)."""
+    nb = tris.tris.shape[0]
+    keep = -(1 << idx_bits(nb))
+    nch = rays.shape[0] // CHUNK
+    dev = rays.device
+    cols = rays.view(nch, CHUNK, 8).unbind(-1)
+    ray = [c[..., None] for c in cols]             # 8 x (nch, 256, 1)
+    ox, oy, oz, dx, dy, dz, t0, t1 = cols          # 8 x (nch, 256)
+    o = octs.to(torch.int64)
+    sx = torch.where((o & 1) != 0, 1.0, -1.0)[:, None]
+    sy = torch.where((o & 2) != 0, 1.0, -1.0)[:, None]
+    sz = torch.where((o & 4) != 0, 1.0, -1.0)[:, None]
+    so = sx * ox + sy * oy + sz * oz
+    sd = sx * dx + sy * dy + sz * dz
+    oct_ok = (dx * sx >= 0.0) & (dy * sy >= 0.0) & (dz * sz >= 0.0)
+    idle = t1 <= t0
+    best = torch.full((nch, CHUNK), 0 if occlusion else SENTINEL,
+                      dtype=torch.int32, device=dev)
+    done = idle.all(1)
+    work = 0
+    for j in range((nb + 1) // 2):
+        live_all = torch.nonzero(~done).squeeze(1)
+        if live_all.numel() == 0:
+            break
+        for live in live_all.split(_PLAIN_BATCH):
+            ol = o[live]
+            lray = [c[live] for c in ray]
+            b = best[live]
+            for bid in (tris.orders[ol, 2 * j],
+                        tris.orders[ol, min(2 * j + 1, nb - 1)]):
+                busy = ~idle[live] & (b == 0) if occlusion else ~idle[live]
+                work += int(busy.sum())
+                b = _sweep(tris.tris[bid.long()], bid, lray, b, occlusion,
+                           keep)
+            best[live] = b
+            if (j & (DONE_PERIOD - 1)) == DONE_PERIOD - 1:
+                nxt = tris.keys[ol, min(2 * j + 2, nb - 1)][:, None]
+                if occlusion:
+                    lane_done = (b > 0) | idle[live]
+                else:
+                    reach = torch.minimum(_unpack_t(b, keep), t1[live])
+                    lane_done = ((oct_ok[live]
+                                  & (so[live] + sd[live] * reach < nxt))
+                                 | idle[live])
+                done[live] = lane_done.all(1)
+    return best.view(-1), work
+
+
+def walk_cuda(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
+              occlusion: bool) -> torch.Tensor:
+    """The kernel (`tpb_resident_closest_hit` / `tpb_resident_any_hit`):
+    one 256-thread block per chunk; bit-equal to `walk_plain`."""
+    dev = rays.device
+    rp = rays.shape[0]
+    nb = tris.tris.shape[0]
+    nch = rp // CHUNK
+    cuda.check(rays, "rays", torch.float32, (rp, 8))
+    cuda.check(octs, "octs", torch.int32, (nch,), dev)
+    cuda.check(tris.tris, "tris", torch.float32, (nb, _ROWS, BLOCK), dev)
+    cuda.check(tris.orders, "orders", torch.int32, (8, nb), dev)
+    cuda.check(tris.keys, "keys", torch.float32, (8, nb), dev)
+    out = torch.empty((rp,), dtype=torch.int32, device=dev)
+    kernel = ANY_HIT_KERNEL if occlusion else CLOSEST_HIT_KERNEL
+    kernel.launch(rays, tris.tris, tris.orders, tris.keys, octs, nch, nb,
+                  idx_bits(nb), out)
+    return out
+
+
+def _walk(tris, rays, octs, occlusion: bool, on_card: bool):
+    if on_card:
+        return walk_cuda(tris, rays, octs, occlusion)
+    return walk_plain(tris, rays, octs, occlusion)[0]
+
+
+def _closest(tris, origin, direction, t_min, t_max, on_card: bool) -> Hit:
+    r = origin.x.shape[0]
+    rays, perm, octs = sort_rays(tris, origin, direction, t_min, t_max)
+    best = _walk(tris, rays, octs, False, on_card)
+    # back to ray order: the pad rows sort last, so the first R sorted rows
+    # are the real lanes
+    key = torch.empty((r,), dtype=torch.int32, device=best.device)
+    key[perm[:r]] = best[:r]
+    keep = -(1 << idx_bits(tris.tris.shape[0]))
+    missed = key == SENTINEL
+    slot = (key & ~keep).long()
+    tri = torch.where(missed, -1, tris.tri_id[torch.clamp(
+        slot, max=tris.tri_id.shape[0] - 1)])
+    zeros = torch.zeros((r,), dtype=torch.float32, device=best.device)
+    # u = v = 0 like the dense backend: consumers re-derive barycentrics
+    # against the winning triangle (ops/shade_table.fetch)
+    return Hit(torch.where(missed, INF, (key & keep).view(torch.float32)),
+               zeros, zeros, tri)
+
+
+def _any(tris, origin, direction, t_min, t_max, on_card: bool
+         ) -> torch.Tensor:
+    r = origin.x.shape[0]
+    rays, perm, octs = sort_rays(tris, origin, direction, t_min, t_max)
+    occ = _walk(tris, rays, octs, True, on_card)
+    out = torch.empty((r,), dtype=torch.bool, device=occ.device)
+    out[perm[:r]] = occ[:r] > 0
+    return out
+
+
+def closest_hit_plain(tris: ResidentTris, origin: Vec3, direction: Vec3,
+                      t_min, t_max) -> Hit:
+    return _closest(tris, origin, direction, t_min, t_max, False)
+
+
+def closest_hit_cuda(tris: ResidentTris, origin: Vec3, direction: Vec3,
+                     t_min, t_max) -> Hit:
+    return _closest(tris, origin, direction, t_min, t_max, True)
+
+
+def any_hit_plain(tris: ResidentTris, origin: Vec3, direction: Vec3, t_min,
+                  t_max) -> torch.Tensor:
+    return _any(tris, origin, direction, t_min, t_max, False)
+
+
+def any_hit_cuda(tris: ResidentTris, origin: Vec3, direction: Vec3, t_min,
+                 t_max) -> torch.Tensor:
+    return _any(tris, origin, direction, t_min, t_max, True)
+
+
+def closest_hit(tris: ResidentTris, origin: Vec3, direction: Vec3, t_min,
+                t_max) -> Hit:
+    """Closest hit: the kernel for CUDA rays, the plain walk for CPU
+    rays. t is the packed key's t (quantized), u = v = 0."""
+    if origin.x.is_cuda:
+        return closest_hit_cuda(tris, origin, direction, t_min, t_max)
+    return closest_hit_plain(tris, origin, direction, t_min, t_max)
+
+
+def any_hit(tris: ResidentTris, origin: Vec3, direction: Vec3, t_min,
+            t_max) -> torch.Tensor:
+    """Occlusion (opacity >= 0.5 blocks): the kernel for CUDA rays, the
+    plain walk for CPU rays."""
+    if origin.x.is_cuda:
+        return any_hit_cuda(tris, origin, direction, t_min, t_max)
+    return any_hit_plain(tris, origin, direction, t_min, t_max)

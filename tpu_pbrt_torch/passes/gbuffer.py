@@ -1,9 +1,11 @@
 """G-buffer generation: primary visibility + surface attributes + motion
 (port of `tpu_pbrt/passes/gbuffer.py`, untextured).
 
-One traversal over the pixel pool (dense closest hit, kernel 1 on the card)
-and one 64-column shade-table fetch (kernel 4); all channels come back as
-SoA tensors.
+One traversal over the pixel pool (the tracer's closest hit: the dense
+sweep, or the resident walk for big scenes, whose hits carry u = v = 0
+like the dense ones) and one 64-column shade-table fetch (kernel 4), which
+re-derives the barycentrics against the winning triangle; all channels
+come back as SoA tensors.
 """
 
 from __future__ import annotations

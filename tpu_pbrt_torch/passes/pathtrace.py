@@ -2,9 +2,12 @@
 default permutation).
 
 A Python loop over a fixed bounce count carries an active mask over the
-whole ray pool; terminated lanes idle. Per bounce: dense closest hit
-(kernel 1), bounce fetch (kernel 3), one power-sampled light with a dense
-any-hit shadow ray (kernel 2) and balance-heuristic MIS, 3-lobe BSDF
+whole ray pool; terminated lanes idle. Per bounce: the tracer's closest
+hit (kernel 1, or the resident walk for big scenes) and the bounce fetch
+(kernel 3), or both from the fused closest-hit-and-shade kernel when the
+tracer supports it (`TPU_PBRT_TRACE_FUSED=1`); one power-sampled light with
+an any-hit shadow ray (kernel 2, or the resident walk) and
+balance-heuristic MIS, 3-lobe BSDF
 sampling from the pcg4d streams, Russian roulette, the throughput cutoff,
 and at scheduled bounces the stochastic pool fold. Every per-lane state
 tensor stays on the pool's device; the only host sync is the caller's read
@@ -180,16 +183,18 @@ def trace(tracer, env_color: torch.Tensor, light_count: int, origin: Vec3,
     )
     zero3 = Vec3.splat(0.0)
 
-    def shade(bounce: int, state: _PathState, hit: Hit, px, py
-              ) -> _PathState:
+    def shade(bounce: int, state: _PathState, hit: Hit, px, py,
+              attrs: shade_table.ShadeAttrs | None = None) -> _PathState:
         """Everything after traversal: miss env, emission MIS, NEE, BSDF
-        sample, RR, cutoff, continuation ray."""
+        sample, RR, cutoff, continuation ray. `attrs` (if given) comes from
+        the fused closest-hit-and-shade kernel and replaces the fetch."""
         r = state.t_min.shape[0]
         is_hit = hit.mask & state.active
 
-        attrs = shade_table.fetch_bounce(
-            tracer.shade_table, torch.clamp(hit.tri, min=0), state.origin,
-            state.direction)
+        if attrs is None:
+            attrs = shade_table.fetch_bounce(
+                tracer.shade_table, torch.clamp(hit.tri, min=0), state.origin,
+                state.direction)
         b = _bsdf_from_attrs(attrs)
         emission = attrs.emission
 
@@ -320,11 +325,17 @@ def trace(tracer, env_color: torch.Tensor, light_count: int, origin: Vec3,
             prev_bsdf_pdf=torch.where(is_hit, next_pdf, state.prev_bsdf_pdf),
         )
 
+    fused = tracer.supports_fused_shade()
+
     def bounce_step(bounce: int, state: _PathState, px, py) -> _PathState:
         # inactive lanes traverse an empty interval
-        hit = tracer.closest_hit(
-            state.origin, state.direction, state.t_min,
-            torch.where(state.active, state.t_max, -float("inf")))
+        t_max = torch.where(state.active, state.t_max, -float("inf"))
+        if fused:
+            hit, attrs = tracer.closest_hit_shade(
+                state.origin, state.direction, state.t_min, t_max)
+            return shade(bounce, state, hit, px, py, attrs)
+        hit = tracer.closest_hit(state.origin, state.direction, state.t_min,
+                                 t_max)
         return shade(bounce, state, hit, px, py)
 
     # bounce 0 reuses the G-buffer's primary hit instead of retracing

@@ -1,0 +1,197 @@
+"""Where one 1080p frame's time goes on the card.
+
+    python -m tpu_pbrt_torch.profile_frame [cornell] [cornell_fused] [helmet]
+    python -m tpu_pbrt_torch.profile_frame --alternate ROUNDS
+
+For each named path (all three by default) it renders two warm-up frames,
+times four frames by the host clock around work that ends in
+`torch.cuda.synchronize()`, then profiles two more with `torch.profiler`
+and prints one JSON line: wall ms per frame, device kernel time per frame
+(the sum of the traced kernels' durations), the device's idle share of a
+frame (one minus the union of the kernel intervals per profiled frame over
+the unprofiled wall time per frame: the profiler slows the host, not the
+device), kernel launches per frame, the hand-written kernels' time per
+frame, and the ten kernels that take the most time.
+
+`--alternate ROUNDS` compares the Cornell frame unfused and fused on one
+renderer: after two warm-up frames of each it counts each configuration's
+host syncs in one frame (`torch.cuda.set_sync_debug_mode`), then times
+ROUNDS pairs of frames in the order unfused, fused, fused, unfused, ...
+(each frame by the host clock alone, ending in `torch.cuda.synchronize()`)
+and prints every frame's time and each configuration's median.
+
+The paths are those of `chip_smoke.py`: the Cornell main path, its fused
+configuration (`TRACE_FUSED` on) and the 25,280-triangle helmet. Needs a
+CUDA device; exits 2 without one.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+import warnings
+
+import torch
+
+WIDTH, HEIGHT = 1920, 1080
+WARMUP, TIMED, PROFILED = 2, 4, 2
+
+# substrings of the hand-written kernels' symbol names (csrc/*.cu)
+HAND_WRITTEN = ("dense_closest_hit_kernel", "dense_closest_hit_shade_kernel",
+                "dense_any_hit_kernel", "fetch_bounce_kernel",
+                "fetch_rows_kernel", "resident_walk_kernel")
+
+
+def _renderer(name: str):
+    from .models import helmet
+    from .models.cornell import make_cornell_box
+    from .ops import trace_shade_fused
+    from .passes.pathtrace import PathTraceSettings
+    from .render.renderer import Renderer
+
+    trace_shade_fused.TRACE_FUSED = name == "cornell_fused"
+    if name == "helmet":
+        scene, settings = helmet.make_scene(), helmet.settings()
+    else:
+        scene = make_cornell_box()
+        settings = PathTraceSettings(bounces=8, samples_per_pixel=1,
+                                     count_rays=True,
+                                     compaction_schedule=(4, 5, 6, 7))
+    return Renderer(scene, WIDTH, HEIGHT, settings, device="cuda")
+
+
+def _union_us(intervals) -> float:
+    busy, end = 0.0, -1.0
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        busy += e - max(s, end)
+        end = e
+    return busy
+
+
+def profile(name: str) -> dict:
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from .models.cornell import make_cornell_camera
+
+    renderer = _renderer(name)
+    camera = make_cornell_camera(WIDTH, HEIGHT)
+    for f in range(WARMUP):
+        renderer.render(camera, f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(TIMED):
+        renderer.render(camera, WARMUP + f)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED
+
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in range(PROFILED):
+            renderer.render(camera, WARMUP + TIMED + f)
+        torch.cuda.synchronize()
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.name().startswith(("Memcpy", "Memset"))]
+    out = {"path": name, "tracer": renderer.tracer.kind,
+           "triangles": renderer.tracer.num_tris,
+           "wall_ms_per_frame": wall_ms,
+           "profiled_wall_ms_per_frame": prof_wall_us / 1e3 / PROFILED}
+    if not kernels:
+        out["device"] = "not measured: the profiler traced no device kernel"
+        return out
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        by_name.setdefault(e.name(), []).append(e.duration_ns() / 1e3)
+    busy_us = _union_us((e.start_ns() / 1e3, e.end_ns() / 1e3)
+                        for e in kernels)
+    total_us = sum(sum(v) for v in by_name.values())
+    hand = {n: sum(v) / 1e3 / PROFILED for n, v in by_name.items()
+            if any(h in n for h in HAND_WRITTEN)}
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
+    out.update(
+        device_kernel_ms_per_frame=total_us / 1e3 / PROFILED,
+        device_idle_share=1.0 - busy_us / 1e3 / PROFILED / wall_ms,
+        launches_per_frame=len(kernels) / PROFILED,
+        hand_written_ms_per_frame=hand,
+        top_kernels=[{"name": n[:120], "ms_per_frame": sum(v) / 1e3 / PROFILED,
+                      "launches_per_frame": len(v) / PROFILED}
+                     for n, v in top])
+    return out
+
+
+def _host_syncs(renderer, camera, frame: int) -> int:
+    """Host syncs in one frame: the warnings `torch.cuda` raises for each
+    synchronizing call in sync-debug mode."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            renderer.render(camera, frame)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def alternate(rounds: int) -> dict:
+    from .models.cornell import make_cornell_camera
+    from .ops import trace_shade_fused
+
+    renderer = _renderer("cornell")
+    camera = make_cornell_camera(WIDTH, HEIGHT)
+    frame = 0
+    syncs = {}
+    for fused in (False, True):
+        trace_shade_fused.TRACE_FUSED = fused
+        for _ in range(WARMUP):
+            renderer.render(camera, frame)
+            frame += 1
+        syncs["cornell_fused" if fused else "cornell"] = _host_syncs(
+            renderer, camera, frame)
+        frame += 1
+    times = {"cornell": [], "cornell_fused": []}
+    order = []
+    for k in range(rounds):
+        for fused in ((False, True) if k % 2 == 0 else (True, False)):
+            trace_shade_fused.TRACE_FUSED = fused
+            name = "cornell_fused" if fused else "cornell"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            renderer.render(camera, frame)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            order.append(name)
+            frame += 1
+    trace_shade_fused.TRACE_FUSED = False
+    return {"alternate": {
+        "rounds": rounds, "order": order, "wall_ms": times,
+        "median_ms": {n: statistics.median(v) for n, v in times.items()},
+        "host_syncs_per_frame": syncs}}
+
+
+def main(argv: list[str]) -> int:
+    if not torch.cuda.is_available():
+        print("profile_frame needs a CUDA device", file=sys.stderr)
+        return 2
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(gpu, flush=True)
+    if argv[:1] == ["--alternate"]:
+        print(json.dumps(alternate(int(argv[1]))), flush=True)
+        return 0
+    for name in argv or ["cornell", "cornell_fused", "helmet"]:
+        print(json.dumps(profile(name)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

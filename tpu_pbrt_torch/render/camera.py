@@ -80,8 +80,8 @@ class Camera:
             self.position, r, u, f, pp, pr, pu, pf, self.aperture_radius,
             self.focus_distance, self.near, self.far, np.asarray(jitter))]
 
-    def data(self, jitter=(0.0, 0.0),
-             device: str | torch.device = "cpu") -> CameraData:
+    def data(self, jitter=(0.0, 0.0), *,
+             device: str | torch.device) -> CameraData:
         if self.aperture_radius != 0.0:
             raise NotImplementedError("thin-lens camera (aperture_radius > 0)")
         packed = torch.as_tensor(np.concatenate(self.host_data(jitter)),
