@@ -19,9 +19,13 @@ launch counts set to 0 just before and read just after:
   4 bounces, folds at 1-3 (the resident-walk kernel's closest and any hit).
 
 Before each path it holds every kernel the path runs against its plain
-PyTorch version on the card at the path's shapes; after the paths it holds
-small frames rendered through the kernels against the same frames rendered
-by the plain versions on the CPU. It writes PNGs under `chiprun_out/` and
+PyTorch version on the card at the path's shapes (for the resident walk
+also its block cull: no skipped block may have held a hit, and its
+triangle loops per warp must be fewer than the lane-blocks of a walk
+without the cull over 32). After the paths it runs the walk alone at
+`helmet-100k` (101,760 triangles), then holds small frames rendered
+through the kernels against the same frames rendered by the plain versions
+on the CPU. It writes PNGs under `chiprun_out/` and
 prints one JSON line per result, then the `{"kernels": [...]}` line and,
 last, the `{"ok": true, "device": ...}` summary. Any failure exits nonzero
 before it. It never falls back to the CPU: without a usable card it exits 2.
@@ -390,23 +394,6 @@ def check_fused_kernel(renderer, cam_rays, device) -> dict:
                 + r * FLOPS_UNPACK))
 
 
-def block_bounds(res):
-    """Each resident block's AABB, (NB, 3) lo and hi, from its packed rows
-    (v0, v0 + e1, v0 + e2; within an ulp of the vertices) over its real
-    triangles."""
-    import torch
-    from tpu_pbrt_torch.ops import traverse_resident as trs
-
-    t = res.tris
-    v0, v1, v2 = t[:, 0:3], t[:, 0:3] + t[:, 3:6], t[:, 0:3] + t[:, 6:9]
-    real = (res.tri_id.view(-1, 1, trs.BLOCK) >= 0)
-    lo = torch.where(real, torch.minimum(torch.minimum(v0, v1), v2),
-                     math.inf).amin(-1)
-    hi = torch.where(real, torch.maximum(torch.maximum(v0, v1), v2),
-                     -math.inf).amax(-1)
-    return lo, hi
-
-
 def resident_needed_tests(res, rays, best, occlusion: bool) -> int:
     """The ray-triangle tests the resident walk's function needs on this
     run's data, at its 128-triangle block grain: for each lane, every block
@@ -417,7 +404,10 @@ def resident_needed_tests(res, rays, best, occlusion: bool) -> int:
     import torch
     from tpu_pbrt_torch.ops import traverse_resident as trs
 
-    lo, hi = block_bounds(res)
+    # the blocks' AABBs without the cull's padding (pad 0 x the diagonal)
+    box = trs.block_boxes(res.tris, res.tri_id,
+                          torch.zeros_like(res.scene_diag))
+    lo, hi = box[:, :3], box[:, 3:]
     real = (lo <= hi).all(-1)
     lo, hi = lo[real], hi[real]
     o, d = rays[:, 0:3], rays[:, 3:6]
@@ -444,24 +434,54 @@ def resident_needed_tests(res, rays, best, occlusion: bool) -> int:
     return pairs * trs.BLOCK + extra
 
 
+def walk_check(res, rays_in, occlusion: bool, name: str,
+               time_plain: bool = True) -> dict:
+    """One resident walk on sorted rays: the kernel against the plain walk,
+    keys or flags bit for bit; fails if the block cull skipped a (lane,
+    block) pair that held a hit, or if the kernel's triangle loops
+    (`warp_blocks`) are not below the uncut walk's lane-blocks / 32. Its
+    time is of the walk alone, by CUDA events."""
+    import torch
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+
+    kname = "resident_any_hit" if occlusion else "resident_closest_hit"
+    rays, _, octs = trs.sort_rays(res, *rays_in)
+    got = trs.walk_cuda(res, rays, octs, occlusion)
+    want, counts = trs.walk_plain(res, rays, octs, occlusion)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"{kname} ({name}): {int((got != want).sum())} walk "
+             f"{'flags' if occlusion else 'keys'} differ")
+    if counts.missed_hits != 0:
+        fail(f"{kname} ({name}): the cull skipped {counts.missed_hits} "
+             f"(lane, block) pairs that held a hit")
+    if counts.warp_blocks * trs.WARP >= counts.work:
+        fail(f"{kname} ({name}): warp_blocks {counts.warp_blocks} not below "
+             f"lane_blocks / 32 = {counts.work / trs.WARP}")
+    rp, nb = rays.shape[0], res.tris.shape[0]
+    tests = resident_needed_tests(res, rays, got, occlusion)
+    table_bytes = (res.tris.numel() + res.boxes.numel() + 2 * 8 * nb) * 4
+    out = dict(
+        rays=rays_in[0].x.shape[0], **counts._asdict(), needed_tests=tests,
+        ms=time_ms(lambda: trs.walk_cuda(res, rays, octs, occlusion)),
+        **bound(rp * 32 + rp * 4 + (rp // trs.CHUNK) * 4 + table_bytes,
+                tests * FLOPS_TEST_SCALED))
+    if time_plain:
+        out["plain_ms"] = plain_ms(lambda: trs.walk_plain(res, rays, octs,
+                                                          occlusion))
+    return out
+
+
 def check_resident_kernels(renderer, scene, cam_rays, device) -> dict:
     """The resident walk's closest hit on the helmet's 1080p camera rays
     and on seeded bounce rays from the mesh, and its any hit on seeded
-    shadow rays, against the plain walk: keys, ids and occlusion exact.
-    Kernel times are of the walk alone, on the sorted rays."""
+    shadow rays: entry points against their plain versions (keys, ids and
+    occlusion exact, and timed with the sort), then the walk alone
+    (`walk_check`)."""
     import torch
     from tpu_pbrt_torch.ops import traverse_resident as trs
 
     res = renderer.tracer.accel
-    nb = res.tris.shape[0]
-    table_bytes = res.tris.numel() * 4 + 2 * 8 * nb * 4
-
-    def walk_bound(rays, best, occlusion):
-        rp = rays.shape[0]
-        tests = resident_needed_tests(res, rays, best, occlusion)
-        return dict(needed_tests=tests, **bound(
-            rp * 32 + rp * 4 + (rp // trs.CHUNK) * 4 + table_bytes,
-            tests * FLOPS_TEST_SCALED))
 
     def check_closest(rays_in, name):
         got = trs.closest_hit_cuda(res, *rays_in)
@@ -475,51 +495,66 @@ def check_resident_kernels(renderer, scene, cam_rays, device) -> dict:
         frac = float(got.mask.float().mean())
         if not 0.0 < frac < 1.0:
             fail(f"resident_closest_hit ({name}): hit fraction {frac}")
-        rays, _, octs = trs.sort_rays(res, *rays_in)
-        wk = trs.walk_cuda(res, rays, octs, False)
-        wp, work = trs.walk_plain(res, rays, octs, False)
-        if not torch.equal(wk, wp):
-            fail(f"resident_closest_hit ({name}): walk keys differ")
         return dict(
-            rays=rays_in[0].x.shape[0], hit_fraction=frac, lane_blocks=work,
-            max_abs_err=max_abs(got.t, want.t),
-            ms=time_ms(lambda: trs.walk_cuda(res, rays, octs, False)),
-            plain_ms=plain_ms(lambda: trs.walk_plain(res, rays, octs,
-                                                     False)),
+            hit_fraction=frac, max_abs_err=max_abs(got.t, want.t),
             entry_ms=time_ms(lambda: trs.closest_hit_cuda(res, *rays_in)),
-            library_ms=None, **walk_bound(rays, wk, False))
+            library_ms=None, **walk_check(res, rays_in, False, name))
 
     cam = check_closest(cam_rays, "camera")
     bounce = check_closest(mesh_rays(scene.geometry, SUBSET, device, SEED),
                            "bounce subset")
 
     # any hit: segments between random points of the helmet's bounding box
-    so, sd, stmin, stmax = segment_rays(SUBSET, device, SEED + 2,
-                                        [-1.6] * 3, [1.6] * 3)
-    got = trs.any_hit_cuda(res, so, sd, stmin, stmax)
-    want = trs.any_hit_plain(res, so, sd, stmin, stmax)
+    seg = segment_rays(SUBSET, device, SEED + 2, [-1.6] * 3, [1.6] * 3)
+    got = trs.any_hit_cuda(res, *seg)
+    want = trs.any_hit_plain(res, *seg)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         fail(f"resident_any_hit: {int((got != want).sum())} lanes differ")
     frac = float(got.float().mean())
     if not 0.0 < frac < 1.0:
         fail(f"resident_any_hit: degenerate occluded fraction {frac}")
-    rays, _, octs = trs.sort_rays(res, so, sd, stmin, stmax)
-    wk = trs.walk_cuda(res, rays, octs, True)
-    wp, work = trs.walk_plain(res, rays, octs, True)
-    if not torch.equal(wk, wp):
-        fail("resident_any_hit: walk flags differ")
     anyh = dict(
-        rays=SUBSET, occluded_fraction=frac, lane_blocks=work,
-        max_abs_err=max_abs(got, want), tolerance="exact",
-        ms=time_ms(lambda: trs.walk_cuda(res, rays, octs, True)),
-        plain_ms=plain_ms(lambda: trs.walk_plain(res, rays, octs, True)),
-        entry_ms=time_ms(lambda: trs.any_hit_cuda(res, so, sd, stmin,
-                                                  stmax)),
-        library_ms=None, **walk_bound(rays, wk, True))
+        occluded_fraction=frac, max_abs_err=max_abs(got, want),
+        tolerance="exact",
+        entry_ms=time_ms(lambda: trs.any_hit_cuda(res, *seg)),
+        library_ms=None, **walk_check(res, seg, True, "shadow subset"))
     cam["tolerance"] = "bit-exact key and tri"
     cam["bounce_subset"] = bounce
     return {"resident_closest_hit": cam, "resident_any_hit": anyh}
+
+
+def check_helmet_100k(device) -> dict:
+    """The resident walk at `helmet-100k` (bench.py's 320 x 160 grid:
+    101,760 triangles, 795 blocks, 6 key mantissa bits), walk only: closest
+    hit on the bench camera's 1080p rays and on 2^19 bounce rays from the
+    mesh, any hit on 2^19 seeded segments; each bit-exact against one plain
+    walk, with kernel time, counts and bound. The plain walk is not timed
+    at this size."""
+    from tpu_pbrt_torch.models import helmet
+    from tpu_pbrt_torch.models.cornell import make_cornell_camera
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+    from tpu_pbrt_torch.render.camera import generate_rays
+
+    g = helmet.make_scene("helmet", 320, 160).geometry
+    p, i = g.positions, g.indices
+    res = trs.prepare(p[i[:, 0]], p[i[:, 1]], p[i[:, 2]], device=device)
+    nb = res.tris.shape[0]
+    cam = generate_rays(make_cornell_camera(WIDTH, HEIGHT).data(device=device),
+                        WIDTH, HEIGHT)
+    return {
+        "triangles": res.num, "blocks": nb,
+        "key_mantissa_bits": 23 - trs.idx_bits(nb),
+        "camera": walk_check(res, cam, False, "helmet-100k camera",
+                             time_plain=False),
+        "bounce_subset": walk_check(res, mesh_rays(g, SUBSET, device, SEED),
+                                    False, "helmet-100k bounce subset",
+                                    time_plain=False),
+        "shadow_subset": walk_check(
+            res, segment_rays(SUBSET, device, SEED + 2, [-1.6] * 3,
+                              [1.6] * 3),
+            True, "helmet-100k shadow subset", time_plain=False),
+    }
 
 
 def run_path(name: str, renderer, camera) -> tuple[dict, np.ndarray]:
@@ -728,6 +763,10 @@ def main() -> int:
     print(json.dumps({"helmet_path": paths["helmet"]}), flush=True)
     pngs["helmet"] = save_png("helmet_1080p.png", img)
     del renderer
+    torch.cuda.empty_cache()
+
+    # --- helmet-100k: the walk alone at 101,760 triangles -----------------
+    print(json.dumps({"helmet_100k": check_helmet_100k(device)}), flush=True)
     torch.cuda.empty_cache()
 
     # --- small frames through the kernels vs the plain versions ----------

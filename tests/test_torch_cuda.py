@@ -3,8 +3,9 @@ card, at edge shapes the main-path run in chip_smoke.py does not reach:
 ray counts that are not whole blocks, several 128-row triangle chunks
 (the per-chunk interval shrink), empty intervals, out-of-table slots, and
 the wrappers' argument checks; for the resident walk also chunks that
-straddle two octants, all-idle chunks and an all-pad last block; for the
-fused closest-hit-and-shade kernel soups up to its 1024-row gate.
+straddle two octants, all-idle chunks, an all-pad last block, and the
+adversarial sets of its block cull (`adversarial_case`); for the fused
+closest-hit-and-shade kernel soups up to its 1024-row gate.
 
 These need an NVIDIA GPU and nvcc; elsewhere they skip. On the card (no
 JAX there, so without the JAX-pinning conftest):
@@ -156,10 +157,12 @@ def _with_pad_block(res: trs.ResidentTris) -> trs.ResidentTris:
     octant (entry key 3e38, as prepare gives all-pad blocks)."""
     nb = res.tris.shape[0]
     dev = res.tris.device
+    tris = torch.cat([res.tris, torch.zeros_like(res.tris[:1])])
+    tri_id = torch.cat([res.tri_id, torch.full(
+        (trs.BLOCK,), -1, dtype=torch.int32, device=dev)])
     return res._replace(
-        tris=torch.cat([res.tris, torch.zeros_like(res.tris[:1])]),
-        tri_id=torch.cat([res.tri_id, torch.full(
-            (trs.BLOCK,), -1, dtype=torch.int32, device=dev)]),
+        tris=tris, tri_id=tri_id,
+        boxes=trs.block_boxes(tris, tri_id, res.scene_diag),
         orders=torch.cat([res.orders, torch.full(
             (8, 1), nb, dtype=torch.int32, device=dev)], 1),
         keys=torch.cat([res.keys, torch.full(
@@ -214,6 +217,170 @@ def test_resident_chunk_straddles_octants(dev):
         got = trs.walk_cuda(res, rays, octs, occlusion)
         want, _ = trs.walk_plain(res, rays, octs, occlusion)
         assert torch.equal(got, want)
+
+
+def adversarial_case(dev):
+    """A resident accel and seeded ray sets built to break a cull that is
+    not conservative (also run on the CPU by tests/test_torch_resident.py).
+
+    The scene: the reduced helmet (2,160 triangles, shared edges and
+    vertices across Morton blocks) and a flat 24 x 24-cell grid in the
+    plane y = -1.25 (1,152 triangles; a block of the grid alone has a flat
+    box). The
+    sets, name -> (origin, direction, t_min, t_max):
+      * `vertices_edges`: rays through shared vertices and edge midpoints,
+        and rays grazing along edges;
+      * `box_faces`: rays at the vertices that set each block's box faces,
+        and at points of the grid (on its boxes' flat faces);
+      * `axis_parallel`: axis directions with +0.0 / -0.0 other components,
+        from random origins and straight down onto vertices;
+      * `inside_surface`: origins at block box centres (t_min 0) and on
+        triangles (t_min 1e-4, the bounce epsilon);
+      * `segment_ends`: the first set's segments ending one ulp and 1e-6
+        before and after their hit;
+      * `no_block`: short segments inside the scene's bounds that reach no
+        block box at all."""
+    from tpu_pbrt_torch.models import helmet
+
+    rng = np.random.default_rng(11)
+    g = helmet.make_scene("helmet", 40, 28).geometry
+    n = 24
+    xs = np.linspace(-1.5, 1.5, n + 1, dtype=np.float32)
+    gx, gz = np.meshgrid(xs, xs, indexing="ij")
+    grid = np.stack([gx, np.full_like(gx, -1.25), gz], -1).reshape(-1, 3)
+    a = (np.arange(n)[:, None] * (n + 1) + np.arange(n)[None, :]).ravel()
+    cells = np.stack([a, a + 1, a + n + 1, a + 1, a + n + 2, a + n + 1], -1)
+    pos = np.concatenate([g.positions, grid]).astype(np.float32)
+    ind = np.concatenate([g.indices, cells.reshape(-1, 3) + len(g.positions)])
+    v0, v1, v2 = pos[ind[:, 0]], pos[ind[:, 1]], pos[ind[:, 2]]
+    res = trs.prepare(v0, v1, v2, device=dev)
+
+    def unit(x):
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    def toward(targets, dist=3.0):
+        d = unit(rng.normal(size=targets.shape))
+        return targets - dist * d, d
+
+    sets = {}
+    mids = np.concatenate([(v0 + v1) / 2, (v1 + v2) / 2, (v2 + v0) / 2])
+    k = rng.integers(0, len(pos), 1024)
+    o1, d1 = toward(np.concatenate([pos[k], mids[rng.integers(
+        0, len(mids), 1024)]]))
+    e = rng.integers(0, len(v0), 512)
+    along = unit((v1 - v0)[e] + 1e-3 * rng.normal(size=(512, 3)))
+    graze_at = (v0[e] + v1[e]) / 2
+    sets["vertices_edges"] = (np.concatenate([o1, graze_at - 2.0 * along]),
+                              np.concatenate([d1, along]), 0.0, np.inf)
+
+    tr = res.tris.cpu().numpy()
+    real = (res.tri_id.cpu().numpy() >= 0).reshape(-1, 128)
+    corners = np.concatenate([tr[:, 0:3], tr[:, 0:3] + tr[:, 3:6],
+                              tr[:, 0:3] + tr[:, 6:9]], 1)    # (NB, 9, 128)
+    face_pts = []
+    for blk in range(tr.shape[0]):
+        c = corners[blk][:, real[blk]].reshape(3, 3, -1)       # vert, axis, tri
+        pts = c.transpose(0, 2, 1).reshape(-1, 3)
+        for ax in range(3):
+            face_pts += [pts[pts[:, ax].argmin()], pts[pts[:, ax].argmax()]]
+    face_pts = np.asarray(face_pts, np.float32)
+    on_grid = np.stack([rng.uniform(-1.5, 1.5, 512), np.full(512, -1.25),
+                        rng.uniform(-1.5, 1.5, 512)], -1)
+    o2, d2 = toward(np.concatenate([np.repeat(face_pts, 4, 0), on_grid]))
+    sets["box_faces"] = (o2, d2, 0.0, np.inf)
+
+    m = 1024
+    ax = rng.integers(0, 3, m)
+    d3 = np.where(rng.random((m, 3)) < 0.5, 0.0, -0.0)
+    d3[np.arange(m), ax] = np.where(rng.random(m) < 0.5, 1.0, -1.0)
+    o3 = rng.uniform(-1.6, 1.6, (m, 3))
+    down_at = np.concatenate([grid[rng.integers(0, len(grid), 256)],
+                              g.positions[rng.integers(0, len(g.positions),
+                                                       256)]])
+    o3d = down_at + np.array([0.0, 3.0, 0.0])
+    d3d = np.where(rng.random((512, 3)) < 0.5, 0.0, -0.0)
+    d3d[:, 1] = -1.0
+    sets["axis_parallel"] = (np.concatenate([o3, o3d]),
+                             np.concatenate([d3, d3d]), 0.0, np.inf)
+
+    bx = res.boxes.cpu().numpy()
+    centres = ((bx[:, :3] + bx[:, 3:]) / 2)[np.isfinite(bx).all(1)]
+    t = rng.integers(0, len(v0), 1024)
+    uv = rng.uniform(size=(1024, 2)) * 0.5
+    on_tri = v0[t] + (v1 - v0)[t] * uv[:, :1] + (v2 - v0)[t] * uv[:, 1:]
+    o4 = np.concatenate([np.repeat(centres, 8, 0), on_tri])
+    sets["inside_surface"] = (
+        o4, unit(rng.normal(size=o4.shape)),
+        np.concatenate([np.zeros(8 * len(centres)), np.full(1024, 1e-4)]),
+        np.inf)
+
+    def v3(x):
+        return Vec3(*(torch.as_tensor(np.ascontiguousarray(c), device=dev)
+                      for c in np.asarray(x, np.float32).T))
+
+    def lanes(x, r):
+        return torch.as_tensor(np.broadcast_to(np.float32(x), (r,)).copy(),
+                               device=dev)
+
+    out = {}
+    for name, (o, d, t0, t1) in sets.items():
+        out[name] = (v3(o), v3(d), lanes(t0, len(o)), lanes(t1, len(o)))
+
+    # the exact t of each first-set ray on the triangle the walk picks (the
+    # walk's own t is its key's, quantized)
+    o, d, t0, t1 = out["vertices_edges"]
+    tri = trs.closest_hit_plain(res, o, d, t0, t1).tri.cpu().numpy()
+    h = np.nonzero(tri >= 0)[0]
+    o5 = np.concatenate([o1, graze_at - 2.0 * along])[h].astype(np.float64)
+    d5 = np.concatenate([d1, along])[h].astype(np.float64)
+    w0 = v0[tri[h]].astype(np.float64)
+    nrm = np.cross(v1[tri[h]] - w0, v2[tri[h]] - w0)
+    th = ((w0 - o5) * nrm).sum(1) / (d5 * nrm).sum(1)
+    th32 = th.astype(np.float32)
+    ends = np.concatenate([np.nextafter(th32, np.float32(0)),
+                           np.nextafter(th32, np.float32(np.inf)),
+                           th * (1 - 1e-6), th * (1 + 1e-6)])
+    out["segment_ends"] = (v3(np.tile(o5, (4, 1))), v3(np.tile(d5, (4, 1))),
+                           lanes(0.0, len(ends)),
+                           torch.as_tensor(ends.astype(np.float32),
+                                           device=dev))
+
+    # points of the scene's bounds at least 0.02 from every block box, with
+    # segments 0.01 long
+    p6 = rng.uniform(res.lo.cpu().numpy(), res.hi.cpu().numpy(), (20000, 3))
+    gap = np.maximum(np.maximum(bx[None, :, :3] - p6[:, None],
+                                p6[:, None] - bx[None, :, 3:]), 0.0)
+    far_pts = p6[np.linalg.norm(gap, axis=-1).min(1) > 0.02][:768]
+    out["no_block"] = (v3(far_pts), v3(unit(rng.normal(size=far_pts.shape))),
+                       lanes(0.0, len(far_pts)), lanes(0.01, len(far_pts)))
+    return res, out
+
+
+ADVERSARIAL = ("vertices_edges", "box_faces", "axis_parallel",
+               "inside_surface", "segment_ends", "no_block")
+
+
+@pytest.fixture(scope="module")
+def adversarial(dev):
+    return adversarial_case(dev)
+
+
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_resident_adversarial_exact(dev, adversarial, name):
+    """The culling kernel against the plain walk on the adversarial sets:
+    keys and flags bit for bit in both modes, no skipped block that held a
+    hit. `no_block` reaches no box: every chunk skips every stage."""
+    res, sets = adversarial
+    o, d, tmin, tmax = sets[name]
+    rays, _, octs = trs.sort_rays(res, o, d, tmin, tmax)
+    for occlusion in (False, True):
+        got = trs.walk_cuda(res, rays, octs, occlusion)
+        want, counts = trs.walk_plain(res, rays, octs, occlusion)
+        assert torch.equal(got, want), occlusion
+        assert counts.missed_hits == 0
+        if name == "no_block":
+            assert counts.work > 0 and counts.kept == 0
+            assert counts.warp_blocks == 0
 
 
 def test_resident_all_idle(dev):

@@ -6,6 +6,14 @@ soups and rays of tests/test_resident.py and a reduced helmet (the
 authored glTF mesh on a 40 x 28 grid: 2,160 triangles, past the dense
 sweep's 2048) under the Cornell camera and seeded bounce rays.
 
+The block cull (`block_may_hit`) is held to being conservative: the plain
+walk sweeps every block and counts the skipped (lane, block) pairs whose
+sweep found a hit, on these cases and on the adversarial sets of
+`tests/test_torch_cuda.py::adversarial_case` (rays through shared edges and
+vertices, onto box faces, axis-parallel with +-0.0 components, from inside
+boxes and from surfaces, segments ending at their hit); that count must be
+0.
+
 Tolerances. `morton3d` and `prepare` are integer or host-numpy arithmetic:
 bit-exact. The walk's triangle ids and occlusion are exact. Its t is the
 packed key's t; XLA on the CPU contracts FMAs and PyTorch does not, so t
@@ -31,8 +39,12 @@ from tpu_pbrt_torch.ops import traverse_dense as ttd
 from tpu_pbrt_torch.ops import traverse_resident as tres
 from tpu_pbrt_torch.ops.vec import Vec3 as TVec3
 from tpu_pbrt_torch.render.camera import generate_rays
+from test_torch_cuda import ADVERSARIAL, adversarial_case
 
 torch.set_num_threads(2)
+
+
+INF = float("inf")
 
 
 def _soup():
@@ -200,10 +212,10 @@ def test_plain_walk_exits_early():
         tacc, TVec3(*(torch.as_tensor(c) for c in o)),
         TVec3(*(torch.as_tensor(c) for c in d)), torch.zeros(n),
         torch.full((n,), float("inf")))
-    best, work = tres.walk_plain(tacc, rays, octs, False)
+    best, counts = tres.walk_plain(tacc, rays, octs, False)
     assert tacc.tris.shape[0] == 17
     assert float((best != tres.SENTINEL).float().mean()) > 0.99
-    assert 0 < work < n * 18
+    assert 0 < counts.work < n * 18
 
 
 def test_tracer_kind_by_triangle_count():
@@ -228,7 +240,8 @@ def test_tracer_kind_by_triangle_count():
 
 def test_convert_carries_resident_tables():
     """convert.tracer_from_numpy takes a reference ResidentTris's leaves
-    and gives a resident Tracer holding exactly those block tables."""
+    and gives a resident Tracer holding exactly those block tables, and
+    the block boxes (which the reference has not) equal to prepare's."""
     from tpu_pbrt_torch import convert
 
     v0, v1, v2, op = _helmet_tris()
@@ -243,8 +256,115 @@ def test_convert_carries_resident_tables():
     for f in tres.ResidentTris._fields[:-1]:
         got = getattr(trc.accel, f)
         assert got.dtype == getattr(own.accel, f).dtype, f
-        np.testing.assert_array_equal(leaves[f], got.numpy(), err_msg=f)
+        # the boxes are the port's own table, derived from the leaves
+        want = own.accel.boxes.numpy() if f == "boxes" else leaves[f]
+        np.testing.assert_array_equal(want, got.numpy(), err_msg=f)
     o, d, t0, t1 = (torch.as_tensor(a) for a in _soup_rays())
     o, d = TVec3(*o), TVec3(*d)
     assert torch.equal(trc.closest_hit(o, d, t0, t1).tri,
                        own.closest_hit(o, d, t0, t1).tri)
+
+
+def _walk_both(res, o, d, t0, t1):
+    """Plain walks of both modes on one ray set: {occlusion: (best,
+    counts)}."""
+    rays, _, octs = tres.sort_rays(res, o, d, t0, t1)
+    return {occ: tres.walk_plain(res, rays, octs, occ)
+            for occ in (False, True)}
+
+
+def test_cull_is_conservative(case):
+    """On the parity cases: no skipped (lane, block) pair held a hit or a
+    blocker, and the cull keeps fewer pairs than the walk sweeps."""
+    o, d, t0, t1 = case["t"]
+    far = torch.as_tensor(case["far"])
+    for occ, tmax in ((False, t1), (True, far)):
+        rays, _, octs = tres.sort_rays(case["tacc"], o, d, t0, tmax)
+        _, c = tres.walk_plain(case["tacc"], rays, octs, occ)
+        assert c.missed_hits == 0, occ
+        assert 0 < c.kept < c.work, (occ, c)
+        assert c.kept <= c.warp_blocks * tres.WARP, (occ, c)
+
+
+@pytest.fixture(scope="module")
+def adversarial():
+    return adversarial_case("cpu")
+
+
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_cull_conservative_adversarial(adversarial, name):
+    """The adversarial sets: missed_hits == 0 in both modes; every set but
+    `no_block` hits often, and `no_block` keeps no block at all."""
+    res, sets = adversarial
+    o, d, t0, t1 = sets[name]
+    r = o.x.shape[0]
+    for occ, (best, c) in _walk_both(res, o, d, t0, t1).items():
+        assert c.missed_hits == 0, (occ, c)
+        assert c.kept <= c.work and c.kept <= c.warp_blocks * tres.WARP
+        hits = int(((best > 0) if occ else (best != tres.SENTINEL)).sum())
+        if name == "no_block":
+            assert c.work > 0 and c.kept == 0 and c.warp_blocks == 0
+            assert hits == 0
+        else:
+            assert hits > 0.3 * r, (occ, hits, r)
+
+
+def test_adversarial_sets_catch_unpadded_boxes(adversarial):
+    """The sets have teeth: with the boxes' padding taken away (pad 0 x
+    the diagonal) the cull skips blocks that held hits."""
+    res, sets = adversarial
+    bare = res._replace(boxes=tres.block_boxes(
+        res.tris, res.tri_id, torch.zeros_like(res.scene_diag)))
+    missed = sum(c.missed_hits for name in ADVERSARIAL
+                 for _, c in _walk_both(bare, *sets[name]).values())
+    assert missed > 0
+
+
+def test_boxes_hold_their_triangles(case):
+    """Each block box holds every vertex of its block's real triangles
+    strictly inside its padding (`test_convert_carries_resident_tables`
+    holds convert's boxes equal to prepare's)."""
+    tacc = case["tacc"]
+    v0, v1, v2, _ = case["tris"]
+    box = tacc.boxes.numpy()
+    tid = tacc.tri_id.numpy()
+    real = tid >= 0
+    blk = np.nonzero(real)[0] // tres.BLOCK
+    for v in (v0, v1, v2):
+        p = v[tid[real]]
+        assert (p > box[blk, :3]).all() and (p < box[blk, 3:]).all()
+    assert np.isfinite(box).all()
+
+
+def test_block_may_hit_edge_cases():
+    """The predicate on hand-made boxes: origins inside pass; +0.0 and
+    -0.0 direction components answer alike; a segment that ends before
+    the entry face fails and one that reaches it passes; an all-pad block's
+    box (+inf, -inf) fails every ray; FAR_SCALE is 1 + 2*gamma_3 in f32."""
+    assert np.array(np.float32(tres.FAR_SCALE)).view(np.int32) == 0x3F800003
+    box = torch.tensor([[0.0, 0.0, 0.0, 1.0, 1.0, 1.0]])
+    empty = torch.tensor([[INF, INF, INF, -INF, -INF, -INF]])
+    zero = torch.tensor(0.0)
+
+    def ray(o, d):
+        return [torch.tensor(x, dtype=torch.float32) for x in (*o, *d)]
+
+    def hit(b, o, d, t_lo, t_hi):
+        return bool(tres.block_may_hit(b, ray(o, d), torch.tensor(t_lo),
+                                       torch.tensor(t_hi))[0])
+
+    assert hit(box, (0.5, 0.5, 0.5), (0.3, -0.2, 0.9), 0.0, 1e-6)
+    for sy in (0.0, -0.0):
+        for sz in (0.0, -0.0):
+            assert hit(box, (-1.0, 0.5, 0.5), (1.0, sy, sz), 0.0, 10.0)
+            assert not hit(box, (-1.0, 1.5, 0.5), (1.0, sy, sz), 0.0, 10.0)
+            assert not hit(box, (-1.0, 0.5, 0.5), (1.0, sy, sz), 0.0, 0.999)
+            assert hit(box, (-1.0, 0.5, 0.5), (1.0, sy, sz), 0.0, 1.0)
+            assert hit(box, (0.5, 0.5, 0.5), (sy, sz, -1.0), 0.0, 1e-3)
+    rng = np.random.default_rng(6)
+    for _ in range(32):
+        o = rng.uniform(-2, 2, 3)
+        d = rng.normal(size=3)
+        assert not hit(empty, o, d, 0.0, 1e30)
+    assert not bool(tres.block_may_hit(
+        empty, ray((0.5, 0.5, 0.5), (0.0, 0.0, 1.0)), zero, zero)[0])

@@ -26,15 +26,21 @@ def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
     """Port `Tracer` from a reference tracer's leaves. `accel` holds the
     fields of a `DenseTris` (v0, e1, e2, tri_id, opacity) or of a
     `ResidentTris` (tris, tri_id, orders, keys, lo, hi, scene_diag) as
-    arrays, and `num` as an int."""
+    arrays, and `num` as an int. The resident block boxes, which the
+    reference does not have, are derived from the packed rows
+    (`traverse_resident.block_boxes`), as `prepare` derives them."""
 
     def t(a, dtype):
         return torch.as_tensor(np.array(a, dtype=dtype), device=device)
 
-    cls = (traverse_resident.ResidentTris if "tris" in accel
+    resident = "tris" in accel
+    cls = (traverse_resident.ResidentTris if resident
            else traverse_dense.DenseTris)
     fields = {f: t(accel[f], np.int32 if f in _INT_FIELDS else np.float32)
-              for f in cls._fields[:-1]}
+              for f in cls._fields[:-1] if f != "boxes"}
+    if resident:
+        fields["boxes"] = traverse_resident.block_boxes(
+            fields["tris"], fields["tri_id"], fields["scene_diag"])
     return Tracer(cls(**fields, num=int(accel["num"])),
                   t(shade_table, np.float32), t(light_table, np.float32),
                   t(light_cdf, np.float32))

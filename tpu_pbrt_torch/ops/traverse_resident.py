@@ -17,6 +17,15 @@ one key quantization bin, so they are part of the function: the kernel
 (`walk_plain`, on CPU tensors) replay the same steps and agree bit for
 bit. The sort is PyTorch on either device: a stable sort of the
 octant+Morton key, so ties keep lane order.
+
+Block culling. Each block carries a padded AABB (`boxes`), and before each
+block a lane tests it against its current segment [t0, min(t1, t of its
+best key)] (`block_may_hit`); the kernel skips the block's 128 tests for a
+lane that fails. The test is conservative (the box is padded, the far slab
+widened), so a skipped block could not have changed the lane's key or
+flag: the walk's function is unchanged. `walk_plain` still sweeps every
+block, evaluates the test beside each sweep and counts the pairs it skips
+whose sweep found a hit (`missed_hits`, 0 when the test holds).
 """
 
 from __future__ import annotations
@@ -38,6 +47,13 @@ _ROWS = 16         # v0(3) e1(3) e2(3) opacity(1) pad(6)
 _M32 = 0xFFFFFFFF
 SENTINEL = 0x7FFFFFFF
 INF = float("inf")
+WARP = 32          # lanes per warp: the kernel's unit of skipped work
+# Block boxes are padded by this share of the scene diagonal: a float
+# Möller-Trumbore test can accept a hit a little outside its triangle.
+BOX_PAD = 1e-3
+# 1 + 2*gamma_3 in f32 (0x3F800003): the far slab's widening that makes a
+# float slab test conservative (Ize, "Robust BVH Ray Traversal", JCGT 2013)
+FAR_SCALE = float(np.float32(1 + 6 * 2.0 ** -24 / (1 - 3 * 2.0 ** -24)))
 
 _SOURCE = "tpu_pbrt_torch/csrc/resident_trace.cu"
 _REPLACES = "tpu_pbrt/ops/traverse_resident.py:166"
@@ -50,6 +66,7 @@ class ResidentTris(NamedTuple):
     tri_id: torch.Tensor      # (NB*128,) i32 original tri id, -1 pad
     orders: torch.Tensor      # (8, NB) i32 per-octant front-to-back block ids
     keys: torch.Tensor        # (8, NB) f32 sigma-projected block entry keys
+    boxes: torch.Tensor       # (NB, 6) f32 padded block AABB: min xyz, max xyz
     lo: torch.Tensor          # (3,) scene vertex bounds (ray Morton sort)
     hi: torch.Tensor          # (3,)
     scene_diag: torch.Tensor  # () f32
@@ -61,7 +78,7 @@ def prepare(v0, v1, v2, opacity=None, *,
     """Host build (numpy, the reference's arithmetic): Morton-sort the
     triangles into 128-wide blocks, pack the kernel layout, precompute the
     8 octant walk orders and entry keys, then move the tables onto
-    `device`."""
+    `device` and derive the block boxes there (`block_boxes`)."""
     v0 = np.asarray(v0, np.float32)
     v1 = np.asarray(v1, np.float32)
     v2 = np.asarray(v2, np.float32)
@@ -129,17 +146,67 @@ def prepare(v0, v1, v2, opacity=None, *,
     def dev(a):
         return torch.as_tensor(a, device=device)
 
+    tris, tri_id = dev(packed), dev(sid.astype(np.int32))
+    scene_diag = torch.tensor(diag, dtype=torch.float32, device=device)
     return ResidentTris(
-        tris=dev(packed), tri_id=dev(sid.astype(np.int32)),
-        orders=dev(orders), keys=dev(keys.astype(np.float32)),
+        tris=tris, tri_id=tri_id, orders=dev(orders),
+        keys=dev(keys.astype(np.float32)),
+        boxes=block_boxes(tris, tri_id, scene_diag),
         lo=dev(vlo.astype(np.float32)), hi=dev(vhi.astype(np.float32)),
-        scene_diag=torch.tensor(diag, dtype=torch.float32, device=device),
-        num=t)
+        scene_diag=scene_diag, num=t)
+
+
+def block_boxes(tris: torch.Tensor, tri_id: torch.Tensor,
+                scene_diag: torch.Tensor) -> torch.Tensor:
+    """(NB, 6) f32 block AABBs from the packed rows the kernel tests (v0,
+    v0 + e1, v0 + e2 in f32) over the slots with tri_id >= 0, padded by
+    BOX_PAD * scene_diag. All-pad blocks get (+inf, -inf), which every
+    `block_may_hit` rejects."""
+    v0 = tris[:, 0:3]
+    v1 = v0 + tris[:, 3:6]
+    v2 = v0 + tris[:, 6:9]
+    real = tri_id.view(-1, 1, BLOCK) >= 0
+    lo = torch.where(real, torch.minimum(torch.minimum(v0, v1), v2),
+                     INF).amin(-1)
+    hi = torch.where(real, torch.maximum(torch.maximum(v0, v1), v2),
+                     -INF).amax(-1)
+    pad = scene_diag * BOX_PAD
+    return torch.cat([lo - pad, hi + pad], -1).contiguous()
 
 
 def idx_bits(nb: int) -> int:
     """Key bits that carry the block slot for nb blocks."""
     return max((nb * BLOCK - 1).bit_length(), 1)
+
+
+def _safe_inv(d: torch.Tensor) -> torch.Tensor:
+    """1/d with components under 1e-12 (zero and -0.0 included) replaced by
+    +-1e-12, the sign taken from d >= 0 (so -0.0 counts as positive)."""
+    return 1.0 / torch.where(torch.abs(d) > 1e-12, d,
+                             torch.where(d >= 0, 1e-12, -1e-12))
+
+
+def block_may_hit(boxes: torch.Tensor, ray, t_lo, t_hi) -> torch.Tensor:
+    """Can a ray's segment [t_lo, t_hi] meet a block's box? boxes (..., 6)
+    from `block_boxes`; ray a sequence whose first six items are ox, oy,
+    oz, dx, dy, dz; t_lo, t_hi tensors; all broadcastable against
+    boxes[..., 0].
+
+    A slab test with the entry and exit planes chosen by the sign of 1/d,
+    so an inverted (all-pad) box never passes; the far slab is widened by
+    FAR_SCALE, and a segment that starts inside the box passes. The kernel
+    (`csrc/resident_trace.cu::may_hit`) evaluates it in this operation
+    order, so both skip the same (lane, block) pairs."""
+    near, far = t_lo, None
+    for a in range(3):
+        o, inv = ray[a], _safe_inv(ray[3 + a])
+        pos = inv >= 0
+        lo, hi = boxes[..., a], boxes[..., 3 + a]
+        enter = (torch.where(pos, lo, hi) - o) * inv
+        leave = (torch.where(pos, hi, lo) - o) * inv
+        near = torch.maximum(near, enter)
+        far = leave if far is None else torch.minimum(far, leave)
+    return near <= torch.minimum(far * FAR_SCALE, t_hi)
 
 
 def _lane(x, r: int, like: torch.Tensor) -> torch.Tensor:
@@ -173,8 +240,7 @@ def sort_rays(tris: ResidentTris, origin: Vec3, direction: Vec3, t_min,
     key = torch.where(active, key, 0xFFFFFFFE)
 
     def axis(o_, d_, lo_, hi_):
-        inv = 1.0 / torch.where(torch.abs(d_) > 1e-12, d_,
-                                torch.where(d_ >= 0, 1e-12, -1e-12))
+        inv = _safe_inv(d_)
         a = (lo_ - o_) * inv
         b = (hi_ - o_) * inv
         return torch.minimum(a, b), torch.maximum(a, b)
@@ -211,7 +277,8 @@ def _unpack_t(key: torch.Tensor, keep: int) -> torch.Tensor:
 def _sweep(tr, bid, ray, best, occlusion: bool, keep: int):
     """One 128-triangle block against every lane of the given chunks.
     tr (n, 16, 128), bid (n,) block ids, ray columns (n, 256, 1), best
-    (n, 256) i32 -> new best. The det-scaled Möller-Trumbore of the
+    (n, 256) i32 -> (new best, found (n, 256): the block held a hit, or in
+    occlusion mode a blocker). The det-scaled Möller-Trumbore of the
     reference kernel, in its operation order."""
     ox, oy, oz, dx, dy, dz, t0, t1 = ray
     v0x, v0y, v0z = tr[:, 0:1], tr[:, 1:2], tr[:, 2:3]
@@ -239,35 +306,49 @@ def _sweep(tr, bid, ray, best, occlusion: bool, keep: int):
     hit = ((ad > 1e-12) & (un >= 0.0) & (vn >= 0.0) & (un + vn <= ad)
            & (tn > t0 * ad) & (tn < teff * ad))
     if occlusion:
-        blocks = hit & (tr[:, 9:10] >= 0.5)
-        return best | blocks.any(-1).to(torch.int32)
+        found = (hit & (tr[:, 9:10] >= 0.5)).any(-1)
+        return best | found.to(torch.int32), found
     t = torch.where(hit, tn / torch.where(hit, ad, 1.0), INF)
     lane = torch.arange(BLOCK, dtype=torch.int32, device=tr.device)
     slot = bid.to(torch.int32)[:, None, None] * BLOCK + lane
-    key = torch.where(hit, (t.view(torch.int32) & keep) | slot, SENTINEL)
-    return torch.minimum(best, key.amin(-1))
+    key = torch.where(hit, (t.view(torch.int32) & keep) | slot,
+                      SENTINEL).amin(-1)
+    return torch.minimum(best, key), key != SENTINEL
 
 
 _PLAIN_BATCH = 512   # chunks per plain sweep: bounds its (n, 256, 128) temps
 
 
+class WalkCounts(NamedTuple):
+    """What one walk did, in (lane, block) pairs over the blocks the chunks
+    sweep: `work` the pairs with a busy lane (not idle and, for occlusion,
+    not yet occluded: what a walk without the cull sweeps), `kept` the pairs
+    `block_may_hit` keeps, `warp_blocks` the (32-lane warp, block) pairs
+    with a kept lane (the triangle loops the kernel runs), `missed_hits`
+    the busy pairs it skips whose sweep found a hit (closest) or a blocker
+    (occlusion): 0 when the cull is conservative."""
+    work: int
+    kept: int
+    warp_blocks: int
+    missed_hits: int
+
+
 def walk_plain(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
-               occlusion: bool):
+               occlusion: bool) -> tuple[torch.Tensor, WalkCounts]:
     """Plain PyTorch walk, vectorized over the chunks still walking.
 
     Replays the kernel's steps: chunks whose lanes are all idle (teff <=
     t0) return at once; each step sweeps blocks orders[oct, 2j] and
     orders[oct, min(2j+1, nb-1)]; every DONE_PERIOD-th step a chunk stops
-    when every lane passes the done test. Returns (best (Rp,) i32, the
-    lane-block sweeps the kernel does: lanes with work, i.e. not idle and,
-    for occlusion, not yet occluded, summed over the blocks their chunks
-    sweep)."""
+    when every lane passes the done test. It sweeps every block for every
+    lane (the oracle) and evaluates `block_may_hit` on each (lane, block)
+    with the lane's interval at that moment. Returns (best (Rp,) i32,
+    WalkCounts)."""
     nb = tris.tris.shape[0]
     keep = -(1 << idx_bits(nb))
     nch = rays.shape[0] // CHUNK
     dev = rays.device
     cols = rays.view(nch, CHUNK, 8).unbind(-1)
-    ray = [c[..., None] for c in cols]             # 8 x (nch, 256, 1)
     ox, oy, oz, dx, dy, dz, t0, t1 = cols          # 8 x (nch, 256)
     o = octs.to(torch.int64)
     sx = torch.where((o & 1) != 0, 1.0, -1.0)[:, None]
@@ -280,21 +361,29 @@ def walk_plain(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
     best = torch.full((nch, CHUNK), 0 if occlusion else SENTINEL,
                       dtype=torch.int32, device=dev)
     done = idle.all(1)
-    work = 0
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
     for j in range((nb + 1) // 2):
         live_all = torch.nonzero(~done).squeeze(1)
         if live_all.numel() == 0:
             break
         for live in live_all.split(_PLAIN_BATCH):
             ol = o[live]
-            lray = [c[live] for c in ray]
+            lcols = [c[live] for c in cols]
+            lray = [c[..., None] for c in lcols]   # 8 x (n, 256, 1)
             b = best[live]
             for bid in (tris.orders[ol, 2 * j],
                         tris.orders[ol, min(2 * j + 1, nb - 1)]):
                 busy = ~idle[live] & (b == 0) if occlusion else ~idle[live]
-                work += int(busy.sum())
-                b = _sweep(tris.tris[bid.long()], bid, lray, b, occlusion,
-                           keep)
+                t_hi = (lcols[7] if occlusion
+                        else torch.minimum(lcols[7], _unpack_t(b, keep)))
+                kept = busy & block_may_hit(tris.boxes[bid.long()][:, None],
+                                            lcols, lcols[6], t_hi)
+                b, found = _sweep(tris.tris[bid.long()], bid, lray, b,
+                                  occlusion, keep)
+                counts += torch.stack([
+                    busy.sum(), kept.sum(),
+                    kept.view(-1, CHUNK // WARP, WARP).any(-1).sum(),
+                    (found & busy & ~kept).sum()])
             best[live] = b
             if (j & (DONE_PERIOD - 1)) == DONE_PERIOD - 1:
                 nxt = tris.keys[ol, min(2 * j + 2, nb - 1)][:, None]
@@ -306,13 +395,14 @@ def walk_plain(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
                                   & (so[live] + sd[live] * reach < nxt))
                                  | idle[live])
                 done[live] = lane_done.all(1)
-    return best.view(-1), work
+    return best.view(-1), WalkCounts(*(int(c) for c in counts.tolist()))
 
 
 def walk_cuda(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
               occlusion: bool) -> torch.Tensor:
     """The kernel (`tpb_resident_closest_hit` / `tpb_resident_any_hit`):
-    one 256-thread block per chunk; bit-equal to `walk_plain`."""
+    one 256-thread block per chunk, skipping the blocks `block_may_hit`
+    rejects; bit-equal to `walk_plain`."""
     dev = rays.device
     rp = rays.shape[0]
     nb = tris.tris.shape[0]
@@ -322,10 +412,14 @@ def walk_cuda(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
     cuda.check(tris.tris, "tris", torch.float32, (nb, _ROWS, BLOCK), dev)
     cuda.check(tris.orders, "orders", torch.int32, (8, nb), dev)
     cuda.check(tris.keys, "keys", torch.float32, (8, nb), dev)
+    cuda.check(tris.boxes, "boxes", torch.float32, (nb, 6), dev)
+    if tris.tris.data_ptr() % 16 or tris.boxes.data_ptr() % 8:
+        raise ValueError("tris / boxes: not 16 / 8-byte aligned (the kernel "
+                         "copies 16-byte pieces and reads boxes as float2)")
     out = torch.empty((rp,), dtype=torch.int32, device=dev)
     kernel = ANY_HIT_KERNEL if occlusion else CLOSEST_HIT_KERNEL
-    kernel.launch(rays, tris.tris, tris.orders, tris.keys, octs, nch, nb,
-                  idx_bits(nb), out)
+    kernel.launch(rays, tris.tris, tris.boxes, tris.orders, tris.keys, octs,
+                  nch, nb, idx_bits(nb), out)
     return out
 
 
