@@ -22,17 +22,29 @@ Before each path it holds every kernel the path runs against its plain
 PyTorch version on the card at the path's shapes (for the resident walk
 also its block cull: no skipped block may have held a hit, and its
 triangle loops per warp must be fewer than the lane-blocks of a walk
-without the cull over 32). After the paths it runs the walk alone at
-`helmet-100k` (101,760 triangles), then holds small frames rendered
-through the kernels against the same frames rendered by the plain versions
-on the CPU. It writes PNGs under `chiprun_out/` and
+without the cull over 32). The two dense sweeps are held and timed on
+three ray sets each (all lanes live, one lane in eight dead, half the
+lanes dead; a dead lane must come back as a miss), on a one-triangle
+table beside the Cornell one, and held on the adversarial sets of
+`tpu_pbrt_torch/ops/dense_cases.py`. After the paths it runs the walk
+alone at `helmet-100k` (101,760 triangles), then holds small frames
+rendered through the kernels against the same frames rendered by the
+plain versions on the CPU. It writes PNGs under `chiprun_out/` and
 prints one JSON line per result, then the `{"kernels": [...]}` line and,
 last, the `{"ok": true, "device": ...}` summary. Any failure exits nonzero
 before it. It never falls back to the CPU: without a usable card it exits 2.
+
+    python3 chip_smoke.py --dense-times DIR
+
+runs only the dense sweeps' checks and timings, on the package of the
+checkout at DIR (this one or an older one, whose kernels it builds): the
+way to time two versions of the sweeps on the same sets within one call.
 """
 
 from __future__ import annotations
 
+import argparse
+import functools
 import json
 import math
 import os
@@ -95,8 +107,19 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=1)
+def _blocker():
+    import torch
+
+    return torch.randn(8192, 8192, device="cuda")
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms, by CUDA events after warm-up."""
+    """Mean device time of fn() in ms, by CUDA events after warm-up. The
+    timed launches are queued behind one long matrix product (~20 ms), so
+    the host enqueues them all while the card is busy and they then run
+    back to back: a kernel shorter than the host's time per call through
+    its wrapper (~0.1 ms) is timed at the card's pace, not the host's."""
     import torch
 
     for _ in range(warmup):
@@ -104,6 +127,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.mm(_blocker(), _blocker())
     start.record()
     for _ in range(iters):
         fn()
@@ -144,17 +168,18 @@ def v3(a, device):
                   for i in range(3)))
 
 
-def random_rays(n: int, device, seed: int, lo, hi):
+def random_rays(n: int, device, seed: int, lo, hi, dead: float = 0.125):
     """Seeded bounce-like rays: origins uniform in [lo, hi], directions
-    uniform on the sphere, intervals (0, inf) with one lane in eight
-    carrying the empty interval of an inactive lane."""
+    uniform on the sphere, intervals (0, inf) with a share `dead` of the
+    lanes (by default one in eight) carrying the empty interval of an
+    inactive lane."""
     import torch
 
     rng = np.random.default_rng(seed)
     o = rng.uniform(lo, hi, (n, 3))
     d = rng.normal(size=(n, 3))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    t_max = np.where(rng.uniform(size=n) < 0.125, -np.inf, np.inf)
+    t_max = np.where(rng.uniform(size=n) < dead, -np.inf, np.inf)
     return (v3(o, device), v3(d, device),
             torch.zeros(n, dtype=torch.float32, device=device),
             torch.as_tensor(t_max.astype(np.float32), device=device))
@@ -181,10 +206,12 @@ def mesh_rays(geometry, n: int, device, seed: int):
             torch.as_tensor(t_max.astype(np.float32), device=device))
 
 
-def segment_rays(n: int, device, seed: int, lo, hi, targets=None):
+def segment_rays(n: int, device, seed: int, lo, hi, targets=None,
+                 dead: float = 0.0):
     """Seeded shadow rays: from points uniform in [lo, hi] toward random
     targets (given points, or uniform in the same box), t_max = dist *
-    (1 - 1e-3), as NEE's."""
+    (1 - 1e-3), as NEE's; a share `dead` of the lanes carries -inf, as a
+    lane without a valid light sample does."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -192,9 +219,9 @@ def segment_rays(n: int, device, seed: int, lo, hi, targets=None):
     p = rng.uniform(lo, hi, (n, 3)) if targets is None else targets(rng, n)
     to_p = p - o
     dist = np.linalg.norm(to_p, axis=1)
+    t_max = np.where(rng.uniform(size=n) < dead, -np.inf, dist * (1 - 1e-3))
     return (v3(o, device), v3(to_p / dist[:, None], device), 0.0,
-            torch.as_tensor((dist * (1 - 1e-3)).astype(np.float32),
-                            device=device))
+            torch.as_tensor(t_max.astype(np.float32), device=device))
 
 
 def light_targets(tracer):
@@ -210,11 +237,16 @@ def light_targets(tracer):
     return sample
 
 
-def n_active(t_min, t_max, r: int) -> int:
+def live_lanes(t_min, t_max, r: int):
+    """(r,) bool: the lanes whose interval is not empty (NaN counts as
+    empty)."""
     import torch
 
-    return int((torch.as_tensor(t_max) > torch.as_tensor(t_min))
-               .expand(r).sum())
+    return (torch.as_tensor(t_max) > torch.as_tensor(t_min)).expand(r)
+
+
+def n_active(t_min, t_max, r: int) -> int:
+    return int(live_lanes(t_min, t_max, r).sum())
 
 
 def check_bounce_block(got, want, name: str) -> float:
@@ -240,6 +272,138 @@ def check_bounce_block(got, want, name: str) -> float:
     return err
 
 
+def check_closest(td, accel, rays, name: str) -> float:
+    """Kernel 1 against its plain version on one ray set: tri ids and the
+    packed-key t bit for bit, and every dead lane (empty or NaN interval)
+    a miss."""
+    import torch
+
+    _, _, t_min, t_max = rays
+    got = td.closest_hit_cuda(accel, *rays)
+    want = td.closest_hit_plain(accel, *rays)
+    torch.cuda.synchronize()
+    if not torch.equal(got.tri, want.tri):
+        fail(f"dense_closest_hit ({name}): "
+             f"{int((got.tri != want.tri).sum())} tri ids differ")
+    if not torch.equal(got.t.view(torch.int32), want.t.view(torch.int32)):
+        fail(f"dense_closest_hit ({name}): packed-key t differs bitwise")
+    dead = ~live_lanes(t_min, t_max, got.tri.shape[0]).to(got.tri.device)
+    if bool((got.tri[dead] != -1).any()) or not bool(
+            torch.isposinf(got.t[dead]).all()):
+        fail(f"dense_closest_hit ({name}): a dead lane is not a miss")
+    return max_abs(got.t, want.t)
+
+
+def check_any(td, accel, rays, name: str):
+    """Kernel 2 against its plain version on one ray set: every flag
+    equal, and every dead lane unoccluded. Returns the flags."""
+    import torch
+
+    _, _, t_min, t_max = rays
+    got = td.any_hit_cuda(accel, *rays)
+    want = td.any_hit_plain(accel, *rays)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"dense_any_hit ({name}): {int((got != want).sum())} lanes "
+             f"differ")
+    dead = ~live_lanes(t_min, t_max, got.shape[0]).to(got.device)
+    if bool(got[dead].any()):
+        fail(f"dense_any_hit ({name}): a dead lane is occluded")
+    return got
+
+
+def closest_bound(rays, tp: int, ntri: int) -> dict:
+    r = rays[0].x.shape[0]
+    return bound(r * 32 + r * 8 + tp * 36,
+                 n_active(rays[2], rays[3], r) * ntri * FLOPS_TEST_DIV)
+
+
+def dense_sweep_results(td, tracer, cam_rays, device) -> dict:
+    """The two dense sweeps on the Cornell table at the main path's ray
+    count: each held against its plain version and timed on three sets
+    (all lanes live: camera rays / segments toward the lights; one lane in
+    eight dead; half the lanes dead, a pool before a fold), and kernel 1
+    also on a one-triangle table, which splits its time into a fixed cost
+    per ray and a slope per triangle row."""
+    accel = tracer.accel
+    tp, ntri = accel.v0.shape[0], tracer.num_tris
+    r = cam_rays[0].x.shape[0]
+    lo, hi = [0.05, 0.05, 0.05], [5.5, 5.4, 5.5]
+    results = {}
+
+    # --- kernel 1: dense closest hit --------------------------------------
+    sets = {"camera": cam_rays,
+            "bounce": random_rays(r, device, SEED, lo, hi),
+            "half_dead": random_rays(r, device, SEED, lo, hi, dead=0.5)}
+    timed = {}
+    for name, rays in sets.items():
+        err = check_closest(td, accel, rays, name)
+        timed[name] = dict(
+            max_abs_err=err, live_share=n_active(rays[2], rays[3], r) / r,
+            ms=time_ms(lambda: td.closest_hit_cuda(accel, *rays)),
+            **closest_bound(rays, tp, ntri))
+    if not bool(td.closest_hit_cuda(accel, *cam_rays).mask.any()):
+        fail("dense_closest_hit: no ray hit anything")
+    a, e1, e2 = (x[:1].cpu().numpy() for x in (accel.v0, accel.e1, accel.e2))
+    one = td.prepare(a, a + e1, a + e2, device=device)
+    check_closest(td, one, cam_rays, "one triangle")
+    one_ms = time_ms(lambda: td.closest_hit_cuda(one, *cam_rays))
+    per_row = (timed["camera"]["ms"] - one_ms) / (ntri - 1)
+    camera = timed.pop("camera")
+    results["dense_closest_hit"] = dict(
+        tolerance="bit-exact t and tri", rays=r, **camera,
+        plain_ms=plain_ms(lambda: td.closest_hit_plain(accel, *cam_rays)),
+        library_ms=None, sets=timed,
+        one_triangle=dict(rows=int(one.v0.shape[0]), ms=one_ms,
+                          **closest_bound(cam_rays, one.v0.shape[0], 1)),
+        # ms = fixed_ms + triangles * per_triangle_ms on camera rays
+        per_triangle_ms=per_row, fixed_ms=one_ms - per_row)
+
+    # --- kernel 2: dense any hit (shadow rays) ---------------------------
+    sets = {"shadow": 0.0, "eighth_dead": 0.125, "half_dead": 0.5}
+    timed = {}
+    for name, dead in sets.items():
+        rays = segment_rays(r, device, SEED, lo, hi, light_targets(tracer),
+                            dead=dead)
+        got = check_any(td, accel, rays, name)
+        occ = int(got.sum())
+        if name == "shadow":
+            shadow = rays
+            frac = occ / r
+            if not 0.0 < frac < 1.0:
+                fail(f"dense_any_hit: degenerate occluded fraction {frac}")
+        timed[name] = dict(
+            max_abs_err=0.0, occluded_fraction=occ / r,
+            live_share=n_active(rays[2], rays[3], r) / r,
+            ms=time_ms(lambda: td.any_hit_cuda(accel, *rays)),
+            # an occluded lane needs at least its blocker's test
+            **bound(r * 32 + r + tp * 40,
+                    ((n_active(rays[2], rays[3], r) - occ) * ntri + occ)
+                    * FLOPS_TEST_SCALED))
+    results["dense_any_hit"] = dict(
+        tolerance="exact", rays=r, **timed.pop("shadow"),
+        plain_ms=plain_ms(lambda: td.any_hit_plain(accel, *shadow)),
+        library_ms=None, sets=timed)
+    return results
+
+
+def check_dense_adversarial(td, device) -> dict:
+    """Both dense sweeps against their plain versions on the adversarial
+    table and sets (`ops/dense_cases.py`): shared edges and vertices,
+    in-plane rays, |det| at the threshold, origins on a surface, segments
+    ending at their hit, +-0.0 directions, numerators that underflow,
+    non-finite rays, empty and NaN intervals."""
+    from tpu_pbrt_torch.ops import dense_cases
+
+    tris, sets = dense_cases.adversarial_case(device)
+    out = {"rows": int(tris.v0.shape[0]), "triangles": int(tris.num)}
+    for name, rays in sets.items():
+        check_closest(td, tris, rays, f"adversarial {name}")
+        check_any(td, tris, rays, f"adversarial {name}")
+        out[name] = rays[0].x.shape[0]
+    return out
+
+
 def check_cornell_kernels(renderer, cam_rays, device) -> dict:
     """Kernels 1-4 against their plain versions on the card at the main
     path's shapes (2,073,600 camera rays, or as many seeded bounce and
@@ -250,59 +414,11 @@ def check_cornell_kernels(renderer, cam_rays, device) -> dict:
 
     tracer = renderer.tracer
     accel = tracer.accel
-    tp, ntri = accel.v0.shape[0], tracer.num_tris
     origin, direction, t_min, t_max = cam_rays
     r = origin.x.shape[0]
-    results = {}
-
-    # --- kernel 1: dense closest hit (camera rays + bounce rays) ---------
-    err = 0.0
-    for o, d, tmn, tmx in (cam_rays, random_rays(
-            r, device, SEED, [0.05, 0.05, 0.05], [5.5, 5.4, 5.5])):
-        got = td.closest_hit_cuda(accel, o, d, tmn, tmx)
-        want = td.closest_hit_plain(accel, o, d, tmn, tmx)
-        torch.cuda.synchronize()
-        if not torch.equal(got.tri, want.tri):
-            n_bad = int((got.tri != want.tri).sum())
-            fail(f"dense_closest_hit: {n_bad} tri ids differ")
-        if not torch.equal(got.t.view(torch.int32), want.t.view(torch.int32)):
-            fail("dense_closest_hit: packed-key t differs bitwise")
-        if not bool(got.mask.any()):
-            fail("dense_closest_hit: no ray hit anything")
-        err = max(err, max_abs(got.t, want.t))
-    results["dense_closest_hit"] = dict(
-        max_abs_err=err, tolerance="bit-exact t and tri", rays=r,
-        ms=time_ms(lambda: td.closest_hit_cuda(accel, origin, direction,
-                                               t_min, t_max)),
-        plain_ms=plain_ms(lambda: td.closest_hit_plain(
-            accel, origin, direction, t_min, t_max)),
-        library_ms=None,
-        **bound(r * 32 + r * 8 + tp * 36,
-                n_active(t_min, t_max, r) * ntri * FLOPS_TEST_DIV))
-
-    # --- kernel 2: dense any hit (shadow rays) ---------------------------
-    so, sd, stmin, stmax = segment_rays(r, device, SEED, [0.05] * 3,
-                                        [5.5, 5.4, 5.5], light_targets(tracer))
-    got = td.any_hit_cuda(accel, so, sd, stmin, stmax)
-    want = td.any_hit_plain(accel, so, sd, stmin, stmax)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail(f"dense_any_hit: {int((got != want).sum())} lanes differ")
-    frac = float(got.float().mean())
-    if not 0.0 < frac < 1.0:
-        fail(f"dense_any_hit: degenerate occluded fraction {frac}")
-    occ = int(got.sum())
-    results["dense_any_hit"] = dict(
-        max_abs_err=max_abs(got, want), tolerance="exact", rays=r,
-        occluded_fraction=frac,
-        ms=time_ms(lambda: td.any_hit_cuda(accel, so, sd, stmin, stmax)),
-        plain_ms=plain_ms(lambda: td.any_hit_plain(accel, so, sd, stmin,
-                                                   stmax)),
-        library_ms=None,
-        # an occluded lane needs at least its blocker's test
-        **bound(r * 32 + r + tp * 40,
-                ((n_active(stmin, stmax, r) - occ) * ntri + occ)
-                * FLOPS_TEST_SCALED))
+    results = dense_sweep_results(td, tracer, cam_rays, device)
+    results["dense_closest_hit"]["adversarial"] = check_dense_adversarial(
+        td, device)
 
     # --- kernel 3: bounce fetch (slots of the camera rays' hits) ---------
     hit = td.closest_hit_cuda(accel, origin, direction, t_min, t_max)
@@ -654,13 +770,68 @@ def check_small_frame(name: str, scene, settings, camera,
     return out
 
 
+def ptxas_usage(log: str, *kernels: str) -> dict:
+    """{entry function: ptxas' "Used N registers, ..." line} for the entry
+    functions of nvcc's log whose name holds one of `kernels`."""
+    usage, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line and entry is not None:
+            if any(k in entry for k in kernels):
+                usage[entry] = line.split(":", 1)[1].strip()
+            entry = None
+    return usage
+
+
+def dense_times(root: str) -> int:
+    """The dense sweeps of the package at `root` alone: checks and times of
+    `dense_sweep_results` and the fused kernel's time, one JSON line."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    from tpu_pbrt_torch.models.cornell import (make_cornell_box,
+                                               make_cornell_camera)
+    from tpu_pbrt_torch.ops import cuda
+    from tpu_pbrt_torch.ops import shade_table as st
+    from tpu_pbrt_torch.ops import trace_shade_fused as tsf
+    from tpu_pbrt_torch.ops import traverse_dense as td
+    from tpu_pbrt_torch.ops.tracer import build_for_scene
+    from tpu_pbrt_torch.render.camera import generate_rays
+
+    device = torch.device("cuda")
+    cuda.library()
+    tracer = build_for_scene(make_cornell_box(), device=device)
+    cam_rays = generate_rays(
+        make_cornell_camera(WIDTH, HEIGHT).data(device=device), WIDTH, HEIGHT)
+    out = dense_sweep_results(td, tracer, cam_rays, device)
+    sub = st.bounce_subtable(tracer.shade_table)
+    r = cam_rays[0].x.shape[0]
+    bounce = random_rays(r, device, SEED + 1, [0.05] * 3, [5.5, 5.4, 5.5])
+    out["dense_closest_hit_shade"] = {
+        name: time_ms(lambda: tsf.closest_hit_shade_cuda(
+            tracer.accel, sub, *rays))
+        for name, rays in (("camera_ms", cam_rays), ("bounce_ms", bounce))}
+    print(json.dumps({"dense_times": out, "package": os.path.abspath(root),
+                      "gpu": gpu_line(), "ptxas": ptxas_usage(
+                          cuda.build_log, "dense_")}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--dense-times", metavar="DIR", default=None,
+                        help="only check and time the dense sweeps of the "
+                             "checkout at DIR")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this run needs a "
               "GPU and never falls back to the CPU", file=sys.stderr)
         return 2
+    if args.dense_times is not None:
+        return dense_times(args.dense_times)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_pbrt_torch.models import helmet
     from tpu_pbrt_torch.models.cornell import (make_cornell_box,
@@ -694,6 +865,11 @@ def main() -> int:
     ptxas = [ln for ln in cuda.build_log.splitlines() if "ptxas info" in ln]
     print(json.dumps({"build_seconds": build_s, "nvcc_seconds":
                       cuda.build_seconds, "ptxas": ptxas}), flush=True)
+    # registers and static shared memory of the two dense sweeps (their
+    # staged table, 48 B a row, is dynamic shared memory on top)
+    print(json.dumps({"ptxas_dense_sweeps": ptxas_usage(
+        cuda.build_log, "dense_closest_hit_kernel", "dense_any_hit_kernel")}),
+        flush=True)
 
     camera = make_cornell_camera(WIDTH, HEIGHT)
     kres, paths, pngs = {}, {}, {}

@@ -15,6 +15,7 @@ from tpu_pbrt_torch.models import cornell as tcornell
 from tpu_pbrt_torch.ops import shade_table as tst
 from tpu_pbrt_torch.ops import tracer as ttracer
 from tpu_pbrt_torch.ops import traverse_dense as ttd
+from tpu_pbrt_torch.ops.vec import Vec3
 
 torch.set_num_threads(2)
 
@@ -189,6 +190,8 @@ def test_entry_points_require_a_device():
                                                cdf, **kw),
         lambda **kw: ttd.prepare(*v, **kw),
         lambda **kw: tcornell.make_cornell_camera(8, 8).data(**kw),
+        lambda **kw: Vec3.full(1.0, (4,), **kw),
+        lambda **kw: Vec3.zeros((4,), **kw),
     )
     for call in calls:
         with pytest.raises(TypeError, match="device"):

@@ -1,8 +1,11 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
 card, at edge shapes the main-path run in chip_smoke.py does not reach:
-ray counts that are not whole blocks, several 128-row triangle chunks
-(the per-chunk interval shrink), empty intervals, out-of-table slots, and
-the wrappers' argument checks; for the resident walk also chunks that
+ray counts that are not whole blocks or whole groups of rays a thread,
+several 128-row triangle chunks (the per-chunk interval shrink), row counts
+that end in the dense sweeps' unroll tail, launches whose lanes are all dead
+or all occluded, the dense adversarial sets of
+`tpu_pbrt_torch/ops/dense_cases.py`, empty intervals, out-of-table slots,
+and the wrappers' argument checks; for the resident walk also chunks that
 straddle two octants, all-idle chunks, an all-pad last block, and the
 adversarial sets of its block cull (`adversarial_case`); for the fused
 closest-hit-and-shade kernel soups up to its 1024-row gate.
@@ -24,6 +27,7 @@ import pytest
 import torch
 
 from tpu_pbrt_torch.ops import cuda
+from tpu_pbrt_torch.ops import dense_cases
 from tpu_pbrt_torch.ops import shade_table as st
 from tpu_pbrt_torch.ops import trace_shade_fused as tsf
 from tpu_pbrt_torch.ops import traverse_dense as td
@@ -65,9 +69,14 @@ def _rays(n, seed, dev):
             torch.as_tensor(t_max.astype(np.float32), device=dev))
 
 
-@pytest.mark.parametrize("ntri", [1, 36, 128, 300, 2048])
-@pytest.mark.parametrize("nray", [1, 255, 4099])
+@pytest.mark.parametrize("ntri", [1, 2, 7, 36, 37, 128, 129, 300, 1024,
+                                  2047, 2048])
+@pytest.mark.parametrize("nray", [1, 255, 511, 513, 4099])
 def test_closest_and_any_hit_kernels_exact(dev, ntri, nray):
+    """Row counts that end in the sweep's unroll tail (2, 7, 37), at a
+    chunk's edge (128, 129), where the staged table reaches 48 KB (1024)
+    and at the table's limit (2047, 2048); ray
+    counts below, at and above one block's tile of rays (512)."""
     tris = _soup(ntri, ntri, dev)
     o, d, tmin, tmax = _rays(nray, nray, dev)
     got = td.closest_hit_cuda(tris, o, d, tmin, tmax)
@@ -79,6 +88,69 @@ def test_closest_and_any_hit_kernels_exact(dev, ntri, nray):
     want_o = td.any_hit_plain(tris, o, d, 0.0, torch.where(
         torch.isinf(tmax), torch.full_like(tmax, 2.0), tmax))
     assert torch.equal(got_o, want_o)
+
+
+@pytest.fixture(scope="module")
+def dense_adversarial(dev):
+    return dense_cases.adversarial_case(dev)
+
+
+@pytest.mark.parametrize("name", dense_cases.SETS)
+def test_dense_adversarial_exact(dev, dense_adversarial, name):
+    """Both dense sweeps against their plain versions on the adversarial
+    table (189 triangles in 256 rows, non-blocking rows, huge triangles)
+    and sets: tri, the packed-key t's bits and every occlusion flag."""
+    tris, sets = dense_adversarial
+    o, d, tmin, tmax = sets[name]
+    got = td.closest_hit_cuda(tris, o, d, tmin, tmax)
+    want = td.closest_hit_plain(tris, o, d, tmin, tmax)
+    assert torch.equal(got.tri, want.tri)
+    assert torch.equal(got.t.view(torch.int32), want.t.view(torch.int32))
+    assert torch.equal(td.any_hit_cuda(tris, o, d, tmin, tmax),
+                       td.any_hit_plain(tris, o, d, tmin, tmax))
+
+
+@pytest.mark.parametrize("nray", [1, 513, 4099])
+def test_dense_all_dead(dev, nray):
+    """Every lane dead (empty, reversed or NaN interval): no ray is swept,
+    every answer is the initial key or false."""
+    tris = _soup(300, 4, dev)
+    o, d, tmin, _ = _rays(nray, 9, dev)
+    kinds = torch.as_tensor([-float("inf"), 0.0, -1.0, float("nan")],
+                            device=dev)
+    tmax = kinds[torch.arange(nray, device=dev) % 4]
+    hit = td.closest_hit_cuda(tris, o, d, tmin, tmax)
+    assert bool((hit.tri == -1).all()) and bool(torch.isposinf(hit.t).all())
+    assert not bool(td.any_hit_cuda(tris, o, d, tmin, tmax).any())
+
+
+@pytest.mark.parametrize("nray", [1, 513, 4099])
+def test_dense_all_occluded(dev, nray):
+    """Every lane blocked by the first rows of the table (two big
+    triangles across every ray's path, then a soup): each warp of the any
+    hit leaves its sweep early, and every flag is still the plain
+    version's."""
+    v0, v1, v2, op = _corners(300, 6)
+    wall = np.float32([[-50, -50, 0], [-50, -50, 0]])
+    v0 = np.concatenate([wall, v0])
+    v1 = np.concatenate([np.float32([[50, -50, 0], [50, 50, 0]]), v1])
+    v2 = np.concatenate([np.float32([[50, 50, 0], [-50, 50, 0]]), v2])
+    op = np.concatenate([np.ones(2, np.float32), op])
+    tris = td.prepare(v0, v1, v2, opacity=op, device=dev)
+    rng = np.random.default_rng(nray)
+    o = rng.uniform(-3, 3, (3, nray)).astype(np.float32)
+    o[2] = 5.0
+    d = rng.normal(size=(3, nray)) * 0.2
+    d[2] = -1.0
+    ov = Vec3(*(torch.as_tensor(c, device=dev) for c in o))
+    dv = Vec3(*(torch.as_tensor(c.astype(np.float32), device=dev) for c in d))
+    got = td.any_hit_cuda(tris, ov, dv, 0.0, 100.0)
+    assert bool(got.all())
+    assert torch.equal(got, td.any_hit_plain(tris, ov, dv, 0.0, 100.0))
+    hit = td.closest_hit_cuda(tris, ov, dv, 0.0, 100.0)
+    want = td.closest_hit_plain(tris, ov, dv, 0.0, 100.0)
+    assert torch.equal(hit.tri, want.tri) and bool(hit.mask.all())
+    assert torch.equal(hit.t.view(torch.int32), want.t.view(torch.int32))
 
 
 @pytest.mark.parametrize("t,c,r", [(128, 64, 1), (128, 64, 3001),
@@ -129,6 +201,11 @@ def test_wrappers_check_arguments(dev):
                                                 device=dev))
     with pytest.raises(ValueError, match="CUDA"):
         st.fetch_rows_cuda(tris.v0, torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="rows"):
+        td.closest_hit_cuda(tris._replace(rows=tris.rows[:, :9].contiguous()),
+                            o, d, tmin, tmax)
+    with pytest.raises(ValueError, match="num"):
+        td.any_hit_cuda(tris._replace(num=41), o, d, tmin, tmax)
 
 
 def test_launch_counts_move_only_on_launch(dev):

@@ -86,9 +86,11 @@ _CASES = {"cornell": _cornell_case, "soup9": lambda: _soup_case(9),
 
 
 def _port_accel(acc):
-    return ttd.DenseTris(
-        *(torch.as_tensor(np.array(getattr(acc, f)))
-          for f in ("v0", "e1", "e2", "tri_id", "opacity")), num=acc.num)
+    v0, e1, e2, tri_id, opacity = (
+        torch.as_tensor(np.array(getattr(acc, f)))
+        for f in ("v0", "e1", "e2", "tri_id", "opacity"))
+    return ttd.DenseTris(v0, e1, e2, tri_id, opacity,
+                         ttd.pack_rows(v0, e1, e2, opacity), num=acc.num)
 
 
 @pytest.mark.parametrize("case", sorted(_CASES))

@@ -44,9 +44,11 @@ def _soup_accel(n, seed):
 
 
 def _port_accel(acc):
-    return ttd.DenseTris(
-        *(torch.as_tensor(np.array(getattr(acc, f)))
-          for f in ("v0", "e1", "e2", "tri_id", "opacity")), num=acc.num)
+    v0, e1, e2, tri_id, opacity = (
+        torch.as_tensor(np.array(getattr(acc, f)))
+        for f in ("v0", "e1", "e2", "tri_id", "opacity"))
+    return ttd.DenseTris(v0, e1, e2, tri_id, opacity,
+                         ttd.pack_rows(v0, e1, e2, opacity), num=acc.num)
 
 
 def _rays(n, seed, lo, hi):

@@ -26,9 +26,10 @@ def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
     """Port `Tracer` from a reference tracer's leaves. `accel` holds the
     fields of a `DenseTris` (v0, e1, e2, tri_id, opacity) or of a
     `ResidentTris` (tris, tri_id, orders, keys, lo, hi, scene_diag) as
-    arrays, and `num` as an int. The resident block boxes, which the
-    reference does not have, are derived from the packed rows
-    (`traverse_resident.block_boxes`), as `prepare` derives them."""
+    arrays, and `num` as an int. The tables the reference does not have
+    are derived as `prepare` derives them: the resident block boxes from
+    the packed rows (`traverse_resident.block_boxes`), the dense packed
+    rows from v0, e1, e2 and opacity (`traverse_dense.pack_rows`)."""
 
     def t(a, dtype):
         return torch.as_tensor(np.array(a, dtype=dtype), device=device)
@@ -37,10 +38,13 @@ def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
     cls = (traverse_resident.ResidentTris if resident
            else traverse_dense.DenseTris)
     fields = {f: t(accel[f], np.int32 if f in _INT_FIELDS else np.float32)
-              for f in cls._fields[:-1] if f != "boxes"}
+              for f in cls._fields[:-1] if f not in ("boxes", "rows")}
     if resident:
         fields["boxes"] = traverse_resident.block_boxes(
             fields["tris"], fields["tri_id"], fields["scene_diag"])
+    else:
+        fields["rows"] = traverse_dense.pack_rows(
+            fields["v0"], fields["e1"], fields["e2"], fields["opacity"])
     return Tracer(cls(**fields, num=int(accel["num"])),
                   t(shade_table, np.float32), t(light_table, np.float32),
                   t(light_cdf, np.float32))

@@ -33,7 +33,7 @@ TRACE_FUSED = os.environ.get("TPU_PBRT_TRACE_FUSED", "0") == "1"
 
 # the reference's cap on padded triangles, kept so that the fused
 # configuration takes the same dense scenes as the reference's (the CUDA
-# sweep stages triangles in shared-memory chunks and has no cap of its own).
+# sweep's own cap, `traverse_dense.MAX_ROWS`, lies above it).
 # The reference's second cap, on shade-table rows, is its one-hot fetch's
 # limit; the kernel's indexed load has none, so the port drops it.
 MAX_TRIS_PAD = 1024
@@ -76,12 +76,11 @@ def closest_hit_shade_cuda(tris: DenseTris, sub: torch.Tensor, o: Vec3,
     """The kernel: bit-equal to the plain version except the rsqrt rows
     (normals, light cosine; ~1e-6), as kernel 3."""
     r, dev, lanes = traverse_dense._ray_args(o, d, t_min, t_max)
-    tp, chunk, idx_bits = traverse_dense._tri_args(tris, dev)
+    rows, num, idx_bits = traverse_dense._tri_args(tris, dev)
     cuda.check(sub, "sub", torch.float32, (sub.shape[0],
                                           len(st._BOUNCE_COLS)), dev)
     out = torch.empty((OUT_ROWS, r), dtype=torch.float32, device=dev)
-    KERNEL.launch(*lanes, tris.v0, tris.e1, tris.e2, tp, chunk, idx_bits,
-                  sub, sub.shape[0], r, out)
+    KERNEL.launch(*lanes, rows, num, idx_bits, sub, sub.shape[0], r, out)
     return out
 
 

@@ -4,7 +4,10 @@
 `closest_hit` and `any_hit` dispatch on the rays' device: CUDA tensors go
 to the hand-written kernels of `csrc/dense_trace.cu` (or raise), CPU tensors
 to the plain PyTorch versions `closest_hit_plain` / `any_hit_plain`, which
-are the reference's transposed (C, R) sweeps written in torch.
+are the reference's transposed (C, R) sweeps written in torch. The kernels
+read `DenseTris.rows`, the same triangles packed 48 bytes a row
+(`pack_rows`), and sweep only the `num` real rows; the plain versions read
+v0 / e1 / e2 / opacity and sweep the padding too.
 """
 
 from __future__ import annotations
@@ -21,6 +24,9 @@ from .vec import Vec3
 INF = float("inf")
 _M32 = 0xFFFFFFFF
 CHUNK = 128   # triangle rows per sweep chunk (kChunk in csrc/dense_trace.cu)
+ROW_WORDS = 12   # floats of a packed row: three 16-byte words
+# the kernels stage the whole packed table in shared memory (48 B a row)
+MAX_ROWS = 4096
 
 CLOSEST_HIT_KERNEL = cuda.register(
     "dense_closest_hit", "tpu_pbrt_torch/csrc/dense_trace.cu",
@@ -38,7 +44,23 @@ class DenseTris(NamedTuple):
     e2: torch.Tensor       # (Tp, 3)
     tri_id: torch.Tensor   # (Tp,) i32, -1 on padding
     opacity: torch.Tensor  # (Tp,) f32 — shadow opacity
+    rows: torch.Tensor     # (Tp, 12) f32 — `pack_rows` of the four above
     num: int               # real triangle count
+
+
+def pack_rows(v0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor,
+              opacity: torch.Tensor) -> torch.Tensor:
+    """The table the kernels read: one 48-byte row per triangle, three
+    16-byte words `v0.xyz e1.x | e1.yz e2.xy | e2.z opacity 0 0`, so that a
+    row is staged and read in 128-bit pieces. Always derived from the four
+    arrays, never built on its own."""
+    return torch.cat([v0, e1, e2, opacity[:, None],
+                      torch.zeros_like(v0[:, :2])], dim=1).contiguous()
+
+
+def unpack_rows(rows: torch.Tensor):
+    """(v0, e1, e2, opacity) back out of a packed table."""
+    return rows[:, 0:3], rows[:, 3:6], rows[:, 6:9], rows[:, 9]
 
 
 def prepare(v0, v1, v2, opacity=None, *,
@@ -61,7 +83,9 @@ def prepare(v0, v1, v2, opacity=None, *,
             np.concatenate([v2 - v0, z]), ids,
             np.concatenate([np.asarray(opacity, np.float32),
                             np.zeros((pad,), np.float32)]))
-    return DenseTris(*(torch.as_tensor(a, device=device) for a in arrs),
+    pv0, e1, e2, tri_id, op = (torch.as_tensor(a, device=device)
+                               for a in arrs)
+    return DenseTris(pv0, e1, e2, tri_id, op, pack_rows(pv0, e1, e2, op),
                      num=t)
 
 
@@ -211,18 +235,27 @@ def _ray_args(origin: Vec3, direction: Vec3, t_min, t_max):
     for name, a in zip(("ox", "oy", "oz", "dx", "dy", "dz", "t_min", "t_max"),
                        lanes):
         cuda.check(a, name, torch.float32, (r,), dev)
+    if r >= 1 << 30:
+        raise ValueError(f"{r} rays: the kernels index rays with 32 bits")
     return r, dev, lanes
 
 
 def _tri_args(tris: DenseTris, dev):
+    """The kernels' table arguments: (packed rows, real row count, key
+    index bits). The sweep stops at `tris.num`: pad rows never hit."""
     tp = tris.v0.shape[0]
-    for name in ("v0", "e1", "e2"):
-        cuda.check(getattr(tris, name), name, torch.float32, (tp, 3), dev)
-    cuda.check(tris.opacity, "opacity", torch.float32, (tp,), dev)
+    cuda.check(tris.rows, "rows", torch.float32, (tp, ROW_WORDS), dev)
+    if tris.rows.data_ptr() % 16:
+        raise ValueError("rows: not 16-byte aligned")
     chunk, n_chunks, idx_bits = _layout(tp)
     if chunk * n_chunks != tp:
         raise ValueError(f"padded triangle count {tp} is not whole chunks")
-    return tp, chunk, idx_bits
+    if tp > MAX_ROWS:
+        raise ValueError(f"{tp} rows do not fit the kernels' shared memory "
+                         f"(at most {MAX_ROWS})")
+    if not 0 <= tris.num <= tp:
+        raise ValueError(f"num {tris.num} outside the {tp} padded rows")
+    return tris.rows, int(tris.num), idx_bits
 
 
 def closest_hit_cuda(tris: DenseTris, origin: Vec3, direction: Vec3,
@@ -230,11 +263,10 @@ def closest_hit_cuda(tris: DenseTris, origin: Vec3, direction: Vec3,
     """Kernel 1 (`tpb_dense_closest_hit`): same packed key as
     `closest_hit_plain`, so t (quantized) and tri match it bit for bit."""
     r, dev, lanes = _ray_args(origin, direction, t_min, t_max)
-    tp, chunk, idx_bits = _tri_args(tris, dev)
+    rows, num, idx_bits = _tri_args(tris, dev)
     out_t = torch.empty((r,), dtype=torch.float32, device=dev)
     out_tri = torch.empty((r,), dtype=torch.int32, device=dev)
-    CLOSEST_HIT_KERNEL.launch(*lanes, tris.v0, tris.e1, tris.e2, tp, chunk,
-                              idx_bits, r, out_t, out_tri)
+    CLOSEST_HIT_KERNEL.launch(*lanes, rows, num, idx_bits, r, out_t, out_tri)
     zeros = torch.zeros((r,), dtype=torch.float32, device=dev)
     return Hit(out_t, zeros, zeros, out_tri)
 
@@ -242,13 +274,12 @@ def closest_hit_cuda(tris: DenseTris, origin: Vec3, direction: Vec3,
 def any_hit_cuda(tris: DenseTris, origin: Vec3, direction: Vec3, t_min,
                  t_max) -> torch.Tensor:
     """Kernel 2 (`tpb_dense_any_hit`): (R,) bool, exact vs the plain
-    version (same det-scaled comparisons; a ray stops at its first
-    blocker)."""
+    version (same det-scaled comparisons; a warp stops once all its rays
+    are occluded)."""
     r, dev, lanes = _ray_args(origin, direction, t_min, t_max)
-    tp, chunk, _ = _tri_args(tris, dev)
+    rows, num, _ = _tri_args(tris, dev)
     out = torch.empty((r,), dtype=torch.bool, device=dev)
-    ANY_HIT_KERNEL.launch(*lanes, tris.v0, tris.e1, tris.e2, tris.opacity,
-                          tp, chunk, r, out)
+    ANY_HIT_KERNEL.launch(*lanes, rows, num, r, out)
     return out
 
 

@@ -22,12 +22,12 @@ class Vec3:
 
     # -- constructors ----------------------------------------------------
     @classmethod
-    def full(cls, value, shape, device=None) -> "Vec3":
+    def full(cls, value, shape, device) -> "Vec3":
         v = torch.full(shape, value, dtype=torch.float32, device=device)
         return cls(v, v, v)
 
     @classmethod
-    def zeros(cls, shape, device=None) -> "Vec3":
+    def zeros(cls, shape, device) -> "Vec3":
         return cls.full(0.0, shape, device)
 
     @classmethod
