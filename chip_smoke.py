@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from `tpu_pbrt_torch/csrc/` and
-drives three paths through `Renderer` at 1920x1080, each with the kernels'
+drives five paths through `Renderer` at 1920x1080, each with the kernels'
 launch counts set to 0 just before and read just after:
 
 * the main path: the Cornell box, 1 SPP, 8 bounces, NEE + MIS, Russian
@@ -16,7 +16,17 @@ launch counts set to 0 just before and read just after:
   closest-hit-and-shade kernel;
 * the big-scene path: the authored 25,280-triangle helmet mesh through the
   glTF ingest, metallic 0.8 / roughness 0.4, default sky, 1 SPP,
-  4 bounces, folds at 1-3 (the resident-walk kernel's closest and any hit).
+  4 bounces, folds at 1-3 (the resident-walk kernel's closest and any hit);
+* the textured helmet (`helmet-textured`): the same mesh with its 256x256
+  checker base-color map and full mip chain, ray-cone mip selection
+  (`cone_spread` = one pixel's angle), every bounce's fetch through the row
+  fetch on the 50-column textured sub-table and the texture taps in
+  PyTorch; its frame must differ from the untextured one on the mesh and
+  nowhere else;
+* an alpha-cutout scene (`models/cutout.py`: a floor, a masked quad with a
+  checker of holes, a light): the re-trace loop around the dense closest hit
+  at every bounce and every shadow ray, the row fetch on the 19-column
+  alpha sub-table.
 
 Before each path it holds every kernel the path runs against its plain
 PyTorch version on the card at the path's shapes (for the resident walk
@@ -26,7 +36,19 @@ without the cull over 32). The two dense sweeps are held and timed on
 three ray sets each (all lanes live, one lane in eight dead, half the
 lanes dead; a dead lane must come back as a miss), on a one-triangle
 table beside the Cornell one, and held on the adversarial sets of
-`tpu_pbrt_torch/ops/dense_cases.py`. After the paths it runs the walk
+`tpu_pbrt_torch/ops/dense_cases.py`, which also go through the fused
+kernel. The row fetch is held and timed at the textured paths' shapes as
+well (the helmet's 25,344 x 50 sub-table, the cutout frame's 128 x 50 and
+128 x 19 ones; camera and bounce slots, a full pool and the path's
+smallest folded one), and its entries in the `kernels` line count the
+launches the path's run made at that table width and slot count. The
+cutout test scene (a masked quad before an opaque one) goes through the
+dense tracer and through the resident walk forced onto it: holes pierced,
+opaque texels stopped on, shadow rays through holes, misses, all-empty
+pools, ids and flags equal to the plain versions' on the CPU and, with the
+bits of t, to the plain versions' on the card. The cutout frame's own
+tracer is held the same way on the card on its 1080p camera rays, on
+seeded bounce rays and on shadow segments. After the paths it runs the walk
 alone at `helmet-100k` (101,760 triangles), then holds small frames
 rendered through the kernels against the same frames rendered by the
 plain versions on the CPU. It writes PNGs under `chiprun_out/` and
@@ -36,14 +58,16 @@ before it. It never falls back to the CPU: without a usable card it exits 2.
 
     python3 chip_smoke.py --dense-times DIR
 
-runs only the dense sweeps' checks and timings, on the package of the
-checkout at DIR (this one or an older one, whose kernels it builds): the
-way to time two versions of the sweeps on the same sets within one call.
+runs only the dense sweeps' checks and timings (and the times of the fused
+kernel and the bounce fetch, which share the sub-table's row layout), on
+the package of the checkout at DIR (this one or an older one, whose kernels
+it builds): the way to time two versions on the same sets within one call.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -89,7 +113,15 @@ PATH_KERNELS = {
                       "dense_any_hit", "fetch_bounce", "fetch_rows"),
     "helmet": ("resident_closest_hit", "resident_any_hit", "fetch_bounce",
                "fetch_rows"),
+    # textured: every bounce's fetch is the row fetch on the 50-column
+    # sub-table; alpha-tested: shadow rays are closest hits too, and the
+    # alpha test fetches from the 19-column sub-table
+    "helmet_textured": ("resident_closest_hit", "resident_any_hit",
+                        "fetch_rows"),
+    "cutout": ("dense_closest_hit", "fetch_rows"),
 }
+# the smallest pool of a 1080p frame folded at three bounces
+FOLDED_POOL = WIDTH * HEIGHT // 8
 
 
 def fail(msg: str) -> None:
@@ -249,13 +281,23 @@ def n_active(t_min, t_max, r: int) -> int:
     return int(live_lanes(t_min, t_max, r).sum())
 
 
-def check_bounce_block(got, want, name: str) -> float:
+def check_bounce_block(got, want, name: str, lanes=None) -> float:
     """Bit-exact except the rsqrt rows (normals, light cosine) <= 1e-5 and
-    the front flag, which may differ only at grazing incidence."""
+    the front flag, which may differ only at grazing incidence. With
+    `lanes` ((R,) bool) only those lanes' unpack rows are held (a
+    non-finite ray's are NaN, clamped differently by `fminf` and
+    `torch.clamp`); the rows after the unpack (the fused kernel's hit t and
+    found flag) and the tri id are held on every lane."""
     import torch
     from tpu_pbrt_torch.ops import shade_table as st
 
     rows = got.shape[0]
+    if lanes is not None:
+        always = [st._FB_TRI] + list(range(st.FB_OUT, rows))
+        if not torch.equal(got[always].view(torch.int32),
+                           want[always].view(torch.int32)):
+            fail(f"{name}: tri id, hit t or found flag differ bitwise")
+        got, want = got[:, lanes], want[:, lanes]
     rsq = list(range(st._FB_FLAT, st._FB_LCOS + 1))
     exact = [r for r in range(rows) if r not in rsq + [st._FB_FRONT]]
     if not torch.equal(got[exact].view(torch.int32),
@@ -473,9 +515,14 @@ def check_fused_kernel(renderer, cam_rays, device) -> dict:
     origin, direction, t_min, t_max = cam_rays
     r = origin.x.shape[0]
     err = 0.0
-    for o, d, tmn, tmx in (cam_rays, random_rays(
-            r, device, SEED + 1, [0.05, 0.05, 0.05], [5.5, 5.4, 5.5])):
+    lo, hi = [0.05, 0.05, 0.05], [5.5, 5.4, 5.5]
+    half_dead = random_rays(r, device, SEED + 1, lo, hi, dead=0.5)
+    for o, d, tmn, tmx in (cam_rays, random_rays(r, device, SEED + 1, lo, hi),
+                           half_dead):
         got = tsf.closest_hit_shade_cuda(accel, sub, o, d, tmn, tmx)
+        if got.shape != (st.FB_OUT + 2, r):
+            fail(f"dense_closest_hit_shade: block {tuple(got.shape)}, not "
+                 f"the {st.FB_OUT + 2} rows its consumer reads")
         want = tsf.closest_hit_shade_plain(accel, sub, o, d, tmn, tmx)
         hit = td.closest_hit_cuda(accel, o, d, tmn, tmx)
         composed = st.fetch_bounce_block_cuda(
@@ -489,10 +536,13 @@ def check_fused_kernel(renderer, cam_rays, device) -> dict:
             fail("dense_closest_hit_shade: hit t differs from kernel 1")
         if not torch.equal(got[tsf.ROW_FOUND] > 0.5, hit.mask):
             fail("dense_closest_hit_shade: found flags differ from kernel 1")
+    adversarial = check_fused_adversarial(device)
     return dict(
-        max_abs_err=err,
+        max_abs_err=max(err, adversarial.pop("max_abs_err")),
         tolerance="bit-exact except rsqrt rows <= 1e-5; == kernel 1 + 3",
-        rays=r,
+        rays=r, block_rows=int(got.shape[0]), adversarial=adversarial,
+        half_dead_ms=time_ms(lambda: tsf.closest_hit_shade_cuda(
+            accel, sub, *half_dead)),
         ms=time_ms(lambda: tsf.closest_hit_shade_cuda(
             accel, sub, origin, direction, t_min, t_max)),
         plain_ms=plain_ms(lambda: tsf.closest_hit_shade_plain(
@@ -502,12 +552,274 @@ def check_fused_kernel(renderer, cam_rays, device) -> dict:
                 accel, origin, direction, t_min, t_max).tri, min=0),
             origin, direction)),
         library_ms=None,
-        # output: the rows closest_hit_shade reads (0-22, hit t, found),
-        # not the zero rows that pad the block to 32
+        # output: the block's 25 rows (0-22, hit t, found)
         **bound(r * 32 + tp * 36 + sub.numel() * 4
                 + r * (st.FB_OUT + 2) * 4,
                 n_active(t_min, t_max, r) * ntri * FLOPS_TEST_DIV
                 + r * FLOPS_UNPACK))
+
+
+def check_fused_adversarial(device) -> dict:
+    """The fused kernel against its plain version on the adversarial table
+    and sets of `ops/dense_cases.py`, under a sub-table that follows the
+    table's rows: hit t, found flag and tri id bit for bit on every lane,
+    the unpack rows on the lanes whose ray is finite."""
+    import torch
+    from tpu_pbrt_torch.ops import dense_cases
+    from tpu_pbrt_torch.ops import trace_shade_fused as tsf
+
+    tris, sets = dense_cases.adversarial_case(device)
+    sub = dense_cases.shade_subtable(tris)
+    out = {"max_abs_err": 0.0}
+    for name, rays in sets.items():
+        got = tsf.closest_hit_shade_cuda(tris, sub, *rays)
+        want = tsf.closest_hit_shade_plain(tris, sub, *rays)
+        torch.cuda.synchronize()
+        o, d = rays[0], rays[1]
+        finite = torch.isfinite(torch.stack([o.x, o.y, o.z, d.x, d.y,
+                                             d.z])).all(0)
+        out["max_abs_err"] = max(out["max_abs_err"], check_bounce_block(
+            got, want, f"dense_closest_hit_shade (adversarial {name})",
+            lanes=finite))
+        out[name] = got.shape[1]
+    return out
+
+
+def check_fetch_rows_shapes(cases: dict, path: str) -> dict:
+    """Kernel 4 at the shapes the textured path `path` gives it, name ->
+    (table, slot): each bit-exact against `fetch_rows_plain` and the library
+    call, with kernel, plain and library times and the bound (bytes: the
+    table, 4 B of slot in and 4 x columns B out per ray)."""
+    import torch
+    from tpu_pbrt_torch.ops import shade_table as st
+
+    out = {}
+    for name, (table, slot) in cases.items():
+        r = slot.shape[0]
+        got = st.fetch_rows_cuda(table, slot)
+        want = st.fetch_rows_plain(table, slot)
+        lib = torch.index_select(table.t(), 1, slot)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or not torch.equal(got, lib):
+            fail(f"fetch_rows ({name}): rows differ bitwise")
+        out[name] = dict(
+            path=path, table=list(table.shape), rays=r,
+            distinct_rows=int(torch.unique(slot).numel()),
+            max_abs_err=max_abs(got, want), tolerance="bit-exact",
+            ms=time_ms(lambda: st.fetch_rows_cuda(table, slot)),
+            plain_ms=plain_ms(lambda: st.fetch_rows_plain(table, slot)),
+            library_ms=time_ms(lambda: torch.index_select(table.t(), 1,
+                                                          slot)),
+            library_call="torch.index_select(table.t(), 1, slot)",
+            **bound(table.numel() * 4 + r * 4 + r * table.shape[1] * 4, 0.0))
+        del got, want, lib
+    return out
+
+
+def slot_cases(tables: dict, tracer, cam_rays, bounce_rays, pool: int) -> dict:
+    """Row-fetch cases on each of `tables` (prefix -> table) from the
+    tracer's own hits: the camera rays' slots (coherent), the bounce rays'
+    (incoherent), and a folded pool of `pool` lanes, the path's smallest:
+    the bounce rays that hit, then dead lanes (slot 0, as the clamp of a
+    miss gives) if those are fewer."""
+    import torch
+
+    cam = torch.clamp(tracer.closest_hit(*cam_rays).tri, min=0)
+    hit = tracer.closest_hit(*bounce_rays)
+    bounce = torch.clamp(hit.tri, min=0)
+    if int(hit.mask.sum()) < pool // 2:
+        fail(f"{list(tables)}: only {int(hit.mask.sum())} bounce rays hit, "
+             f"under half of a folded pool's {pool} lanes")
+    fold = torch.cat([bounce[hit.mask], bounce[~hit.mask]])[:pool].contiguous()
+    out = {}
+    for prefix, table in tables.items():
+        out.update({f"{prefix}_camera": (table, cam),
+                    f"{prefix}_bounce": (table, bounce),
+                    f"{prefix}_bounce_folded": (table, fold)})
+    return out
+
+
+@contextlib.contextmanager
+def plain_wrappers():
+    """Inside, the wrappers of the kernels a `Tracer`'s queries launch (the
+    dense and the resident closest hit, the row fetch) are their plain
+    versions, so the same `Tracer` code runs without a kernel on the card."""
+    from tpu_pbrt_torch.ops import shade_table as st
+    from tpu_pbrt_torch.ops import traverse_dense as td
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+
+    saved = (td.closest_hit_cuda, trs.closest_hit_cuda, st.fetch_rows_cuda)
+    td.closest_hit_cuda = td.closest_hit_plain
+    trs.closest_hit_cuda = trs.closest_hit_plain
+    st.fetch_rows_cuda = st.fetch_rows_plain
+    try:
+        yield
+    finally:
+        td.closest_hit_cuda, trs.closest_hit_cuda, st.fetch_rows_cuda = saved
+
+
+def check_alpha_loop(trc, sets: dict, name: str) -> dict:
+    """An alpha-tested `Tracer`'s `closest_hit` and `any_hit` (the re-trace
+    loop: the closest-hit kernel on pools whose unpierced lanes carry the
+    empty interval, the row fetch on the 19-column sub-table) against the
+    same loop through the plain versions on the card, per ray set: tri ids,
+    the bits of t and the occlusion flags equal, no NaN."""
+    import torch
+    from tpu_pbrt_torch.ops import cuda
+
+    out = {}
+    for set_name, rays in sets.items():
+        got = trc.closest_hit(*rays)
+        got_occ = trc.any_hit(*rays)
+        raw = trc._closest_raw(*rays)
+        cuda.reset_launches()
+        with plain_wrappers():
+            want = trc.closest_hit(*rays)
+            want_occ = trc.any_hit(*rays)
+        torch.cuda.synchronize()
+        if any(k.launches for k in cuda.KERNELS.values()):
+            fail(f"{name} ({set_name}): the plain loop launched a kernel")
+        if not torch.equal(got.tri, want.tri):
+            fail(f"{name} ({set_name}): {int((got.tri != want.tri).sum())} "
+                 f"tri ids differ from the plain loop's")
+        if bool(torch.isnan(got.t).any()) or not torch.equal(
+                got.t.view(torch.int32), want.t.view(torch.int32)):
+            fail(f"{name} ({set_name}): hit t is NaN or differs bitwise from "
+                 f"the plain loop's")
+        if not torch.equal(got_occ, want_occ) or not torch.equal(got_occ,
+                                                                 got.mask):
+            fail(f"{name} ({set_name}): occlusion flags differ")
+        r = got.tri.shape[0]
+        out[set_name] = dict(
+            rays=r, hit_share=float(got.mask.float().mean()),
+            pierced_share=int((raw.tri != got.tri).sum()) / r,
+            max_abs_err=max_abs(got.t, want.t))
+    return out
+
+
+def _cutout_rays(n: int, seed: int):
+    """Seeded rays at the cutout test scene: from in front of the quads
+    (one in five from behind) toward points on and around them, one lane in
+    six with the empty interval of an inactive lane. Numpy (3, n) origins
+    and directions and (n,) t_max."""
+    rng = np.random.default_rng(seed)
+    tgt = np.stack([rng.uniform(-1.3, 1.3, n), rng.uniform(-1.3, 1.3, n),
+                    rng.uniform(0.0, 2.0, n)])
+    o = np.stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n),
+                  np.where(rng.uniform(size=n) < 0.8, -4.0, 6.0)])
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=0)
+    t_max = np.where(np.arange(n) % 6 == 5, -np.inf, np.inf)
+    return o.astype(np.float32), d.astype(np.float32), t_max.astype(np.float32)
+
+
+def check_cutout_tracers(device) -> dict:
+    """The cutout test scene (a masked quad, transparent where x < 0, before
+    an opaque one) through `Tracer.closest_hit` / `any_hit` on the card,
+    for the dense kind (kernel 1 in the re-trace loop) and the resident kind
+    forced onto the same scene (the walk kernel): rays along +z pierce the
+    hole or stop on the opaque half, a shadow segment passes the hole, a
+    miss stays a miss, an all-empty pool is all misses without a NaN; and
+    on 2^17 seeded rays ids, masks and occlusion flags equal those of the
+    plain versions on the CPU (t within the key's quantum, 2^-16) and, t
+    bit for bit, those of the plain versions on the card."""
+    import torch
+    from tpu_pbrt_torch.models import cutout
+    from tpu_pbrt_torch.ops import cuda
+    from tpu_pbrt_torch.ops.tracer import build_for_scene
+    from tpu_pbrt_torch.ops.vec import Vec3
+
+    scene, tex, srgb = cutout.make_scene(cutout.stacked_parts(1))
+    inf = float("inf")
+    n = 1 << 17
+    o_np, d_np, tmax_np = _cutout_rays(n, SEED + 3)
+
+    def rays(dev):
+        return (Vec3(*(torch.as_tensor(c, device=dev) for c in o_np)),
+                Vec3(*(torch.as_tensor(c, device=dev) for c in d_np)), 0.0,
+                torch.as_tensor(tmax_np, device=dev))
+
+    def along_z(xs):
+        k = len(xs)
+        z = torch.zeros(k, device=device)
+        return (Vec3(torch.as_tensor(xs, dtype=torch.float32, device=device),
+                     z, torch.full_like(z, -5.0)),
+                Vec3(z, z, torch.ones_like(z)))
+
+    out = {}
+    kernels = {"dense": "dense_closest_hit", "resident":
+               "resident_closest_hit"}
+    for kind, kernel in kernels.items():
+        trc = build_for_scene(scene, tex, srgb, device=device, kind=kind)
+        cpu = build_for_scene(scene, tex, srgb, device="cpu", kind=kind)
+        if trc.kind != kind or not trc.alpha_test:
+            fail(f"cutout {kind}: tracer kind {trc.kind}, alpha_test "
+                 f"{trc.alpha_test}")
+        if trc.supports_fused_shade():
+            fail(f"cutout {kind}: an alpha-tested scene took the fused kernel")
+        o, d = along_z([-0.5, 0.5, 5.0])
+        hit = trc.closest_hit(o, d, 0.0, inf)
+        t, tri = hit.t.cpu().numpy(), hit.tri.cpu().numpy()
+        if not (abs(t[0] - 7.0) < 1e-3 and tri[0] >= 2):
+            fail(f"cutout {kind}: the hole was not pierced (t {t[0]}, tri "
+                 f"{tri[0]})")
+        if not (abs(t[1] - 5.0) < 1e-3 and 0 <= tri[1] < 2):
+            fail(f"cutout {kind}: the opaque half did not stop the ray (t "
+                 f"{t[1]}, tri {tri[1]})")
+        if tri[2] != -1 or not np.isposinf(t[2]):
+            fail(f"cutout {kind}: a miss came back as tri {tri[2]}, t {t[2]}")
+        occ = trc.any_hit(o, d, 0.0, torch.full((3,), 6.0, device=device))
+        if occ.cpu().tolist() != [False, True, False]:
+            fail(f"cutout {kind}: shadow flags {occ.cpu().tolist()}")
+
+        # an all-empty pool, and one live lane among empty ones
+        o, d = along_z(np.full(700, -0.5))
+        dead = torch.full((700,), -inf, device=device)
+        hit = trc.closest_hit(o, d, 0.0, dead)
+        if (bool((hit.tri != -1).any()) or not bool(torch.isposinf(hit.t).all())
+                or bool(trc.any_hit(o, d, 0.0, dead).any())):
+            fail(f"cutout {kind}: an all-empty pool is not all misses")
+        dead[333] = inf
+        hit = trc.closest_hit(o, d, 0.0, dead)
+        if int(hit.mask.sum()) != 1 or int(hit.tri[333]) < 2 or bool(
+                torch.isnan(hit.t).any()):
+            fail(f"cutout {kind}: one live lane among empty ones")
+
+        cuda.reset_launches()
+        got = trc.closest_hit(*rays(device))
+        got_occ = trc.any_hit(*rays(device))
+        raw = trc._closest_raw(*rays(device))
+        torch.cuda.synchronize()
+        launches = cuda.KERNELS[kernel].launches
+        fetches = cuda.KERNELS["fetch_rows"].launches
+        want = cpu.closest_hit(*rays("cpu"))
+        want_occ = cpu.any_hit(*rays("cpu"))
+        if not torch.equal(got.tri.cpu(), want.tri):
+            fail(f"cutout {kind}: {int((got.tri.cpu() != want.tri).sum())} "
+                 f"tri ids differ from the plain path's")
+        if not torch.equal(got_occ.cpu(), want_occ):
+            fail(f"cutout {kind}: occlusion flags differ from the plain "
+                 f"path's")
+        m = want.mask
+        if bool(torch.isnan(got.t).any()):
+            fail(f"cutout {kind}: NaN hit t")
+        err = max_abs(got.t.cpu()[m] / want.t[m], torch.ones(int(m.sum())))
+        if err > 2.0 ** -16 + 1e-6:
+            fail(f"cutout {kind}: hit t off by {err} relative")
+        pierced = int((raw.tri != got.tri).sum())
+        dead_lanes = torch.as_tensor(tmax_np < 0)
+        if pierced < n // 100 or bool((want.tri[dead_lanes] != -1).any()):
+            fail(f"cutout {kind}: {pierced} lanes pierced; dead lanes hit")
+        # 2 x ALPHA_TEST_MAX_ITERS sweeps for the two queries, one for raw
+        if launches != 9 or fetches != 6:
+            fail(f"cutout {kind}: {launches} {kernel} and {fetches} "
+                 f"fetch_rows launches, expected 9 and 6")
+        check_alpha_loop(trc, {"seeded": rays(device)}, f"cutout {kind}")
+        out[kind] = dict(
+            rays=n, pierced_lanes=pierced, hits=int(m.sum()),
+            occluded=int(want_occ.sum()), max_rel_t_err=err,
+            kernel=kernel, launches=launches, fetch_rows_launches=fetches)
+    return out
 
 
 def resident_needed_tests(res, rays, best, occlusion: bool) -> int:
@@ -694,6 +1006,7 @@ def run_path(name: str, renderer, camera) -> tuple[dict, np.ndarray]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in cuda.KERNELS.values()}
+    fetch_shapes = dict(cuda.KERNELS["fetch_rows"].launches_by_tag)
     for k in PATH_KERNELS[name]:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched by the {name} path")
@@ -713,7 +1026,26 @@ def run_path(name: str, renderer, camera) -> tuple[dict, np.ndarray]:
         "mrays_per_s": total_rays / wall / 1e6,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "image_mean": float(img.mean()), "launches": launches,
+        # the row fetch's launches by (table columns, slots)
+        "fetch_rows_launches": {f"{c}x{r}": n
+                                for (c, r), n in sorted(fetch_shapes.items())},
     }, img
+
+
+def fetch_shape_launches(path: dict, shapes: dict, name: str) -> dict:
+    """shape name -> the launches of the row fetch that the path `name`'s
+    run (`path`, of `run_path`) made at that shape's table width and slot
+    count; fails if it made none, for then the shape is not the path's."""
+    out = {}
+    for shape, res in shapes.items():
+        if res["path"] != name:
+            continue
+        key = f"{res['table'][1]}x{res['rays']}"
+        out[shape] = path["fetch_rows_launches"].get(key, 0)
+        if out[shape] <= 0:
+            fail(f"fetch_rows/{shape}: the {name} path made no launch at "
+                 f"{key} (columns x slots)")
+    return out
 
 
 def check_cornell_image(name: str, img: np.ndarray) -> None:
@@ -729,26 +1061,36 @@ def check_cornell_image(name: str, img: np.ndarray) -> None:
         fail(f"{name}: brightest pixel at row {ys}, not in the top third")
 
 
-def check_small_frame(name: str, scene, settings, camera,
-                      min_hits: float) -> dict:
+def check_small_frame(name: str, scene, settings, camera, min_hits: float,
+                      textures=None, texture_srgb=None,
+                      kind: str | None = None) -> dict:
     """A 64x48 frame through the kernels on the card against the same frame
     through the plain versions on the CPU: G-buffer tri ids exact, frame
     mean within 1e-3 relative, >= 99% of all pixels and >= 99% of the
     pixels with a primary hit within 1e-3 relative (a one-ulp difference
     can flip a Russian-roulette or lobe decision), and at least `min_hits`
-    of the frame hit, so the hit pixels outnumber the 1% slack."""
+    of the frame hit, so the hit pixels outnumber the 1% slack. `kind`
+    forces the tracer kind (the resident walk on a small scene)."""
+    from tpu_pbrt_torch.ops.tracer import build_for_scene
     from tpu_pbrt_torch.render.renderer import Renderer, _render_frame
 
     out = {"triangles": int(scene.geometry.num_tris)}
     imgs = {}
     for dev in ("cuda", "cpu"):
-        r = Renderer(scene, SMALL_W, SMALL_H, settings, device=dev)
+        if kind is None:
+            r = Renderer(scene, SMALL_W, SMALL_H, settings, device=dev,
+                         textures=textures, texture_srgb=texture_srgb)
+        else:
+            r = Renderer(scene, SMALL_W, SMALL_H, settings, device=dev,
+                         tracer=build_for_scene(scene, textures, texture_srgb,
+                                                device=dev, kind=kind))
         cam = camera(SMALL_W, SMALL_H).data(device=r.device)
         img, rays, gb = _render_frame(
-            r.tracer, r.environment, r.light_count, cam, 7, width=SMALL_W,
+            r.tracer, r.env, r.light_count, cam, 7, width=SMALL_W,
             height=SMALL_H, settings=settings, with_gbuffer=True)
         imgs[dev] = (img.cpu().numpy(), gb.tri.cpu().numpy(), float(rays))
-        out["tracer"] = r.tracer.kind
+        out.update(tracer=r.tracer.kind, textured=r.tracer.textured,
+                   alpha_test=r.tracer.alpha_test)
     (gi, gt, gr), (ci, ct, cr) = imgs["cuda"], imgs["cpu"]
     if not np.isfinite(gi).all():
         fail(f"small frame {name}: non-finite pixels")
@@ -808,13 +1150,26 @@ def dense_times(root: str) -> int:
     sub = st.bounce_subtable(tracer.shade_table)
     r = cam_rays[0].x.shape[0]
     bounce = random_rays(r, device, SEED + 1, [0.05] * 3, [5.5, 5.4, 5.5])
+    half_dead = random_rays(r, device, SEED + 1, [0.05] * 3, [5.5, 5.4, 5.5],
+                            dead=0.5)
+    sets = (("camera_ms", cam_rays), ("bounce_ms", bounce),
+            ("half_dead_ms", half_dead))
     out["dense_closest_hit_shade"] = {
         name: time_ms(lambda: tsf.closest_hit_shade_cuda(
-            tracer.accel, sub, *rays))
-        for name, rays in (("camera_ms", cam_rays), ("bounce_ms", bounce))}
+            tracer.accel, sub, *rays)) for name, rays in sets}
+    block = tsf.closest_hit_shade_cuda(tracer.accel, sub, *cam_rays)
+    out["dense_closest_hit_shade"]["block_rows"] = int(block.shape[0])
+    # kernel 3 shares the sub-table's row layout with the fused kernel
+    out["fetch_bounce"] = {}
+    for name, rays in sets[:2]:
+        slot = torch.clamp(td.closest_hit_cuda(tracer.accel, *rays).tri,
+                           min=0)
+        out["fetch_bounce"][name] = time_ms(
+            lambda: st.fetch_bounce_block_cuda(sub, slot, rays[0], rays[1]))
     print(json.dumps({"dense_times": out, "package": os.path.abspath(root),
                       "gpu": gpu_line(), "ptxas": ptxas_usage(
-                          cuda.build_log, "dense_")}), flush=True)
+                          cuda.build_log, "dense_", "fetch_bounce")}),
+          flush=True)
     return 0
 
 
@@ -833,7 +1188,7 @@ def main() -> int:
     if args.dense_times is not None:
         return dense_times(args.dense_times)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from tpu_pbrt_torch.models import helmet
+    from tpu_pbrt_torch.models import cutout, helmet
     from tpu_pbrt_torch.models.cornell import (make_cornell_box,
                                                make_cornell_camera)
     from tpu_pbrt_torch.models.scene import environment_radiance
@@ -938,7 +1293,105 @@ def main() -> int:
                            mean_abs_diff_from_sky_off_mesh=off_mesh)
     print(json.dumps({"helmet_path": paths["helmet"]}), flush=True)
     pngs["helmet"] = save_png("helmet_1080p.png", img)
+    untextured = img
     del renderer
+    torch.cuda.empty_cache()
+
+    # --- the textured helmet: atlas, mip selection, the 50-column fetch ---
+    scene_t, textures, tex_srgb = helmet.make_textured_scene()
+    renderer = Renderer(scene_t, WIDTH, HEIGHT,
+                        helmet.settings(True, HEIGHT), device=device,
+                        textures=textures, texture_srgb=tex_srgb)
+    trc = renderer.tracer
+    if (trc.kind != "resident" or not trc.textured or trc.alpha_test
+            or trc.supports_fused_shade()):
+        fail(f"textured helmet: tracer kind {trc.kind}, textured "
+             f"{trc.textured}, alpha_test {trc.alpha_test}")
+    if tuple(trc.bounce_sub.shape) != (25344, 50):
+        fail(f"textured helmet: sub-table {tuple(trc.bounce_sub.shape)}")
+    cam_rays = generate_rays(camera.data(device=device), WIDTH, HEIGHT)
+    rows_cases = slot_cases(
+        {"tex50": trc.bounce_sub}, trc, cam_rays,
+        mesh_rays(scene_t.geometry, WIDTH * HEIGHT, device, SEED + 4),
+        FOLDED_POOL)
+    del cam_rays
+    fetch_shapes = check_fetch_rows_shapes(rows_cases, "helmet_textured")
+    del rows_cases
+    paths["helmet_textured"], img = run_path("helmet_textured", renderer,
+                                             camera)
+    shape_launches = fetch_shape_launches(paths["helmet_textured"],
+                                          fetch_shapes, "helmet_textured")
+    on_mesh = float(np.abs(img[mask] - untextured[mask]).mean())
+    off_mesh = float(np.abs(img[~mask] - untextured[~mask]).max())
+    if on_mesh <= 0.01 or off_mesh > 1e-6:
+        fail(f"textured helmet: differs from the untextured frame by "
+             f"{on_mesh} (mean) on the mesh, {off_mesh} (max) off it")
+    paths["helmet_textured"].update(
+        cone_spread=renderer.settings.cone_spread,
+        atlas_texel_rows=int(trc.atlas.texels.shape[0]),
+        sub_table=list(trc.bounce_sub.shape),
+        mean_abs_diff_from_untextured_on_mesh=on_mesh,
+        max_abs_diff_from_untextured_off_mesh=off_mesh)
+    print(json.dumps({"helmet_textured_path": paths["helmet_textured"]}),
+          flush=True)
+    pngs["helmet_textured"] = save_png("helmet_textured_1080p.png", img)
+    del renderer, trc, untextured
+    torch.cuda.empty_cache()
+
+    # --- alpha cutouts: the test scene on both tracer kinds, then a frame -
+    print(json.dumps({"cutout_tracers": check_cutout_tracers(device)}),
+          flush=True)
+    cut_scene, cut_tex, cut_srgb = cutout.make_scene(cutout.frame_parts())
+    cut_settings = PathTraceSettings(
+        bounces=3, samples_per_pixel=1, count_rays=True,
+        compaction_schedule=(2,), cone_spread=helmet.cone_spread(HEIGHT))
+    renderer = Renderer(cut_scene, WIDTH, HEIGHT, cut_settings, device=device,
+                        textures=cut_tex, texture_srgb=cut_srgb)
+    trc = renderer.tracer
+    if trc.kind != "dense" or not trc.alpha_test:
+        fail(f"cutout frame: tracer kind {trc.kind}, alpha_test "
+             f"{trc.alpha_test}")
+    cut_camera = cutout.frame_camera(WIDTH, HEIGHT)
+    cam_rays = generate_rays(cut_camera.data(device=device), WIDTH, HEIGHT)
+    raw = trc._closest_raw(*cam_rays).tri.reshape(HEIGHT, WIDTH).cpu().numpy()
+    seen = trc.closest_hit(*cam_rays).tri.reshape(HEIGHT, WIDTH).cpu().numpy()
+    if tuple(trc.bounce_sub.shape) != (128, 50) or tuple(
+            trc.alpha_sub.shape) != (128, 19):
+        fail(f"cutout frame: sub-tables {tuple(trc.bounce_sub.shape)}, "
+             f"{tuple(trc.alpha_sub.shape)}")
+    lo, hi = [-1.2, 0.05, -1.2], [1.2, 2.9, 1.2]
+    bounce_rays = random_rays(WIDTH * HEIGHT, device, SEED + 5, lo, hi,
+                              dead=0.0)
+    # the frame's two fetches (the alpha test's, the bounce's) at its two
+    # pools: one fold, at bounce 2
+    rows_cases = slot_cases(
+        {"alpha19": trc.alpha_sub, "tex50_cutout": trc.bounce_sub}, trc,
+        cam_rays, bounce_rays, WIDTH * HEIGHT // 2)
+    fetch_shapes.update(check_fetch_rows_shapes(rows_cases, "cutout"))
+    del rows_cases
+    # the frame's own tracer against the plain loop on the card
+    cutout_loop = check_alpha_loop(trc, {
+        "camera": cam_rays, "bounce": bounce_rays,
+        "shadow": segment_rays(WIDTH * HEIGHT, device, SEED + 6, lo, hi,
+                               light_targets(trc), dead=0.125)},
+        "cutout frame")
+    print(json.dumps({"cutout_frame_tracer_vs_plain": cutout_loop}),
+          flush=True)
+    del cam_rays, bounce_rays
+    print(json.dumps({"fetch_rows_shapes": fetch_shapes}), flush=True)
+    paths["cutout"], img = run_path("cutout", renderer, cut_camera)
+    shape_launches.update(fetch_shape_launches(paths["cutout"], fetch_shapes,
+                                               "cutout"))
+    # the masked quad is triangles 2 and 3: its holes show what lies behind
+    holes = np.isin(raw, (2, 3)) & ~np.isin(seen, (2, 3))
+    if not 0.01 < holes.mean() < 0.5 or not np.isin(seen, (2, 3)).any():
+        fail(f"cutout frame: holes cover {holes.mean()} of the frame")
+    paths["cutout"].update(hole_share=float(holes.mean()),
+                           masked_quad_share=float(np.isin(seen,
+                                                           (2, 3)).mean()))
+    print(json.dumps({"cutout_path": paths["cutout"]}), flush=True)
+    pngs["cutout"] = save_png("cutout_1080p.png", img)
+    del renderer, trc
     torch.cuda.empty_cache()
 
     # --- helmet-100k: the walk alone at 101,760 triangles -----------------
@@ -958,18 +1411,48 @@ def main() -> int:
         helmet.settings(), helmet.make_camera, 0.2)
     if small["helmet"]["tracer"] != "resident":
         fail("the small helmet frame did not take the resident tracer")
+    small_t = helmet.make_textured_scene("helmet", *SMALL_HELMET)
+    small["helmet_textured"] = check_small_frame(
+        "helmet_textured", small_t[0], helmet.settings(True, SMALL_H),
+        helmet.make_camera, 0.2, small_t[1], small_t[2])
+    small_cut = PathTraceSettings(
+        bounces=3, samples_per_pixel=1, count_rays=True,
+        compaction_schedule=(2,), cone_spread=helmet.cone_spread(SMALL_H))
+    for forced in ("dense", "resident"):
+        small[f"cutout_{forced}"] = check_small_frame(
+            f"cutout_{forced}", cut_scene, small_cut, cutout.frame_camera,
+            0.2, cut_tex, cut_srgb, kind=forced)
+    for name, want in (("helmet_textured", ("resident", True, False)),
+                       ("cutout_dense", ("dense", True, True)),
+                       ("cutout_resident", ("resident", True, True))):
+        got = tuple(small[name][k] for k in ("tracer", "textured",
+                                             "alpha_test"))
+        if got != want:
+            fail(f"small frame {name}: (tracer, textured, alpha_test) = "
+                 f"{got}, expected {want}")
     print(json.dumps({"small_frames_vs_cpu": small}), flush=True)
     print(json.dumps({"png": pngs, "seconds": time.perf_counter() - t_start}),
           flush=True)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [
+    kernels = [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "path": KERNEL_PATH[k.name],
          "launches": paths[KERNEL_PATH[k.name]]["launches"][k.name],
          **{key: kres[k.name][key] for key in keys}}
-        for k in cuda.KERNELS.values()]}), flush=True)
+        for k in cuda.KERNELS.values()]
+    # the row fetch again, at the textured paths' shapes
+    k4 = cuda.KERNELS["fetch_rows"]
+    # (launches: those the path's run made at this table width and slot
+    # count, of its fetch_rows launches in all)
+    for name, res in fetch_shapes.items():
+        kernels.append(
+            {"name": f"fetch_rows/{name}", "route": "cuda",
+             "source": k4.source, "replaces": k4.replaces,
+             "path": res["path"], "launches": shape_launches[name],
+             **{key: res[key] for key in keys}})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,6 +13,7 @@ from tpu_pbrt.ops import traverse_dense as jtd
 from tpu_pbrt_torch import convert
 from tpu_pbrt_torch.models import cornell as tcornell
 from tpu_pbrt_torch.ops import shade_table as tst
+from tpu_pbrt_torch.ops import texture as ttexture
 from tpu_pbrt_torch.ops import tracer as ttracer
 from tpu_pbrt_torch.ops import traverse_dense as ttd
 from tpu_pbrt_torch.ops.vec import Vec3
@@ -168,14 +169,105 @@ def test_authored_glb_matches_reference(shape, tmp_path):
 
 
 def test_unported_gltf_texture_raises(tmp_path):
-    """A material that references an image waits for textures."""
-    import bench
+    """The image formats still to port raise, by mime type, file name or
+    magic bytes: a material whose texture is a DDS image (the
+    `MSFT_texture_dds` payload)."""
+    import base64
+    import json
+
     from tpu_pbrt_torch.models import gltf as tgltf
 
-    path = str(tmp_path / "textured.glb")
-    bench._write_sphere_glb(path, True, "sphere", nu=8, nv=5)
-    with pytest.raises(NotImplementedError, match="texture"):
-        tgltf.load(path)
+    dds = base64.b64encode(b"DDS " + bytes(124)).decode()
+    for image in ({"uri": "data:image/vnd-ms.dds;base64," + dds,
+                   "mimeType": "image/vnd-ms.dds"},
+                  {"uri": "missing.dds"},
+                  {"uri": "data:application/octet-stream;base64," + dds}):
+        doc = {"asset": {"version": "2.0"}, "images": [image],
+               "textures": [{"source": 0}],
+               "materials": [{"pbrMetallicRoughness": {
+                   "baseColorTexture": {"index": 0}}}]}
+        path = tmp_path / "dds.gltf"
+        path.write_text(json.dumps(doc))
+        with pytest.raises(NotImplementedError, match="DDS"):
+            tgltf.load(str(path))
+
+
+def test_textured_glb_loads_like_reference(tmp_path):
+    """bench.py's textured .glb (its PNG written by PIL) through both
+    loaders: textures, sRGB flags and the material's texture indices are
+    equal; and the port's own textured helmet .glb (its PNG written by the
+    port) decodes to the same texels in both."""
+    import bench
+    from tpu_pbrt.models import gltf as jgltf
+    from tpu_pbrt_torch.models import gltf as tgltf
+    from tpu_pbrt_torch.models import helmet
+
+    jpath, tpath = str(tmp_path / "ref.glb"), str(tmp_path / "port.glb")
+    bench._write_sphere_glb(jpath, True, "helmet", nu=8, nv=5)
+    helmet.write_glb(tpath, "helmet", 8, 5, textured=True)
+    loads = [(jgltf.load(p), tgltf.load(p)) for p in (jpath, tpath)]
+    for jm, tm in loads:
+        assert len(tm.textures) == len(jm.textures) == 1
+        assert tm.texture_srgb == jm.texture_srgb == [True]
+        assert tm.textures[0].dtype == np.uint8
+        np.testing.assert_array_equal(jm.textures[0], tm.textures[0])
+        assert tm.materials[0]["texture_index"] == (
+            jm.materials[0]["texture_index"]) == [0, -1, -1, -1, -1, -1, -1]
+    np.testing.assert_array_equal(loads[0][1].textures[0],
+                                  loads[1][1].textures[0])
+    np.testing.assert_array_equal(loads[0][1].textures[0],
+                                  helmet.checker_texture())
+
+
+def test_textured_helmet_scene_matches_reference(tmp_path):
+    """`helmet.make_textured_scene` equals bench.py's `_sphere_setup` scene
+    built by tpu_pbrt from bench's .glb (reduced grid), bit for bit, with
+    its textures and the bench's cone spread."""
+    import bench
+    from tpu_pbrt.models import gltf as jgltf
+    from tpu_pbrt.models.material import make_table as jmake_table
+    from tpu_pbrt.models.mesh import build_geometry as jbuild_geometry
+    from tpu_pbrt.models.scene import make_environment, make_scene
+    from tpu_pbrt_torch.models import helmet
+
+    jpath = str(tmp_path / "ref.glb")
+    bench._write_sphere_glb(jpath, True, "helmet", nu=16, nv=9)
+    jm = jgltf.load(jpath)
+    want = make_scene(jbuild_geometry(jgltf.to_geometry_meshes(jm)),
+                      jmake_table(jm.materials), make_environment(),
+                      textures=jm.textures, texture_srgb=jm.texture_srgb)
+    got, textures, srgb = helmet.make_textured_scene("helmet", 16, 9)
+    _assert_tree_equal(want, got)
+    np.testing.assert_array_equal(jm.textures[0], textures[0])
+    assert srgb == [True]
+    assert helmet.settings(True, 1080).cone_spread == (
+        2.0 * float(np.tan(np.radians(45.0) / 2)) / 1080)
+    assert helmet.settings().cone_spread == 0.0
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    """Every module of the port and chip_smoke.py, parsed with `ast`: no
+    import of jax, jaxlib or tpu_pbrt, at any depth of the file."""
+    import ast
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    files = [os.path.join(repo, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(repo, "tpu_pbrt_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 30
+    banned = {"jax", "jaxlib", "tpu_pbrt"}
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert not banned & set(roots), f"{path}:{node.lineno}: {roots}"
 
 
 def test_entry_points_require_a_device():
@@ -184,8 +276,13 @@ def test_entry_points_require_a_device():
     acc = jtracer.build_for_scene(jcornell.make_cornell_box())
     accel, table, light_table, cdf = _tracer_leaves(acc)
     v = [np.zeros((4, 3), np.float32)] * 3
+    tex = [np.full((4, 4, 4), 200, np.uint8)]
     calls = (
         lambda **kw: ttracer.build_for_scene(scene, **kw),
+        lambda **kw: ttracer.build_for_scene(scene, tex, [True], **kw),
+        lambda **kw: ttexture.build_atlas(tex, [True], **kw),
+        lambda **kw: ttexture.atlas_from_numpy(
+            *ttexture.build_atlas_arrays(tex), **kw),
         lambda **kw: convert.tracer_from_numpy(accel, table, light_table,
                                                cdf, **kw),
         lambda **kw: ttd.prepare(*v, **kw),

@@ -8,7 +8,10 @@ or all occluded, the dense adversarial sets of
 and the wrappers' argument checks; for the resident walk also chunks that
 straddle two octants, all-idle chunks, an all-pad last block, and the
 adversarial sets of its block cull (`adversarial_case`); for the fused
-closest-hit-and-shade kernel soups up to its 1024-row gate.
+closest-hit-and-shade kernel soups up to its 1024-row gate and the dense
+adversarial sets; the row fetch at the textured and alpha sub-tables'
+shapes; and the alpha re-trace loop's all-empty and mostly-empty pools
+through kernel 1 and the resident walk.
 
 These need an NVIDIA GPU and nvcc; elsewhere they skip. On the card (no
 JAX there, so without the JAX-pinning conftest):
@@ -154,15 +157,24 @@ def test_dense_all_occluded(dev, nray):
 
 
 @pytest.mark.parametrize("t,c,r", [(128, 64, 1), (128, 64, 3001),
-                                   (5133, 30, 2000), (4, 3, 700)])
+                                   (5133, 30, 2000), (4, 3, 700),
+                                   (25344, 50, 70001), (25344, 50, 255),
+                                   (128, 19, 70001), (25344, 19, 4099)])
 def test_fetch_rows_kernel_exact(dev, t, c, r):
+    """Among them the textured bounce sub-table's shape (25,344 x 50) and
+    the alpha test's 19 columns; slots run from -2 to t + 1, so some fall
+    outside the table on either side (zero rows). The launch is counted
+    once, under its table width and slot count too."""
     rng = np.random.default_rng(t * c)
     table = torch.as_tensor(rng.normal(size=(t, c)).astype(np.float32),
                             device=dev)
     slot = torch.as_tensor(rng.integers(-2, t + 2, r).astype(np.int32),
                            device=dev)
+    cuda.reset_launches()
     assert torch.equal(st.fetch_rows_cuda(table, slot),
                        st.fetch_rows_plain(table, slot))
+    assert st.FETCH_ROWS_KERNEL.launches == 1
+    assert st.FETCH_ROWS_KERNEL.launches_by_tag == {(c, r): 1}
 
 
 @pytest.mark.parametrize("t,r", [(128, 1), (128, 4099), (1200, 600)])
@@ -470,24 +482,6 @@ def test_resident_all_idle(dev):
     assert not bool(trs.any_hit_cuda(res, o, d, tmin, tmax).any())
 
 
-def _fused_table(tris: td.DenseTris, v0, v1, v2, dev):
-    """A shade table whose rows follow the padded soup (normals = face
-    normals, tri id = row, -1 on padding)."""
-    tp = tris.v0.shape[0]
-    n = v0.shape[0]
-    table = np.zeros((tp, st.COLS), np.float32)
-    table[:n, st._P0:st._P0 + 3] = v0
-    table[:n, st._E1:st._E1 + 3] = v1 - v0
-    table[:n, st._E2:st._E2 + 3] = v2 - v0
-    nrm = np.cross(v1 - v0, v2 - v0)
-    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-9)
-    for k in range(3):
-        table[:n, st._N0 + 3 * k:st._N0 + 3 * k + 3] = nrm
-    table[:n, st._BASE:st._BASE + 3] = 0.5
-    table[:, st._TRI] = np.concatenate([np.arange(n), -np.ones(tp - n)])
-    return st.bounce_subtable(torch.as_tensor(table, device=dev))
-
-
 @pytest.mark.parametrize("ntri", [1, 36, 300, 1024])
 @pytest.mark.parametrize("nray", [1, 255, 4099])
 def test_fused_closest_hit_shade_kernel(dev, ntri, nray):
@@ -496,10 +490,11 @@ def test_fused_closest_hit_shade_kernel(dev, ntri, nray):
     bit-exact, those within 1e-5; empty intervals on every 7th lane."""
     v0, v1, v2, op = _corners(ntri, ntri + 2)
     tris = td.prepare(v0, v1, v2, opacity=op, device=dev)
-    sub = _fused_table(tris, v0, v1, v2, dev)
+    sub = dense_cases.shade_subtable(tris)
     o, d, tmin, tmax = _rays(nray, nray + 3, dev)
     got = tsf.closest_hit_shade_cuda(tris, sub, o, d, tmin, tmax)
     want = tsf.closest_hit_shade_plain(tris, sub, o, d, tmin, tmax)
+    assert got.shape == (st.FB_OUT + 2, nray)      # no padding rows
     rsq = list(range(st._FB_FLAT, st._FB_LCOS + 1))
     exact = [i for i in range(tsf.OUT_ROWS) if i not in rsq + [st._FB_FRONT]]
     assert torch.equal(got[exact].view(torch.int32),
@@ -515,11 +510,91 @@ def test_fused_closest_hit_shade_kernel(dev, ntri, nray):
     assert torch.equal(got[tsf.ROW_HIT_T], hit.t)
 
 
+@pytest.mark.parametrize("name", dense_cases.SETS)
+def test_fused_block_on_adversarial_sets(dev, dense_adversarial, name):
+    """The fused kernel's 25-row block on the dense adversarial table and
+    sets: tri id, hit t and found flag bit for bit on every lane; the unpack
+    rows on the lanes whose ray is finite (a NaN barycentric is clamped to 0
+    by `fminf` and kept by `torch.clamp`), the rsqrt rows within 1e-5."""
+    tris, sets = dense_adversarial
+    sub = dense_cases.shade_subtable(tris)
+    o, d, tmin, tmax = sets[name]
+    got = tsf.closest_hit_shade_cuda(tris, sub, o, d, tmin, tmax)
+    want = tsf.closest_hit_shade_plain(tris, sub, o, d, tmin, tmax)
+    assert got.shape == (tsf.OUT_ROWS, o.x.shape[0]) == (25, o.x.shape[0])
+    always = [st._FB_TRI, tsf.ROW_HIT_T, tsf.ROW_FOUND]
+    assert torch.equal(got[always].view(torch.int32),
+                       want[always].view(torch.int32))
+    hit = td.closest_hit_cuda(tris, o, d, tmin, tmax)
+    assert torch.equal(got[tsf.ROW_HIT_T].view(torch.int32),
+                       hit.t.view(torch.int32))
+    assert torch.equal(got[tsf.ROW_FOUND] > 0.5, hit.mask)
+    finite = torch.isfinite(torch.stack([o.x, o.y, o.z, d.x, d.y,
+                                         d.z])).all(0)
+    got, want = got[:, finite], want[:, finite]
+    rsq = list(range(st._FB_FLAT, st._FB_LCOS + 1))
+    exact = [i for i in range(tsf.OUT_ROWS) if i not in rsq + [st._FB_FRONT]]
+    assert torch.equal(got[exact].view(torch.int32),
+                       want[exact].view(torch.int32))
+    assert float((got[rsq] - want[rsq]).abs().max()) <= 1e-5
+    grazing = want[st._FB_LCOS].abs() < 1e-5
+    assert not bool(((got[st._FB_FRONT] != want[st._FB_FRONT])
+                     & ~grazing).any())
+
+
+@pytest.fixture(scope="module", params=["dense", "resident"])
+def cutout_tracers(request, dev):
+    """The cutout test scene (`models/cutout.stacked_parts`: a masked quad,
+    transparent where x < 0, before an opaque one) on the card and, as the
+    plain versions, on the CPU, for one tracer kind."""
+    from tpu_pbrt_torch.models import cutout
+    from tpu_pbrt_torch.ops.tracer import build_for_scene
+
+    scene, tex, srgb = cutout.make_scene(cutout.stacked_parts(1))
+    return tuple(build_for_scene(scene, tex, srgb, device=d,
+                                 kind=request.param) for d in (dev, "cpu"))
+
+
+def _z_rays(xs, t_max, dev):
+    n = len(xs)
+    z = torch.zeros(n, device=dev)
+    return (Vec3(torch.as_tensor(np.asarray(xs, np.float32), device=dev), z,
+                 torch.full_like(z, -5.0)),
+            Vec3(z, z, torch.ones_like(z)), 0.0,
+            torch.as_tensor(np.asarray(t_max, np.float32), device=dev))
+
+
+@pytest.mark.parametrize("live", [0, 1, 37])
+@pytest.mark.parametrize("n", [1, 700, 4099])
+def test_alpha_loop_empty_pools(dev, cutout_tracers, n, live):
+    """The alpha re-trace hands kernel 1 and the resident walk pools whose
+    lanes mostly (or all) carry t_max = -inf: an all-empty pool is all
+    misses without a NaN, the few live lanes still pierce the hole (x < 0)
+    or stop on the opaque half, and ids, t bits and flags equal the plain
+    versions' on the CPU."""
+    trc, plain = cutout_tracers
+    assert trc.alpha_test and not trc.supports_fused_shade()
+    rng = np.random.default_rng(n + live)
+    xs = rng.uniform(-0.9, 0.9, n)
+    t_max = np.full(n, -np.inf)
+    t_max[rng.permutation(n)[:live]] = np.inf
+    got = trc.closest_hit(*_z_rays(xs, t_max, dev))
+    want = plain.closest_hit(*_z_rays(xs, t_max, "cpu"))
+    assert not bool(torch.isnan(got.t).any())
+    assert torch.equal(got.tri.cpu(), want.tri)
+    assert torch.equal(got.t.cpu().view(torch.int32), want.t.view(torch.int32))
+    alive = torch.as_tensor(t_max > 0)
+    assert bool((want.tri[~alive] == -1).all())
+    assert torch.equal(want.tri[alive] >= 2, torch.as_tensor(xs < 0)[alive])
+    occ = trc.any_hit(*_z_rays(xs, np.where(t_max > 0, 6.0, t_max), dev))
+    assert torch.equal(occ.cpu(), alive & torch.as_tensor(xs > 0))
+
+
 def test_new_kernels_count_launches(dev):
     res = trs.prepare(*_corners(300, 1), device=dev)
     v0, v1, v2, op = _corners(36, 2)
     tris = td.prepare(v0, v1, v2, opacity=op, device=dev)
-    sub = _fused_table(tris, v0, v1, v2, dev)
+    sub = dense_cases.shade_subtable(tris)
     o, d, tmin, tmax = _rays(64, 2, dev)
     cuda.reset_launches()
     trs.closest_hit_plain(res, o, d, tmin, tmax)

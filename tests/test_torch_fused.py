@@ -144,9 +144,10 @@ def test_closest_hit_shade_matches_pallas(case):
 
 
 def test_block_is_the_unfused_composition():
-    """On CPU tensors the (32, R) block is the plain sweep + plain bounce
-    fetch, bit for bit: rows 0-22 the fetch (slot 0 on a miss), 24 the hit
-    t, 25 the found flag, the rest zero."""
+    """On CPU tensors the (25, R) block is the plain sweep + plain bounce
+    fetch, bit for bit: rows 0-22 the fetch (slot 0 on a miss), 23 the hit
+    t, 24 the found flag, and nothing after them: exactly the rows that
+    `closest_hit_shade` reads."""
     acc, table, o, d = _cornell_case()
     tris = _port_accel(acc)
     sub = tst.bounce_subtable(torch.as_tensor(table))
@@ -161,8 +162,10 @@ def test_block_is_the_unfused_composition():
     assert torch.equal(block[:tst.FB_OUT], fetch)
     assert torch.equal(block[tfused.ROW_HIT_T], hit.t)
     assert torch.equal(block[tfused.ROW_FOUND], hit.mask.float())
-    assert not bool(block[tst.FB_OUT].any())
-    assert not bool(block[tfused.ROW_FOUND + 1:].any())
+    assert (tfused.ROW_HIT_T, tfused.ROW_FOUND, tfused.OUT_ROWS) == (
+        tst.FB_OUT, tst.FB_OUT + 1, tst.FB_OUT + 2)
+    assert sub.shape == (table.shape[0], tst.SUB_STRIDE)
+    assert not bool(sub[:, len(tst._BOUNCE_COLS):].any())
 
 
 def test_supported_gating(monkeypatch):
@@ -182,6 +185,14 @@ def test_supported_gating(monkeypatch):
     assert tfused.supported(
         trc.accel, torch.zeros((jst.ONEHOT_MAX_ROWS + 128, tst.COLS)))
     assert not tfused.supported(trc.accel, None)
+    # a textured or alpha-tested scene takes the unfused path, by rule
+    tex = [np.full((4, 4, 4), 128, np.uint8)]
+    textured = ttracer.build_for_scene(make_cornell_box(), tex, [True],
+                                       device="cpu")
+    assert textured.textured and textured.atlas is not None
+    assert not tfused.supported(textured.accel, textured.shade_table,
+                                textured.atlas)
+    assert not textured.supports_fused_shade()
     assert tfused.MAX_TRIS_PAD == jfused.MAX_TRIS_PAD
 
 
@@ -197,8 +208,8 @@ def test_tracer_closest_hit_shade(monkeypatch):
                         float("inf"))
     hit, attrs = trc.closest_hit_shade(ov, dv, 0.0, t_max)
     want_hit = trc.closest_hit(ov, dv, 0.0, t_max)
-    want = tst.fetch_bounce(trc.shade_table, torch.clamp(want_hit.tri, min=0),
-                            ov, dv)
+    want = tst.fetch_bounce(tst.bounce_subtable(trc.shade_table),
+                            torch.clamp(want_hit.tri, min=0), ov, dv)
     assert torch.equal(hit.tri, want_hit.tri)
     assert torch.equal(hit.t, want_hit.t)
     m = want_hit.mask

@@ -77,7 +77,7 @@ def frames(request):
                             TSettings(**kw), device="cpu",
                             tracer=_port_tracer(jtracer))
     got = trenderer._render_frame(
-        tr.tracer, tr.environment, tr.light_count,
+        tr.tracer, tr.env, tr.light_count,
         tcornell.make_cornell_camera(W, H).data(device="cpu"), FRAME,
         width=W, height=H, settings=tr.settings, with_gbuffer=True)
     return want, got
@@ -179,10 +179,12 @@ def test_renderer_cpu_image_checks():
 
 def test_unported_settings_raise():
     scene = tcornell.make_cornell_box()
-    for kw in (dict(sharc_mode="query"), dict(external_di=True),
-               dict(cone_spread=0.01)):
+    for kw in (dict(sharc_mode="query"), dict(external_di=True)):
         with pytest.raises(NotImplementedError):
             trenderer.Renderer(scene, W, H, TSettings(**kw), device="cpu")
+    # the ray-cone spread of textured scenes is a ported setting
+    trenderer.Renderer(scene, W, H, TSettings(cone_spread=0.01),
+                       device="cpu")
 
 
 def test_no_silent_cpu_fallback():
@@ -273,7 +275,7 @@ def _helmet_frames(tmp_path, camera):
                             helmet.settings(), device="cpu")
     assert tr.tracer.kind == "resident"
     got = trenderer._render_frame(
-        tr.tracer, tr.environment, tr.light_count, tcam.data(device="cpu"),
+        tr.tracer, tr.env, tr.light_count, tcam.data(device="cpu"),
         FRAME, width=W, height=H, settings=tr.settings, with_gbuffer=True)
     _assert_frames_agree(want, got)
     return got
@@ -313,11 +315,117 @@ def test_fused_cornell_frame_matches_reference(monkeypatch):
                             TSettings(**kw), device="cpu")
     assert tr.tracer.supports_fused_shade()
     got = trenderer._render_frame(
-        tr.tracer, tr.environment, tr.light_count,
+        tr.tracer, tr.env, tr.light_count,
         tcornell.make_cornell_camera(W, H).data(device="cpu"), FRAME,
         width=W, height=H, settings=tr.settings, with_gbuffer=True)
     assert float(got[1]) == float(want[1])
     _assert_frames_agree(want, got)
+
+
+# --- textured and alpha-cutout frames --------------------------------------
+
+def _jax_frame(jscene_, jtrc, js, tcam):
+    """The reference's frame of `jscene_` through the tracer `jtrc` (built
+    with its textures: the reference `Renderer` builds one without) under
+    the port camera's fields."""
+    from tpu_pbrt.render import camera as jcamera
+
+    jcam = jcamera.Camera(position=tcam.position.copy(),
+                          rotation=tcam.rotation.copy(),
+                          vertical_fov_deg=tcam.vertical_fov_deg,
+                          aspect=tcam.aspect)
+    return jax.jit(lambda trc, scene, c: jrenderer._render_frame(
+        trc, scene, c, np.uint32(FRAME), width=W, height=H, settings=js,
+        with_gbuffer=True))(jtrc, jscene_, jcam.data())
+
+
+def _port_frame(tr, tcam):
+    return trenderer._render_frame(
+        tr.tracer, tr.env, tr.light_count, tcam.data(device="cpu"), FRAME,
+        width=W, height=H, settings=tr.settings, with_gbuffer=True)
+
+
+def test_textured_helmet_frame_matches_reference(tmp_path):
+    """The reduced textured helmet (40 x 28 grid, the 256 x 256 checker
+    base-color map with its mip chain) at 64x48 under the camera that
+    frames it, the bench's settings with the ray-cone spread of a 48-row
+    frame: the reference's culled tracer against the port's resident walk,
+    G-buffer base color within 1e-4 where both hit the same triangle, and
+    the frame gates. The texture shows: the mesh's base color varies."""
+    import bench
+    from tpu_pbrt.models import gltf as jgltf
+    from tpu_pbrt.models.material import make_table
+    from tpu_pbrt.models.mesh import build_geometry
+    from tpu_pbrt.models.scene import make_environment, make_scene
+    from tpu_pbrt.ops import tracer as jtracer
+    from tpu_pbrt_torch.models import helmet
+
+    path = str(tmp_path / "helmet_textured.glb")
+    bench._write_sphere_glb(path, True, "helmet", nu=40, nv=28)
+    jm = jgltf.load(path)
+    jsc = make_scene(build_geometry(jgltf.to_geometry_meshes(jm)),
+                     make_table(jm.materials), make_environment(),
+                     textures=jm.textures, texture_srgb=jm.texture_srgb)
+    jtrc = jtracer.build_for_scene(jsc, textures=jm.textures,
+                                   texture_srgb=jm.texture_srgb)
+    assert jtrc.kind == "culled" and jtrc.textured and not jtrc.alpha_test
+
+    scene, textures, srgb = helmet.make_textured_scene("helmet", 40, 28)
+    ts = helmet.settings(True, H)
+    assert ts.cone_spread > 0
+    tcam = helmet.make_camera(W, H)
+    want = _jax_frame(jsc, jtrc, JSettings(
+        bounces=4, samples_per_pixel=1, count_rays=True,
+        compaction_schedule=(1, 2, 3), cone_spread=ts.cone_spread), tcam)
+    tr = trenderer.Renderer(scene, W, H, ts, device="cpu",
+                            textures=textures, texture_srgb=srgb)
+    assert tr.tracer.kind == "resident" and tr.tracer.textured
+    assert not tr.tracer.supports_fused_shade()
+    got = _port_frame(tr, tcam)
+    _assert_frames_agree(want, got)
+    same = (np.asarray(want[2].tri) == got[2].tri.numpy()) & np.asarray(
+        want[2].valid)
+    assert same.mean() > 0.2
+    for ax in "xyz":
+        np.testing.assert_allclose(
+            getattr(got[2].base_color, ax).numpy()[same],
+            np.asarray(getattr(want[2].base_color, ax))[same], rtol=0,
+            atol=1e-4)
+    assert float(got[2].base_color.x[torch.as_tensor(same)].std()) > 0.05
+
+
+def test_cutout_frame_matches_reference():
+    """An alpha-cutout scene (`models/cutout.frame_parts`: a floor, a masked
+    quad with a checker of holes over it, a light above) through `Renderer`
+    (dense tracer, alpha loop at every closest hit and every shadow ray,
+    textured bounce fetch) against the reference: counted rays equal, the
+    frame gates, and the holes show the floor."""
+    from tpu_pbrt.models import scene as jscene
+    from tpu_pbrt.models.material import make_table as jmake_table
+    from tpu_pbrt.models.mesh import build_geometry as jbuild_geometry
+    from tpu_pbrt.ops import tracer as jtracer
+    from tpu_pbrt_torch.models import cutout
+
+    meshes, materials, imgs, srgb = cutout.frame_parts()
+    jsc = jscene.make_scene(jbuild_geometry(meshes), jmake_table(materials),
+                            textures=imgs, texture_srgb=srgb)
+    tsc, _, _ = cutout.make_scene(cutout.frame_parts())
+    jtrc = jtracer.build_for_scene(jsc, textures=imgs, texture_srgb=srgb)
+    assert jtrc.kind == "dense" and jtrc.alpha_test
+    kw = dict(bounces=3, count_rays=True, compaction_schedule=(2,),
+              cone_spread=2.0 * float(np.tan(np.radians(45.0) / 2)) / H)
+    tcam = cutout.frame_camera(W, H)
+    want = _jax_frame(jsc, jtrc, JSettings(**kw), tcam)
+    tr = trenderer.Renderer(tsc, W, H, TSettings(**kw), device="cpu",
+                            textures=imgs, texture_srgb=srgb)
+    assert tr.tracer.kind == "dense" and tr.tracer.alpha_test
+    got = _port_frame(tr, tcam)
+    assert float(got[1]) == float(want[1])
+    _assert_frames_agree(want, got)
+    tri = got[2].tri.numpy()
+    # masked quad (tris 2, 3) and, through its holes and around it, floor
+    assert (np.isin(tri, (2, 3))).mean() > 0.03
+    assert (np.isin(tri, (0, 1))).mean() > 0.2
 
 
 def test_png_writer_round_trip(tmp_path):

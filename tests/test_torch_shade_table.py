@@ -102,8 +102,8 @@ def test_fetch_bounce_matches_pallas(which):
     sub = table[:, jnp.asarray(jst._BOUNCE_COLS, jnp.int32)]
     want = jst._fetch_bounce_fused(sub, jnp.asarray(slot), jo, jd,
                                    interpret=True)
-    got = tst.fetch_bounce(torch.as_tensor(np.array(table)),
-                           torch.as_tensor(slot),
+    got = tst.fetch_bounce(tst.bounce_subtable(torch.as_tensor(
+                               np.array(table))), torch.as_tensor(slot),
                            TVec3(*(torch.as_tensor(c) for c in o)),
                            TVec3(*(torch.as_tensor(c) for c in d)))
     _compare_attrs(want, got, np.asarray(want.light_cos))

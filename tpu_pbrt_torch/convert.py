@@ -14,14 +14,15 @@ import torch
 from .models.material import MaterialTable
 from .models.mesh import Geometry
 from .models.scene import EmissiveLights, EnvironmentLight, Scene
-from .ops import traverse_dense, traverse_resident
+from .ops import texture, traverse_dense, traverse_resident
 from .ops.tracer import Tracer
 
 _INT_FIELDS = ("tri_id", "orders")
 
 
 def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
-                      light_table: np.ndarray, light_cdf: np.ndarray, *,
+                      light_table: np.ndarray, light_cdf: np.ndarray,
+                      atlas: dict | None = None, alpha_test: bool = False, *,
                       device: str | torch.device) -> Tracer:
     """Port `Tracer` from a reference tracer's leaves. `accel` holds the
     fields of a `DenseTris` (v0, e1, e2, tri_id, opacity) or of a
@@ -29,7 +30,9 @@ def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
     arrays, and `num` as an int. The tables the reference does not have
     are derived as `prepare` derives them: the resident block boxes from
     the packed rows (`traverse_resident.block_boxes`), the dense packed
-    rows from v0, e1, e2 and opacity (`traverse_dense.pack_rows`)."""
+    rows from v0, e1, e2 and opacity (`traverse_dense.pack_rows`). `atlas`
+    holds the reference atlas's `texels` ((N, 4) uint32), `desc` and
+    `levels`; `alpha_test` is the reference tracer's flag."""
 
     def t(a, dtype):
         return torch.as_tensor(np.array(a, dtype=dtype), device=device)
@@ -47,7 +50,11 @@ def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
             fields["v0"], fields["e1"], fields["e2"], fields["opacity"])
     return Tracer(cls(**fields, num=int(accel["num"])),
                   t(shade_table, np.float32), t(light_table, np.float32),
-                  t(light_cdf, np.float32))
+                  t(light_cdf, np.float32),
+                  None if atlas is None else texture.atlas_from_numpy(
+                      atlas["texels"], atlas["desc"], atlas["levels"],
+                      device=device),
+                  alpha_test)
 
 
 def scene_from_numpy(geometry: dict, materials: dict, environment: dict,
@@ -59,10 +66,9 @@ def scene_from_numpy(geometry: dict, materials: dict, environment: dict,
         return cls(**{k: np.asarray(fields[k]) for k in cls._fields
                       if k in fields})
 
-    if environment.get("texture") is not None:
-        raise NotImplementedError("lat-long environment textures")
+    tex = environment.get("texture")
     env = EnvironmentLight(np.asarray(environment["color"], np.float32),
                            np.asarray(environment["rotation"], np.float32),
-                           None)
+                           None if tex is None else np.asarray(tex, np.float32))
     return Scene(nt(Geometry, geometry), nt(MaterialTable, materials), env,
                  nt(EmissiveLights, lights))

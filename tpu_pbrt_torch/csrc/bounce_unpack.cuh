@@ -1,6 +1,7 @@
 // The bounce-row unpack shared by the bounce fetch (shade_fetch.cu) and the
 // fused closest-hit-and-shade kernel (dense_trace.cu): one row of the
-// (T, 30) untextured bounce sub-table plus the ray -> the 23 post-unpack
+// untextured bounce sub-table (30 columns, padded to 32 floats so that a row
+// is one aligned 128-byte line) plus the ray -> the 23 post-unpack
 // rows of shade_table._FB_* (position, oriented flat normal, front-resolved
 // shading normal, emitting-side cosine, front flag, base, emission,
 // metallic, roughness, IOR, transmission, light pdf, tri id).
@@ -19,6 +20,7 @@
 namespace tpb {
 
 constexpr int kSubCols = 30;   // shade_table._BOUNCE_COLS
+constexpr int kSubStride = 32; // floats of a padded row (shade_table.SUB_STRIDE)
 constexpr int kOutRows = 23;   // shade_table._FB_TRI + 1
 
 // _BOUNCE_COLS positions inside the untextured sub-table
@@ -36,19 +38,28 @@ __device__ __forceinline__ float clip01(float x) {
     return fminf(fmaxf(x, 0.0f), 1.0f);
 }
 
-// Row `slot` of the sub-table (a zero row outside [0, t_rows), as the
-// reference's one-hot product gives) into row[].
+// Row `slot` of the padded sub-table (a zero row outside [0, t_rows), as the
+// reference's one-hot product gives) into row[]: eight 128-bit loads of one
+// cache line. On the H100 that reads faster than 30 scalar loads at a
+// 120-byte stride where a warp's lanes share rows, and the same where they
+// do not (PERF.md).
 __device__ __forceinline__ void load_bounce_row(const float* __restrict__ sub,
                                                 int t_rows, int slot,
-                                                float row[kSubCols]) {
+                                                float row[kSubStride]) {
     const bool in_table = slot >= 0 && slot < t_rows;
+    const float4* p = reinterpret_cast<const float4*>(sub)
+                      + (size_t)(in_table ? slot : 0) * (kSubStride / 4);
 #pragma unroll
-    for (int c = 0; c < kSubCols; ++c)
-        row[c] = in_table ? __ldg(sub + (size_t)slot * kSubCols + c) : 0.0f;
+    for (int k = 0; k < kSubStride / 4; ++k) {
+        const float4 w = in_table ? __ldg(p + k)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+        row[4 * k] = w.x; row[4 * k + 1] = w.y;
+        row[4 * k + 2] = w.z; row[4 * k + 3] = w.w;
+    }
 }
 
 // Unpack row[] against the ray and write the 23 rows to o[k * R].
-__device__ __forceinline__ void unpack_bounce(const float row[kSubCols],
+__device__ __forceinline__ void unpack_bounce(const float row[kSubStride],
                                               float ox, float oy, float oz,
                                               float dx, float dy, float dz,
                                               float* o, size_t R) {

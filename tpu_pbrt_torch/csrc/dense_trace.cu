@@ -9,11 +9,15 @@
 // replaces the whole of trace_shade_fused.py::closest_hit_shade: the same
 // sweep, then the winning row of the bounce sub-table and its unpack
 // (bounce_unpack.cuh, the code of the bounce fetch), so the bounces of the
-// fused configuration (TPU_PBRT_TRACE_FUSED=1) write one (32, R) block
+// fused configuration (TPU_PBRT_TRACE_FUSED=1) write one (25, R) block
 // instead of a hit and a fetch. The TPU kernel fetches the row with a
-// one-hot MXU product; here it is one indexed load (the table stays in
-// L1/L2). Fused, it is bound by its bytes: 32 B of ray in and 128 B out
-// per ray.
+// one-hot MXU product; here it is one indexed load of a padded 128-byte
+// row (the table stays in L1/L2). Its own part is bound by its bytes: 32 B
+// of ray in and 100 B out per ray: exactly the 25 rows its consumer reads
+// (the TPU kernel pads its block to 32 rows for the sublane tile).
+// Measured on the H100 and left out of the fused kernel (PERF.md): staging
+// the sub-table in shared memory beside the triangle rows, and keeping the
+// tile's rays in shared memory for the second read.
 //
 // Bound on this card: the SMs' issue slots. A ray's bytes (8 floats in, 8
 // bytes out) are paid once for all triangles, and one (ray, triangle) test
@@ -90,10 +94,10 @@ constexpr uint32_t kSignBit = 0x80000000u;
 static_assert(kRays * kWarps <= 32,
               "one warp scans the tile's ballot counts");
 static_assert(kTile <= 65536, "the live list holds 16-bit offsets");
-// the fused kernel's output rows (trace_shade_fused.py:58-62)
-constexpr int kRowHitT = 24;
-constexpr int kRowFound = 25;
-constexpr int kFusedRows = 32;
+// the fused kernel's output rows after the unpack's 23
+// (ops/trace_shade_fused.py: ROW_HIT_T, ROW_FOUND)
+constexpr int kRowHitT = tpb::kOutRows;
+constexpr int kRowFound = tpb::kOutRows + 1;
 
 struct RayPtrs {
     const float *ox, *oy, *oz, *dx, *dy, *dz, *tmin, *tmax;
@@ -371,27 +375,23 @@ dense_closest_hit_kernel(RayPtrs p, const float4* __restrict__ rows, int num,
 }
 
 // The fused kernel's own part: an indexed load of the winning row of the
-// (T, 30) bounce sub-table (row 0 on a miss, as the reference's slot) and
-// the unpack of the bounce fetch, written as the reference's 32-row block:
-// rows 0-22 the post-unpack rows, 24 the hit t (+inf on a miss), 25 the
-// found flag, the rest zero.
+// padded bounce sub-table (row 0 on a miss, as the reference's slot) and
+// the unpack of the bounce fetch, written as a 25-row block: rows 0-22 the
+// post-unpack rows, 23 the hit t (+inf on a miss), 24 the found flag.
 __device__ __forceinline__ void write_fused(const float* __restrict__ sub,
                                             int t_rows, int n, int i,
                                             const Ray& r, uint32_t best,
                                             uint32_t idx_mask,
                                             float* __restrict__ out) {
     const bool found = (best & idx_mask) != idx_mask;
-    float row[tpb::kSubCols];
+    float row[tpb::kSubStride];
     tpb::load_bounce_row(sub, t_rows, found ? (int)(best & idx_mask) : 0,
                          row);
     float* o = out + i;
     const size_t R = (size_t)n;
     tpb::unpack_bounce(row, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, o, R);
-    o[tpb::kOutRows * R] = 0.0f;
     o[kRowHitT * R] = found ? __uint_as_float(best & ~idx_mask) : INFINITY;
     o[kRowFound * R] = found ? 1.0f : 0.0f;
-#pragma unroll
-    for (int k = kRowFound + 1; k < kFusedRows; ++k) o[k * R] = 0.0f;
 }
 
 // Closest hit + bounce fetch + unpack in one kernel: the sweep of

@@ -2,7 +2,8 @@
 //
 // tpb_fetch_bounce replaces tpu_pbrt/ops/shade_table.py::
 // _fetch_bounce_fused_pallas (the TPU's fetch_bounce at every bounce):
-// row `slot` of the (T, 30) untextured bounce sub-table, clipped
+// row `slot` of the untextured bounce sub-table (30 columns in rows padded
+// to 32 floats, read as eight 128-bit loads), clipped
 // Möller–Trumbore barycentrics re-derived against the fetched triangle,
 // and the 23 post-unpack rows (position, oriented flat normal,
 // front-resolved shading normal, emitting-side cosine, front flag, base,
@@ -52,7 +53,7 @@ fetch_bounce_kernel(const int* __restrict__ slot,
                     float* __restrict__ out) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    float row[tpb::kSubCols];
+    float row[tpb::kSubStride];
     tpb::load_bounce_row(sub, t_rows, slot[i], row);
     tpb::unpack_bounce(row, ox_[i], oy_[i], oz_[i], dx_[i], dy_[i], dz_[i],
                        out + i, (size_t)n);

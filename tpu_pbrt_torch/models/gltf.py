@@ -4,9 +4,11 @@
 Same attribute set (POSITION, NORMAL, TANGENT, TEXCOORD_0/1, JOINTS_0,
 WEIGHTS_0, indices), same extension set (KHR_materials_emissive_strength /
 _ior / _transmission), tangent generation when absent, skin inverse-bind
-matrices and linear T/R/S animation channels. Textures are not ported
-(ROADMAP M9): a material that references an image raises
-`NotImplementedError`.
+matrices and linear T/R/S animation channels. Images (GLB buffer views,
+data URIs, files beside the .gltf) are decoded to (H, W, 4) uint8 and
+deduplicated by (image, sRGB flag): PNG by the port's own decoder, other
+formats through PIL where it is installed; `MSFT_texture_dds` payloads
+raise until the DDS decoder is ported.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import struct
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from ..utils.texture_io import decode_image_rgba8
 
 _COMPONENT_DTYPES = {
     5120: np.int8, 5121: np.uint8, 5122: np.int16, 5123: np.uint16,
@@ -268,9 +272,44 @@ def load(path: str) -> Model:
         glb_bin = None
     buffers = _load_buffers(doc, base_dir, glb_bin)
 
+    # --- textures (deduplicated by image source)
+    images: dict[int, np.ndarray] = {}
+
+    def load_image(idx: int) -> np.ndarray:
+        if idx in images:
+            return images[idx]
+        img = doc["images"][idx]
+        if (img.get("mimeType") == "image/vnd-ms.dds"
+                or img.get("uri", "").lower().endswith(".dds")):
+            raise NotImplementedError(
+                f"{path}: image {idx} is a DDS texture (not ported)")
+        if "uri" in img and not img["uri"].startswith("data:"):
+            with open(os.path.join(base_dir, img["uri"]), "rb") as f:
+                raw = f.read()
+        elif "uri" in img:
+            raw = base64.b64decode(img["uri"].split(",", 1)[1])
+        else:
+            bv = doc["bufferViews"][img["bufferView"]]
+            start = bv.get("byteOffset", 0)
+            raw = buffers[bv["buffer"]][start:start + bv["byteLength"]]
+        images[idx] = decode_image_rgba8(bytes(raw), f"{path}: image {idx}")
+        return images[idx]
+
+    textures: list[np.ndarray] = []
+    texture_srgb: list[bool] = []
+    tex_cache: dict[tuple[int, bool], int] = {}
+
     def tex_lookup(tex_index: int, srgb: bool) -> int:
-        raise NotImplementedError(
-            f"{path}: material texture {tex_index} (textures are not ported)")
+        tex = doc["textures"][tex_index]
+        # MSFT_texture_dds: the DDS image overrides the standard source
+        dds_ext = tex.get("extensions", {}).get("MSFT_texture_dds", {})
+        src = dds_ext.get("source", tex.get("source", 0))
+        key = (src, srgb)
+        if key not in tex_cache:
+            textures.append(load_image(src))
+            texture_srgb.append(srgb)
+            tex_cache[key] = len(textures) - 1
+        return tex_cache[key]
 
     materials = [
         _parse_material(m, tex_lookup) for m in doc.get("materials", [])
@@ -372,7 +411,8 @@ def load(path: str) -> Model:
                 duration = max(duration, float(times[-1]))
         animations.append(AnimationClip(an.get("name", ""), channels, duration))
 
-    return Model(meshes, nodes, roots, materials, [], [], skins, animations)
+    return Model(meshes, nodes, roots, materials, textures, texture_srgb,
+                 skins, animations)
 
 
 def node_local_matrix(node: Node) -> np.ndarray:

@@ -1,5 +1,5 @@
 """The authored glTF mesh scenes of the big-scene path (port of `bench.py`'s
-`_write_sphere_glb`, untextured branch, and `_sphere_setup`).
+`_write_sphere_glb` and `_sphere_setup`).
 
 `write_glb` authors a real .glb over a `nu` x `nv` latitude-longitude grid
 (2 * (nv - 1) * nu triangles; 25,280 at the default 160 x 80): the UV
@@ -8,8 +8,10 @@ sphere (`shape="sphere"`) or the Damaged-Helmet-class hard-surface mesh
 crown vent ridges, asymmetric surface detail). One PBR material, base color
 (0.9, 0.8, 0.7), metallic 0.8, roughness 0.4. `make_scene` loads it back
 through the port's glTF ingest (`models/gltf.py`) under the default sky.
-The textured variant (an embedded checker base-color PNG) waits for
-textures (ROADMAP M9).
+The textured variant embeds a 256 x 256 checker base-color PNG (sRGB, 16
+texel cells of 60 and 240) that the equirect uvs wrap around the mesh;
+`make_textured_scene` also returns the decoded textures for the tracer, and
+`settings(textured=True)` turns on the ray-cone mip selection.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 
 from ..passes.pathtrace import PathTraceSettings
 from ..render.camera import Camera
+from ..utils.image import encode_png
 from . import gltf
 from .material import make_table
 from .mesh import build_geometry
@@ -36,9 +39,18 @@ def _smooth(x):
     return x * x * (3.0 - 2.0 * x)
 
 
+def checker_texture(size: int = 256, cell: int = 16) -> np.ndarray:
+    """(size, size, 4) uint8 checker, values 60 and 240, opaque."""
+    yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    checker = ((xx // cell + yy // cell) % 2).astype(np.uint8) * 180 + 60
+    return np.stack([checker, checker, checker,
+                     np.full_like(checker, 255)], -1)
+
+
 def write_glb(path: str, shape: str = "helmet", nu: int = NU,
-              nv: int = NV) -> None:
-    """Author the mesh as an untextured .glb at `path`."""
+              nv: int = NV, textured: bool = False) -> None:
+    """Author the mesh as a .glb at `path`; `textured` embeds the checker
+    base-color PNG."""
     if shape not in ("sphere", "helmet"):
         raise ValueError(f"unknown shape {shape!r}")
     theta_max = np.pi if shape == "sphere" else 0.82 * np.pi
@@ -88,6 +100,8 @@ def write_glb(path: str, shape: str = "helmet", nu: int = NU,
         normals = (normals / np.maximum(nl, 1e-12)).astype(np.float32)
 
     parts = [pos.tobytes(), normals.tobytes(), uvs.tobytes(), idx.tobytes()]
+    if textured:
+        parts.append(encode_png(checker_texture()))
     views, offset = [], 0
     for k, p in enumerate(parts):
         views.append({"buffer": 0, "byteOffset": offset,
@@ -98,15 +112,16 @@ def write_glb(path: str, shape: str = "helmet", nu: int = NU,
     blob = b"".join(parts)
 
     n_v = pos.shape[0]
+    material = {"pbrMetallicRoughness": {
+        "baseColorFactor": [0.9, 0.8, 0.7, 1.0],
+        "metallicFactor": 0.8, "roughnessFactor": 0.4}}
     doc = {
         "asset": {"version": "2.0"},
         "scene": 0, "scenes": [{"nodes": [0]}], "nodes": [{"mesh": 0}],
         "meshes": [{"primitives": [{
             "attributes": {"POSITION": 0, "NORMAL": 1, "TEXCOORD_0": 2},
             "indices": 3, "material": 0}]}],
-        "materials": [{"pbrMetallicRoughness": {
-            "baseColorFactor": [0.9, 0.8, 0.7, 1.0],
-            "metallicFactor": 0.8, "roughnessFactor": 0.4}}],
+        "materials": [material],
         "bufferViews": views,
         "accessors": [
             {"bufferView": 0, "componentType": 5126, "count": n_v,
@@ -121,6 +136,10 @@ def write_glb(path: str, shape: str = "helmet", nu: int = NU,
         ],
         "buffers": [{"byteLength": len(blob)}],
     }
+    if textured:
+        material["pbrMetallicRoughness"]["baseColorTexture"] = {"index": 0}
+        doc["images"] = [{"bufferView": 4, "mimeType": "image/png"}]
+        doc["textures"] = [{"source": 0}]
     js = json.dumps(doc).encode()
     js += b" " * ((4 - len(js) % 4) % 4)
     total = 12 + 8 + len(js) + 8 + len(blob)
@@ -132,16 +151,31 @@ def write_glb(path: str, shape: str = "helmet", nu: int = NU,
         f.write(blob)
 
 
-def make_scene(shape: str = "helmet", nu: int = NU, nv: int = NV) -> Scene:
-    """Author the .glb in a temporary directory, load it through the glTF
-    ingest and build the scene: the mesh, its material, the default sky."""
+def _load_authored(shape: str, nu: int, nv: int, textured: bool):
+    """Author the .glb in a temporary directory and load it back through
+    the glTF ingest: (geometry, material table, model)."""
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, f"{shape}_{nu}x{nv}.glb")
-        write_glb(path, shape, nu, nv)
+        path = os.path.join(tmp, f"{shape}_{nu}x{nv}_{int(textured)}.glb")
+        write_glb(path, shape, nu, nv, textured)
         model = gltf.load(path)
     geometry = build_geometry(gltf.to_geometry_meshes(model))
-    return _make_scene(geometry, make_table(model.materials),
-                       make_environment())
+    return geometry, make_table(model.materials), model
+
+
+def make_scene(shape: str = "helmet", nu: int = NU, nv: int = NV) -> Scene:
+    """The untextured scene: the mesh, its material, the default sky."""
+    geometry, materials, _ = _load_authored(shape, nu, nv, False)
+    return _make_scene(geometry, materials, make_environment())
+
+
+def make_textured_scene(shape: str = "helmet", nu: int = NU, nv: int = NV):
+    """The textured scene: (scene, textures, texture_srgb), the last two
+    for `Renderer` / `tracer.build_for_scene`."""
+    geometry, materials, model = _load_authored(shape, nu, nv, True)
+    scene = _make_scene(geometry, materials, make_environment(),
+                        textures=model.textures,
+                        texture_srgb=model.texture_srgb)
+    return scene, model.textures, model.texture_srgb
 
 
 def make_camera(width: int, height: int) -> Camera:
@@ -156,9 +190,18 @@ def make_camera(width: int, height: int) -> Camera:
     return cam
 
 
-def settings() -> PathTraceSettings:
+def cone_spread(height: int) -> float:
+    """One pixel's ray-cone angle for a 45 degree vertical field of view
+    over `height` rows: the bench's mip-selection setting."""
+    return 2.0 * float(np.tan(np.radians(45.0) / 2)) / height
+
+
+def settings(textured: bool = False, height: int = 1080) -> PathTraceSettings:
     """The bench's settings for this scene: 1 SPP, 4 bounces, counted rays,
     and a pool fold at every bounce from 1 (~95% of the primary rays miss
-    the mesh, so the live pool collapses after bounce 0)."""
-    return PathTraceSettings(bounces=4, samples_per_pixel=1, count_rays=True,
-                             compaction_schedule=(1, 2, 3), cone_spread=0.0)
+    the mesh, so the live pool collapses after bounce 0); textured, the
+    ray-cone spread of a frame `height` rows high."""
+    return PathTraceSettings(
+        bounces=4, samples_per_pixel=1, count_rays=True,
+        compaction_schedule=(1, 2, 3),
+        cone_spread=cone_spread(height) if textured else 0.0)

@@ -2,9 +2,8 @@
 (port of `tpu_pbrt/models/scene.py`).
 
 The scene is host numpy data; the `Tracer` and `Renderer` modules copy the
-tables the device needs into registered buffers once. The environment is
-the constant color or the procedural sky; the lat-long texture is not
-ported.
+tables the device needs into registered buffers once. The environment is a
+constant color, the procedural sky, or a lat-long radiance texture.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import torch
 from ..ops import math as pmath
 from ..ops import vec
 from ..ops.vec import Vec3
+from ..utils.texture_io import srgb_to_linear
 from .material import MaterialTable
 from .mesh import Geometry
 
@@ -25,23 +25,48 @@ class EnvironmentLight(NamedTuple):
     """color.a < 0 selects the procedural sky gradient."""
     color: np.ndarray         # (4,) rgba; a >= 0 -> constant color
     rotation: np.ndarray      # (3, 3) world->light rotation for textures
-    texture: np.ndarray | None = None   # lat-long radiance (not ported)
+    texture: np.ndarray | None = None   # (H, W, 3) lat-long radiance or None
 
 
 def make_environment(color=(-1.0, -1.0, -1.0, -1.0), rotation=None,
                      texture=None) -> EnvironmentLight:
-    if texture is not None:
-        raise NotImplementedError("lat-long environment textures")
     rot = (np.eye(3, dtype=np.float32) if rotation is None
            else np.asarray(rotation, np.float32))
-    return EnvironmentLight(np.asarray(color, np.float32), rot, None)
+    return EnvironmentLight(
+        np.asarray(color, np.float32), rot,
+        None if texture is None else np.asarray(texture, np.float32))
 
 
-def environment_radiance(color: torch.Tensor, direction: Vec3) -> Vec3:
-    """Environment radiance for Vec3 directions. `color` is the (4,)
-    float32 environment color on the rays' device: a >= 0 selects the
-    constant color, otherwise the procedural sky
-    srgb_to_linear(lerp(1, skyblue, (y+1)/2))."""
+class EnvironmentTensors(NamedTuple):
+    """The environment light on the rays' device (`Renderer` holds these
+    as buffers)."""
+    color: torch.Tensor                    # (4,)
+    rotation: torch.Tensor                 # (3, 3)
+    texture: torch.Tensor | None = None    # (H, W, 3)
+
+
+def environment_tensors(env: EnvironmentLight, *,
+                        device: str | torch.device) -> EnvironmentTensors:
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    return EnvironmentTensors(
+        dev(env.color), dev(env.rotation),
+        None if env.texture is None else dev(env.texture))
+
+
+def environment_radiance(env, direction: Vec3) -> Vec3:
+    """Environment radiance for Vec3 directions. `env` is an
+    `EnvironmentTensors`, or just its (4,) color tensor, on the rays'
+    device. With a texture: the lat-long map, bilinear, u wrapping and v
+    clamped. Else color.a >= 0 selects the constant color, otherwise the
+    procedural sky srgb_to_linear(lerp(1, skyblue, (y+1)/2))."""
+    if isinstance(env, EnvironmentTensors):
+        if env.texture is not None:
+            return _latlong_radiance(env, direction)
+        color = env.color
+    else:
+        color = env
     tsky = (direction.y + 1.0) * 0.5
     sky = Vec3(
         pmath.srgb_to_linear(1.0 - tsky * 0.5),
@@ -52,6 +77,40 @@ def environment_radiance(color: torch.Tensor, direction: Vec3) -> Vec3:
     const = Vec3(color[0].expand(shape), color[1].expand(shape),
                  color[2].expand(shape))
     return vec.where((color[3] >= 0.0).expand(shape), const, sky)
+
+
+def _latlong_radiance(env: EnvironmentTensors, direction: Vec3) -> Vec3:
+    rot = env.rotation
+    d = vec.normalize(Vec3(
+        rot[0, 0] * direction.x + rot[0, 1] * direction.y
+        + rot[0, 2] * direction.z,
+        rot[1, 0] * direction.x + rot[1, 1] * direction.y
+        + rot[1, 2] * direction.z,
+        rot[2, 0] * direction.x + rot[2, 1] * direction.y
+        + rot[2, 2] * direction.z,
+    ))
+    uu = (1.0 + torch.atan2(d.x, d.z) / torch.pi) * 0.5
+    vv = torch.acos(torch.clamp(d.y, -1.0, 1.0)) / torch.pi
+    h, w = env.texture.shape[:2]
+    fx = uu * w - 0.5
+    fy = vv * h - 0.5
+    x0 = torch.floor(fx).to(torch.int64)
+    y0 = torch.floor(fy).to(torch.int64)
+    tx = fx - x0
+    ty = fy - y0
+    x1 = torch.remainder(x0 + 1, w)
+    x0 = torch.remainder(x0, w)
+    y1 = torch.clamp(y0 + 1, 0, h - 1)
+    y0 = torch.clamp(y0, 0, h - 1)
+    tex = env.texture.reshape(-1, 3)
+
+    def tap(y, x):
+        rows = tex[y * w + x]
+        return Vec3(rows[:, 0], rows[:, 1], rows[:, 2])
+
+    top = tap(y0, x0) * (1.0 - tx) + tap(y0, x1) * tx
+    bot = tap(y1, x0) * (1.0 - tx) + tap(y1, x1) * tx
+    return top * (1.0 - ty) + bot * ty
 
 
 class EmissiveLights(NamedTuple):
@@ -77,10 +136,42 @@ class Scene(NamedTuple):
     lights: EmissiveLights
 
 
-def collect_emissive_lights(geometry: Geometry,
-                            materials: MaterialTable) -> EmissiveLights:
+def _average_emissive_texture(textures, texture_srgb, tex_idx, uv, ind, tris,
+                              samples: int = 4):
+    """(len(tris), 3) mean emissive-texture radiance over each triangle: a
+    barycentric grid of `samples`^2 nearest taps per triangle, sRGB-decoded
+    per the texture flag (host numpy)."""
+    out = np.ones((len(tris), 3), np.float32)
+    if not textures:
+        return out
+    g = (np.arange(samples, dtype=np.float32) + 0.5) / samples
+    a, b = np.meshgrid(g, g, indexing="ij")
+    keep = a + b <= 1.0
+    a, b = a[keep], b[keep]
+    for k, t in enumerate(tris):
+        ti = int(tex_idx[t])
+        if ti < 0:
+            continue
+        img = np.asarray(textures[ti], np.float32) / 255.0
+        if texture_srgb[ti]:
+            img = srgb_to_linear(img)
+        h, w = img.shape[:2]
+        uv0, uv1, uv2 = uv[ind[t, 0]], uv[ind[t, 1]], uv[ind[t, 2]]
+        us = uv0[0] + (uv1[0] - uv0[0]) * a + (uv2[0] - uv0[0]) * b
+        vs = uv0[1] + (uv1[1] - uv0[1]) * a + (uv2[1] - uv0[1]) * b
+        x = np.clip((np.mod(us, 1.0) * w).astype(np.int64), 0, w - 1)
+        y = np.clip((np.mod(vs, 1.0) * h).astype(np.int64), 0, h - 1)
+        out[k] = img[y, x, :3].mean(0)
+    return out
+
+
+def collect_emissive_lights(geometry: Geometry, materials: MaterialTable,
+                            textures=None,
+                            texture_srgb=None) -> EmissiveLights:
     """Host-side light collection: every triangle with an emissive
-    material becomes a light, weighted by power = luminance * area * pi."""
+    material becomes a light, weighted by power = luminance * area * pi.
+    With `textures`, a textured emitter's radiance and power take the mean
+    of its emissive map over the triangle."""
     pos = np.asarray(geometry.positions)
     ind = np.asarray(geometry.indices)
     v0, v1, v2 = pos[ind[:, 0]], pos[ind[:, 1]], pos[ind[:, 2]]
@@ -108,6 +199,12 @@ def collect_emissive_lights(geometry: Geometry,
     normal = cr / crlen
     area = 0.5 * crlen[:, 0]
     rad = emissive[idx]
+    if textures:
+        tex_idx = np.asarray(materials.texture_index)[
+            np.asarray(geometry.tri_material), 1]  # emissive slot
+        rad = rad * _average_emissive_texture(
+            textures, texture_srgb, tex_idx, np.asarray(geometry.uv0),
+            ind, idx)
     power = ((rad @ np.asarray([0.2126, 0.7152, 0.0722], np.float32))
              * area * np.pi)
     cdf = np.cumsum(power) / max(float(power.sum()), 1e-20)
@@ -127,7 +224,9 @@ def collect_emissive_lights(geometry: Geometry,
 
 
 def make_scene(geometry: Geometry, materials: MaterialTable,
-               environment: EnvironmentLight | None = None) -> Scene:
+               environment: EnvironmentLight | None = None,
+               textures=None, texture_srgb=None) -> Scene:
     env = environment if environment is not None else make_environment()
     return Scene(geometry, materials, env,
-                 collect_emissive_lights(geometry, materials))
+                 collect_emissive_lights(geometry, materials, textures,
+                                         texture_srgb))

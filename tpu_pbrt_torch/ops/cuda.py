@@ -16,7 +16,8 @@ IEEE (`-prec-div=true -prec-sqrt=true` are nvcc's defaults without fast
 math); `rsqrtf` is the one approximate op, in the bounce fetch.
 
 Each `Kernel` keeps a plain integer launch count, incremented only where
-its wrapper launches it.
+its wrapper launches it, and the same count split by the wrapper's `tag`
+(the row fetch tags a launch with its table width and slot count).
 """
 
 from __future__ import annotations
@@ -132,11 +133,13 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self.launches_by_tag: dict = {}
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, tag=None) -> None:
         """Launch on the current stream. Tensors pass as device pointers,
         ints as C ints (the C signature lists them in this order, then the
-        stream); raises on a nonzero cudaGetLastError()."""
+        stream); raises on a nonzero cudaGetLastError(). `tag` (hashable)
+        files the launch under `launches_by_tag` as well."""
         c_types = [ctypes.c_void_p if isinstance(a, torch.Tensor)
                    else ctypes.c_int for a in args]
         fn = getattr(library(), "tpb_" + self.name)
@@ -149,6 +152,8 @@ class Kernel:
             msg = library().tpb_error_string(err).decode()
             raise RuntimeError(f"kernel {self.name} launch failed: {msg}")
         self.launches += 1
+        if tag is not None:
+            self.launches_by_tag[tag] = self.launches_by_tag.get(tag, 0) + 1
 
 
 KERNELS: dict[str, Kernel] = {}
@@ -163,6 +168,7 @@ def register(name: str, source: str, replaces: str) -> Kernel:
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.launches_by_tag.clear()
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..models.cornell import make_cornell_box
+from . import shade_table as st
 from . import traverse_dense as td
 from .vec import Vec3
 
@@ -68,6 +69,26 @@ def table_corners(seed: int = 23):
     op[36:36 + n] = np.where(rng.uniform(size=n) < 0.2, 0.3, 1.0)
     return (np.concatenate([c0, s0, h0]), np.concatenate([c1, s1, h1]),
             np.concatenate([c2, s2, h2]), op)
+
+
+def shade_subtable(tris: td.DenseTris) -> torch.Tensor:
+    """A bounce sub-table (`shade_table.bounce_subtable`) whose rows follow
+    the rows of `tris`, for the fused closest-hit-and-shade kernel: vertex
+    normals = the face normal, base color 0.5, tri id = the row's (-1 on
+    padding)."""
+    v0, e1, e2 = (x.cpu().numpy() for x in (tris.v0, tris.e1, tris.e2))
+    table = np.zeros((v0.shape[0], st.COLS), np.float32)
+    table[:, st._P0:st._P0 + 3] = v0
+    table[:, st._E1:st._E1 + 3] = e1
+    table[:, st._E2:st._E2 + 3] = e2
+    with np.errstate(over="ignore", invalid="ignore"):
+        nrm = np.cross(e1, e2)
+        nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-9)
+    for k in range(3):
+        table[:, st._N0 + 3 * k:st._N0 + 3 * k + 3] = nrm
+    table[:, st._BASE:st._BASE + 3] = 0.5
+    table[:, st._TRI] = tris.tri_id.cpu().numpy()
+    return st.bounce_subtable(torch.as_tensor(table, device=tris.v0.device))
 
 
 def adversarial_case(device, seed: int = 23):

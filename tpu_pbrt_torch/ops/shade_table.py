@@ -1,5 +1,5 @@
 """Packed per-triangle shade table: one wide row fetch per hit (port of
-`tpu_pbrt/ops/shade_table.py`, untextured path).
+`tpu_pbrt/ops/shade_table.py`).
 
 Everything shading needs at a hit (triangle geometry, vertex normals,
 material constants, emission, the NEE-MIS light pdf) sits in one float32
@@ -9,8 +9,14 @@ bit. Two fetches are kernels on the card:
     exact transposed row fetch table[slot].T, used by the G-buffer `fetch`;
   * `fetch_bounce_block` (kernel 3, `tpb_fetch_bounce`): row fetch of the
     30-column bounce sub-table plus the whole unpack, the bounce loop's
-    `fetch_bounce`.
+    `fetch_bounce` in untextured scenes.
 For CPU tensors both run their plain PyTorch versions (`*_plain`).
+
+Textured scenes fetch the 50-column sub-table through kernel 4 and unpack
+in PyTorch, then `apply_textures` modulates the material by its maps
+(`ops/texture.py`); `hit_transparent` is the alpha-cutout test on the
+19-column sub-table. The sub-tables (`bounce_subtable`, `alpha_subtable`)
+are built once, with the `Tracer`.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import cuda, intersect, sampling, vec
+from ..models.material import ALPHA_MASK
+from . import cuda, intersect, sampling, texture as tex_mod, vec
 from .vec import Vec3
 
 # column layout
@@ -192,7 +199,7 @@ def fetch_rows_cuda(table: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     cuda.check(slot, "slot", torch.int32, (r,))
     cuda.check(table, "table", torch.float32, (tp, c), slot.device)
     out = torch.empty((c, r), dtype=torch.float32, device=slot.device)
-    FETCH_ROWS_KERNEL.launch(table, tp, c, slot, r, out)
+    FETCH_ROWS_KERNEL.launch(table, tp, c, slot, r, out, tag=(c, r))
     return out
 
 
@@ -203,15 +210,22 @@ def fetch_rows(table: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     return fetch_rows_plain(table, slot)
 
 
-def fetch(table: torch.Tensor, slot: torch.Tensor, ray_origin: Vec3,
-          ray_dir: Vec3) -> ShadeAttrs:
-    """One 64-column row fetch + elementwise unpack/interpolate; the
-    barycentrics are re-derived against the fetched triangle. slot: (R,)
-    padded-table row index (clamped >= 0 by the caller)."""
-    row = fetch_rows(table, slot)          # (COLS, R)
+def _unpack_rows(row: torch.Tensor, pos_of, ray_origin: Vec3, ray_dir: Vec3,
+                 full: bool, textured: bool) -> ShadeAttrs:
+    """ShadeAttrs from fetched (C, R) rows; `pos_of(c)` is the row that
+    holds table column c. Barycentrics are re-derived against the fetched
+    triangle. `full` unpacks the G-buffer's fields (previous position,
+    material and object ids), `textured` the tangent, uv and texture
+    indices; what is left out gets the reference's dummies."""
+    def at(c):
+        return row[pos_of(c)]
 
     def v3(c):
-        return Vec3(row[c], row[c + 1], row[c + 2])
+        i = pos_of(c)
+        return Vec3(row[i], row[i + 1], row[i + 2])
+
+    def i32(c):
+        return at(c).to(torch.int32)
 
     p0, e1, e2 = v3(_P0), v3(_E1), v3(_E2)
     _, u, v, _ = intersect.ray_triangle_soa(ray_origin, ray_dir, p0, e1, e2,
@@ -220,14 +234,9 @@ def fetch(table: torch.Tensor, slot: torch.Tensor, ray_origin: Vec3,
     v = torch.clamp(v, 0.0, 1.0)
     w = 1.0 - u - v
     position = p0 + e1 * u + e2 * v
-    prev_position = v3(_PP0) + v3(_PE1) * u + v3(_PE2) * v
 
     flat = vec.normalize(vec.cross(e1, e2))
     shading = vec.normalize(v3(_N0) * w + v3(_N0 + 3) * u + v3(_N0 + 6) * v)
-    tangent = vec.normalize(v3(_T0) * w + v3(_T0 + 3) * u + v3(_T0 + 6) * v)
-    uv_u = row[_UV] * w + row[_UV + 2] * u + row[_UV + 4] * v
-    uv_v = row[_UV + 1] * w + row[_UV + 3] * u + row[_UV + 5] * v
-
     # emitting-side cosine (lights emit from their winding side)
     light_cos = -vec.dot(flat, ray_dir)
     # orient flat with the interpolated normal, then resolve front face
@@ -235,20 +244,46 @@ def fetch(table: torch.Tensor, slot: torch.Tensor, ray_origin: Vec3,
     front = vec.dot(flat, ray_dir) < 0.0
     shading = vec.where(front, shading, -shading)
 
-    def i32(c):
-        return row[c].to(torch.int32)
+    r = position.x.shape[0]
+    zeros = torch.zeros((r,), dtype=torch.float32, device=row.device)
+    neg1 = torch.full((r,), -1, dtype=torch.int32, device=row.device)
+    if textured:
+        tangent = vec.normalize(
+            v3(_T0) * w + v3(_T0 + 3) * u + v3(_T0 + 6) * v)
+        uv_u = at(_UV) * w + at(_UV + 2) * u + at(_UV + 4) * v
+        uv_v = at(_UV + 1) * w + at(_UV + 3) * u + at(_UV + 5) * v
+        tex = (i32(_TEX_BASE), i32(_TEX_EMIT), i32(_TEX_MR), i32(_TEX_NRM))
+        uvden = at(_UVDEN)
+    else:
+        tangent = Vec3(torch.ones_like(zeros), zeros, zeros)
+        uv_u = uv_v = uvden = zeros
+        tex = (neg1, neg1, neg1, neg1)
+    if full:
+        prev_position = v3(_PP0) + v3(_PE1) * u + v3(_PE2) * v
+        material, object_id = i32(_MAT), i32(_OBJ)
+    else:
+        prev_position, material, object_id = position, neg1, neg1
 
     return ShadeAttrs(
         position=position, prev_position=prev_position, flat_normal=flat,
         shading_normal=shading, tangent=tangent, uv_u=uv_u, uv_v=uv_v,
-        is_front_face=front, material=i32(_MAT), object_id=i32(_OBJ),
+        is_front_face=front, material=material, object_id=object_id,
         tri=i32(_TRI), base_color=v3(_BASE), emission=v3(_EMIT),
-        metallic=row[_METAL], roughness=row[_ROUGH], ior=row[_IOR],
-        transmission=row[_TRANS], light_pdf_area=row[_LPDF],
-        light_cos=light_cos, tex_base=i32(_TEX_BASE),
-        tex_emit=i32(_TEX_EMIT), tex_mr=i32(_TEX_MR),
-        tex_nrm=i32(_TEX_NRM), uv_density=row[_UVDEN],
+        metallic=at(_METAL), roughness=at(_ROUGH), ior=at(_IOR),
+        transmission=at(_TRANS), light_pdf_area=at(_LPDF),
+        light_cos=light_cos, tex_base=tex[0], tex_emit=tex[1],
+        tex_mr=tex[2], tex_nrm=tex[3], uv_density=uvden,
     )
+
+
+def fetch(table: torch.Tensor, slot: torch.Tensor, ray_origin: Vec3,
+          ray_dir: Vec3) -> ShadeAttrs:
+    """One 64-column row fetch + elementwise unpack/interpolate; the
+    barycentrics are re-derived against the fetched triangle. slot: (R,)
+    padded-table row index (clamped >= 0 by the caller)."""
+    row = fetch_rows(table, slot)          # (COLS, R)
+    return _unpack_rows(row, lambda c: c, ray_origin, ray_dir, full=True,
+                        textured=True)
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +298,23 @@ _BOUNCE_COLS = (
     + list(range(_BASE, _BASE + 3))
     + [_METAL, _ROUGH, _IOR, _TRANS, _LPDF, _TRI]
 )
+# the textured bounce fetch adds tangents, uvs, texture indices, uv density
+_BOUNCE_COLS_TEX = (
+    _BOUNCE_COLS
+    + list(range(_T0, _T0 + 9))
+    + list(range(_UV, _UV + 6))
+    + [_TEX_BASE, _TEX_EMIT, _TEX_MR, _TEX_NRM, _UVDEN]
+)
+# the alpha-cutout test's columns
+_ALPHA_COLS = (
+    list(range(_P0, _P0 + 9))        # p0, e1, e2 (barycentric recompute)
+    + list(range(_UV, _UV + 6))
+    + [_TEX_BASE, _ALPHA_MODE, _ALPHA_CUT, _ALPHA_CONST]
+)
+# floats of a row of the untextured sub-table: its 30 columns padded to one
+# aligned 128-byte line, which kernel 3 and the fused kernel read as eight
+# 128-bit loads (kSubStride in csrc/bounce_unpack.cuh)
+SUB_STRIDE = 32
 # positions inside the sub-table
 _SB_P0, _SB_E1, _SB_E2 = 0, 3, 6
 _SB_N0 = 9
@@ -287,17 +339,36 @@ _FB_TRI = 22      # f32-carried triangle id
 FB_OUT = 23
 
 
-def bounce_subtable(table: torch.Tensor) -> torch.Tensor:
-    """(T, 30) contiguous bounce-column sub-table."""
-    cols = torch.as_tensor(_BOUNCE_COLS, dtype=torch.long,
-                           device=table.device)
-    return table.index_select(1, cols).contiguous()
+def _column_subtable(table: torch.Tensor, cols, stride: int) -> torch.Tensor:
+    """(T, stride) contiguous copy of the listed columns, zero-padded."""
+    idx = torch.as_tensor(cols, dtype=torch.long, device=table.device)
+    sub = torch.zeros((table.shape[0], stride), dtype=table.dtype,
+                      device=table.device)
+    sub[:, :len(cols)] = table.index_select(1, idx)
+    return sub
+
+
+def bounce_subtable(table: torch.Tensor,
+                    textured: bool = False) -> torch.Tensor:
+    """The bounce loop's sub-table: untextured (T, SUB_STRIDE), the 30
+    bounce columns and two zero columns; textured (T, 50). Built once per
+    scene (a `Tracer` buffer): the column index is a host-to-device copy."""
+    if textured:
+        return _column_subtable(table, _BOUNCE_COLS_TEX,
+                                len(_BOUNCE_COLS_TEX))
+    return _column_subtable(table, _BOUNCE_COLS, SUB_STRIDE)
+
+
+def alpha_subtable(table: torch.Tensor) -> torch.Tensor:
+    """(T, 19) sub-table of `hit_transparent`, built once per scene."""
+    return _column_subtable(table, _ALPHA_COLS, len(_ALPHA_COLS))
 
 
 def fetch_bounce_block_plain(sub: torch.Tensor, slot: torch.Tensor,
                              o: Vec3, d: Vec3) -> torch.Tensor:
-    """(T, 30) sub-table + slots + rays -> (23, R) post-unpack block, in
-    the operation order of the reference kernel (shade_table.py:376-443)."""
+    """(T, SUB_STRIDE) sub-table + slots + rays -> (23, R) post-unpack
+    block, in the operation order of the reference kernel
+    (shade_table.py:376-443)."""
     rows = fetch_rows_plain(sub, slot)
 
     def g(i):
@@ -364,6 +435,13 @@ def fetch_bounce_block_plain(sub: torch.Tensor, slot: torch.Tensor,
     return torch.stack(out)
 
 
+def check_bounce_sub(sub: torch.Tensor, dev) -> None:
+    """The kernels read the untextured sub-table's rows as 128-bit words."""
+    cuda.check(sub, "sub", torch.float32, (sub.shape[0], SUB_STRIDE), dev)
+    if sub.data_ptr() % 16:
+        raise ValueError("sub: not 16-byte aligned")
+
+
 def fetch_bounce_block_cuda(sub: torch.Tensor, slot: torch.Tensor, o: Vec3,
                             d: Vec3) -> torch.Tensor:
     """Kernel 3 (`tpb_fetch_bounce`): the (23, R) block; exact vs the plain
@@ -372,7 +450,7 @@ def fetch_bounce_block_cuda(sub: torch.Tensor, slot: torch.Tensor, o: Vec3,
     r = slot.shape[0]
     dev = slot.device
     cuda.check(slot, "slot", torch.int32, (r,))
-    cuda.check(sub, "sub", torch.float32, (tp, len(_BOUNCE_COLS)), dev)
+    check_bounce_sub(sub, dev)
     lanes = [o.x, o.y, o.z, d.x, d.y, d.z]
     for name, a in zip(("ox", "oy", "oz", "dx", "dy", "dz"), lanes):
         cuda.check(a, name, torch.float32, (r,), dev)
@@ -411,12 +489,105 @@ def attrs_from_block(out: torch.Tensor) -> ShadeAttrs:
     )
 
 
-def fetch_bounce(table: torch.Tensor, slot: torch.Tensor, ray_origin: Vec3,
-                 ray_dir: Vec3) -> ShadeAttrs:
-    """Bounce-loop fetch of the compact (untextured) column subset."""
-    block = fetch_bounce_block(bounce_subtable(table), slot, ray_origin,
-                               ray_dir)
-    return attrs_from_block(block)
+def fetch_bounce(sub: torch.Tensor, slot: torch.Tensor, ray_origin: Vec3,
+                 ray_dir: Vec3, atlas=None, footprint=None) -> ShadeAttrs:
+    """Bounce-loop fetch of the compact column subset `sub`, the scene's
+    `bounce_subtable(table, textured=atlas is not None)` (the `Tracer`
+    holds it). Same semantics as `fetch` for the attributes the integrator
+    uses; prev_position aliases position and the object/uv/tex fields are
+    dummies unless textured. Untextured: kernel 3 (row fetch + unpack).
+    With an `atlas`: kernel 4 on the 50-column sub-table, the unpack in
+    PyTorch, then the texture maps; `footprint` (per-lane world-space
+    ray-cone width at the hit) selects mip levels."""
+    if atlas is None:
+        return attrs_from_block(fetch_bounce_block(sub, slot, ray_origin,
+                                                   ray_dir))
+    row = fetch_rows(sub, slot)                    # (50, R)
+    pos_of = {c: i for i, c in enumerate(_BOUNCE_COLS_TEX)}
+    attrs = _unpack_rows(row, pos_of.__getitem__, ray_origin, ray_dir,
+                         full=False, textured=True)
+    return apply_textures(atlas, attrs, footprint=footprint)
+
+
+def hit_transparent(sub: torch.Tensor, slot: torch.Tensor,
+                    ray_origin: Vec3, ray_dir: Vec3, atlas) -> torch.Tensor:
+    """(R,) bool: True where the hit triangle is an ALPHA_MASK surface
+    whose base-color alpha at the hit uv falls below the cutoff. A minimal
+    column fetch (kernel 4 on `sub`, the scene's 19-column
+    `alpha_subtable(table)`) and ONE nearest texture tap; the caller masks
+    by hit validity."""
+    row = fetch_rows(sub, slot)
+    pos_of = {c: i for i, c in enumerate(_ALPHA_COLS)}
+
+    def at(c):
+        return row[pos_of[c]]
+
+    def v3(c):
+        i = pos_of[c]
+        return Vec3(row[i], row[i + 1], row[i + 2])
+
+    _, u, v, _ = intersect.ray_triangle_soa(
+        ray_origin, ray_dir, v3(_P0), v3(_E1), v3(_E2), -float("inf"),
+        float("inf"))
+    u = torch.clamp(u, 0.0, 1.0)
+    v = torch.clamp(v, 0.0, 1.0)
+    w = 1.0 - u - v
+    uv_u = at(_UV) * w + at(_UV + 2) * u + at(_UV + 4) * v
+    uv_v = at(_UV + 1) * w + at(_UV + 3) * u + at(_UV + 5) * v
+    tex = at(_TEX_BASE).to(torch.int32)
+    _, tex_a = tex_mod.sample_nearest(atlas, tex, uv_u, uv_v)
+    alpha = at(_ALPHA_CONST) * torch.where(tex >= 0, tex_a, 1.0)
+    return (at(_ALPHA_MODE) == ALPHA_MASK) & (alpha < at(_ALPHA_CUT))
+
+
+def apply_textures(atlas, attrs: ShadeAttrs, footprint=None) -> ShadeAttrs:
+    """Modulate the fetched material by its texture maps: base-color and
+    emissive multiply, metallic-roughness B/G channels, normal perturbation
+    through the TBN. `footprint`, the world-space ray-cone width at the
+    hit, selects mip levels; None keeps level-0 bilinear."""
+    u, v = attrs.uv_u, attrs.uv_v
+
+    if footprint is not None:
+        # texels covered = footprint(world) * uv_density * map_resolution;
+        # the per-map resolution folds in as an additive log2 term
+        uv_span = torch.clamp(footprint * attrs.uv_density, min=1e-20)
+        log2_span = torch.log2(uv_span)
+
+        def sample(tex_index):
+            w = atlas.desc[torch.clamp(tex_index, min=0).to(torch.int64)][:, 1]
+            lod = torch.clamp(log2_span + torch.log2(w), min=0.0)
+            return tex_mod.sample_lod(atlas, tex_index, u, v, lod)
+    else:
+        def sample(tex_index):
+            return tex_mod.sample_bilinear(atlas, tex_index, u, v)
+
+    base_rgb, _ = sample(attrs.tex_base)
+    base_color = vec.where(attrs.tex_base >= 0, attrs.base_color * base_rgb,
+                           attrs.base_color)
+
+    emit_rgb, _ = sample(attrs.tex_emit)
+    emission = vec.where(attrs.tex_emit >= 0, attrs.emission * emit_rgb,
+                         attrs.emission)
+
+    mr_rgb, _ = sample(attrs.tex_mr)
+    has_mr = attrs.tex_mr >= 0
+    metallic = torch.where(has_mr, attrs.metallic * mr_rgb.z, attrs.metallic)
+    roughness = torch.where(has_mr, attrs.roughness * mr_rgb.y,
+                            attrs.roughness)
+
+    nrm_rgb, _ = sample(attrs.tex_nrm)
+    # tangent-space normal decode + TBN rotate
+    n_ts = vec.normalize(Vec3(nrm_rgb.x * 2.0 - 1.0, nrm_rgb.y * 2.0 - 1.0,
+                              torch.clamp(nrm_rgb.z * 2.0 - 1.0, min=1e-3)))
+    n = attrs.shading_normal
+    t = vec.normalize(attrs.tangent - n * vec.dot(n, attrs.tangent))
+    b = vec.cross(n, t)
+    n_world = vec.normalize(t * n_ts.x + b * n_ts.y + n * n_ts.z)
+    shading = vec.where(attrs.tex_nrm >= 0, n_world, attrs.shading_normal)
+
+    return attrs._replace(base_color=base_color, emission=emission,
+                          metallic=metallic, roughness=roughness,
+                          shading_normal=shading)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 `tpu_pbrt/ops/trace_shade_fused.py`).
 
 The dense configuration with `TPU_PBRT_TRACE_FUSED=1`: each bounce gets its
-hit and its `ShadeAttrs` from one (32, R) block instead of a closest hit
+hit and its `ShadeAttrs` from one (25, R) block instead of a closest hit
 (kernel 1) and a bounce fetch (kernel 3). On CUDA tensors the block comes
 from `csrc/dense_trace.cu::tpb_dense_closest_hit_shade` (kernel 1's sweep,
 an indexed load of the winning sub-table row, kernel 3's unpack); on CPU
@@ -10,9 +10,8 @@ tensors from `closest_hit_shade_plain`, which composes the plain versions
 of those two. The fused shadow ray of the reference (its `any_hit`) is
 kernel 2's function and stays on kernel 2.
 
-Output rows ((32, R) f32): 0-22 the bounce fetch's post-unpack rows
-(`shade_table._FB_*`), 24 the hit t (+inf on a miss), 25 the found flag,
-the rest zero.
+Output rows ((25, R) f32): 0-22 the bounce fetch's post-unpack rows
+(`shade_table._FB_*`), 23 the hit t (+inf on a miss), 24 the found flag.
 """
 
 from __future__ import annotations
@@ -38,26 +37,31 @@ TRACE_FUSED = os.environ.get("TPU_PBRT_TRACE_FUSED", "0") == "1"
 # limit; the kernel's indexed load has none, so the port drops it.
 MAX_TRIS_PAD = 1024
 
-ROW_HIT_T = 24
-ROW_FOUND = 25
-OUT_ROWS = 32
+# the block holds exactly the rows its consumer reads: the bounce fetch's 23
+# rows, then the hit t and the found flag (the reference pads its block to 32
+# rows for the TPU's sublane tile; the port does not)
+ROW_HIT_T = st.FB_OUT
+ROW_FOUND = st.FB_OUT + 1
+OUT_ROWS = st.FB_OUT + 2
 
 KERNEL = cuda.register(
     "dense_closest_hit_shade", "tpu_pbrt_torch/csrc/dense_trace.cu",
     "tpu_pbrt/ops/trace_shade_fused.py:119")
 
 
-def supported(tris, table) -> bool:
+def supported(tris, table, atlas=None) -> bool:
     """Can the fused kernel serve this scene? (`TRACE_FUSED` on, a dense
-    accel of at most MAX_TRIS_PAD rows, a shade table)."""
-    if not TRACE_FUSED or not isinstance(tris, DenseTris) or table is None:
+    accel of at most MAX_TRIS_PAD rows, a shade table, no textures: the
+    kernel unpacks the untextured sub-table only)."""
+    if (not TRACE_FUSED or not isinstance(tris, DenseTris) or table is None
+            or atlas is not None):
         return False
     return tris.v0.shape[0] <= MAX_TRIS_PAD
 
 
 def closest_hit_shade_plain(tris: DenseTris, sub: torch.Tensor, o: Vec3,
                             d: Vec3, t_min, t_max) -> torch.Tensor:
-    """The (32, R) block from the plain dense sweep and the plain bounce
+    """The (25, R) block from the plain dense sweep and the plain bounce
     fetch (slot 0 on a miss, as the reference kernel)."""
     hit = traverse_dense.closest_hit_plain(tris, o, d, t_min, t_max)
     found = hit.tri >= 0
@@ -77,8 +81,7 @@ def closest_hit_shade_cuda(tris: DenseTris, sub: torch.Tensor, o: Vec3,
     (normals, light cosine; ~1e-6), as kernel 3."""
     r, dev, lanes = traverse_dense._ray_args(o, d, t_min, t_max)
     rows, num, idx_bits = traverse_dense._tri_args(tris, dev)
-    cuda.check(sub, "sub", torch.float32, (sub.shape[0],
-                                          len(st._BOUNCE_COLS)), dev)
+    st.check_bounce_sub(sub, dev)
     out = torch.empty((OUT_ROWS, r), dtype=torch.float32, device=dev)
     KERNEL.launch(*lanes, rows, num, idx_bits, sub, sub.shape[0], r, out)
     return out
@@ -94,7 +97,7 @@ def closest_hit_shade_block(tris: DenseTris, sub: torch.Tensor, o: Vec3,
 def closest_hit_shade(tris: DenseTris, sub: torch.Tensor, origin: Vec3,
                       direction: Vec3, t_min, t_max):
     """(Hit, ShadeAttrs) matching `traverse_dense.closest_hit` +
-    `shade_table.fetch_bounce`. `sub` is the (T, 30) bounce sub-table
+    `shade_table.fetch_bounce`. `sub` is the padded bounce sub-table
     (`shade_table.bounce_subtable`)."""
     out = closest_hit_shade_block(tris, sub, origin, direction, t_min, t_max)
     found = out[ROW_FOUND] > 0.5

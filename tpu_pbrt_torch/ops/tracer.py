@@ -17,8 +17,14 @@ scenes, `traverse_resident`, which maps onto one thread block per 256-ray
 chunk on the card. `TPU_PBRT_FORCE_TRACER` is not ported.
 
 The scene tables are registered buffers, so `Tracer.to(device)` moves them
-all: the accel arrays (`accel_*`), the shade table, the light table and the
-light CDF.
+all: the accel arrays (`accel_*`), the shade table and its sub-tables (the
+bounce loop's and the alpha test's column subsets, built once here), the
+light table, the light CDF and the texture atlas (`atlas_*`).
+
+A scene with textures carries the atlas (`textured`); one whose ALPHA_MASK
+materials have a base-color texture also sets `alpha_test`, which turns on
+the re-intersection loop of `closest_hit`: where the winning hit fails its
+alpha test the ray advances past it and traces again.
 """
 
 from __future__ import annotations
@@ -27,11 +33,19 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.material import ALPHA_MASK
+
 from . import shade_table as shade_mod
+from . import texture as tex_mod
 from . import trace_shade_fused, traverse_dense, traverse_resident
+from .texture import TextureAtlas
 from .traverse import Hit
 
 DENSE_MAX_TRIS = 2048
+
+# re-intersection passes for textured alpha cutouts: up to K-1 transparent
+# layers pierced per ray per query (the reference's static cap)
+ALPHA_TEST_MAX_ITERS = 4
 
 _ACCEL = {
     "dense": (traverse_dense.DenseTris, traverse_dense),
@@ -44,16 +58,32 @@ class Tracer(nn.Module):
     follows the accel's type (`DenseTris` or `ResidentTris`)."""
 
     def __init__(self, accel, shade_table: torch.Tensor,
-                 light_table: torch.Tensor, light_cdf: torch.Tensor):
+                 light_table: torch.Tensor, light_cdf: torch.Tensor,
+                 atlas: TextureAtlas | None = None,
+                 alpha_test: bool = False):
         super().__init__()
         self.kind = next(k for k, (cls, _) in _ACCEL.items()
                          if isinstance(accel, cls))
         self.num_tris = int(accel.num)
+        self.textured = atlas is not None
+        self.alpha_test = bool(alpha_test)
+        if self.alpha_test and not self.textured:
+            raise ValueError("alpha_test needs a texture atlas")
         for f in accel._fields[:-1]:            # every field but `num`
             self.register_buffer("accel_" + f, getattr(accel, f))
         self.register_buffer("shade_table", shade_table)
         self.register_buffer("light_table", light_table)
         self.register_buffer("light_cdf", light_cdf)
+        # the bounce loop's sub-table: the 30 untextured columns padded to
+        # 32, or the 50 textured columns
+        self.register_buffer("bounce_sub", shade_mod.bounce_subtable(
+            shade_table, self.textured))
+        if self.textured:
+            for f in TextureAtlas._fields:
+                self.register_buffer("atlas_" + f, getattr(atlas, f))
+        if self.alpha_test:
+            self.register_buffer("alpha_sub",
+                                 shade_mod.alpha_subtable(shade_table))
 
     @property
     def accel(self):
@@ -61,27 +91,68 @@ class Tracer(nn.Module):
         return cls(*(getattr(self, "accel_" + f) for f in cls._fields[:-1]),
                    num=self.num_tris)
 
-    def closest_hit(self, origin, direction, t_min, t_max) -> Hit:
+    @property
+    def atlas(self) -> TextureAtlas | None:
+        if not self.textured:
+            return None
+        return TextureAtlas(*(getattr(self, "atlas_" + f)
+                              for f in TextureAtlas._fields))
+
+    def _closest_raw(self, origin, direction, t_min, t_max) -> Hit:
         return _ACCEL[self.kind][1].closest_hit(self.accel, origin,
                                                 direction, t_min, t_max)
 
+    def closest_hit(self, origin, direction, t_min, t_max) -> Hit:
+        hit = self._closest_raw(origin, direction, t_min, t_max)
+        if not self.alpha_test:
+            return hit
+        # alpha-cutout emulation: where the winning hit fails its alpha
+        # test, advance past it and trace again (only pierced lanes pay:
+        # the others traverse an empty interval)
+        atlas = self.atlas
+        for _ in range(ALPHA_TEST_MAX_ITERS - 1):
+            pierced = hit.mask & shade_mod.hit_transparent(
+                self.alpha_sub, torch.clamp(hit.tri, min=0), origin,
+                direction, atlas)
+            tmin2 = hit.t * (1.0 + 1e-4) + 1e-5
+            rehit = self._closest_raw(
+                origin, direction, tmin2,
+                torch.where(pierced, t_max, -float("inf")))
+            hit = Hit(t=torch.where(pierced, rehit.t, hit.t),
+                      u=torch.where(pierced, rehit.u, hit.u),
+                      v=torch.where(pierced, rehit.v, hit.v),
+                      tri=torch.where(pierced, rehit.tri, hit.tri))
+        return hit
+
     def any_hit(self, origin, direction, t_min, t_max) -> torch.Tensor:
+        if self.alpha_test:
+            # exact cutout shadows: the nearest OPAQUE hit within the
+            # interval (the baked per-triangle opacity cannot see texture
+            # alpha)
+            return self.closest_hit(origin, direction, t_min, t_max).mask
         return _ACCEL[self.kind][1].any_hit(self.accel, origin, direction,
                                             t_min, t_max)
 
     def supports_fused_shade(self) -> bool:
         """Can bounces go through the fused closest-hit-and-shade kernel?
-        (dense kind, `TRACE_FUSED` on, at most `MAX_TRIS_PAD` rows; see
-        ops/trace_shade_fused.py)."""
-        return (self.kind == "dense"
-                and trace_shade_fused.supported(self.accel, self.shade_table))
+        (dense kind, untextured, no alpha test, `TRACE_FUSED` on, at most
+        `MAX_TRIS_PAD` rows; see ops/trace_shade_fused.py)."""
+        return (self.kind == "dense" and not self.alpha_test
+                and trace_shade_fused.supported(
+                    self.accel, self.shade_table, self.atlas))
 
     def closest_hit_shade(self, origin, direction, t_min, t_max):
         """Fused closest hit + bounce fetch: (Hit, ShadeAttrs) from one
         kernel. The caller has checked `supports_fused_shade()`."""
         return trace_shade_fused.closest_hit_shade(
-            self.accel, shade_mod.bounce_subtable(self.shade_table), origin,
-            direction, t_min, t_max)
+            self.accel, self.bounce_sub, origin, direction, t_min, t_max)
+
+    def fetch_bounce(self, slot, origin, direction, footprint=None):
+        """The bounce loop's `shade_table.fetch_bounce` on this scene's
+        prebuilt sub-table, textures applied when the scene has them."""
+        return shade_mod.fetch_bounce(
+            self.bounce_sub, slot, origin, direction, atlas=self.atlas,
+            footprint=footprint)
 
 
 def shadow_opacity(scene) -> np.ndarray:
@@ -99,10 +170,14 @@ def shadow_opacity(scene) -> np.ndarray:
     ).astype(np.float32)
 
 
-def build_for_scene(scene, *, device: str | torch.device) -> Tracer:
-    """Full build from a port `Scene` on `device`: the accel (dense up to
-    DENSE_MAX_TRIS triangles, resident above), the padded shade table, the
-    light table and the CDF."""
+def build_for_scene(scene, textures=None, texture_srgb=None, *,
+                    device: str | torch.device,
+                    kind: str | None = None) -> Tracer:
+    """Full build from a port `Scene` on `device`: the accel (`kind`, or by
+    triangle count dense up to DENSE_MAX_TRIS and resident above), the
+    padded shade table, the light table and the CDF, and with `textures` (a
+    list of (H, W, 4) uint8 or float images; `texture_srgb` flags each) the
+    texture atlas."""
     geometry = scene.geometry
     t = geometry.indices.shape[0]
     table = shade_mod.pad(shade_mod.build(geometry, scene.materials,
@@ -111,12 +186,25 @@ def build_for_scene(scene, *, device: str | torch.device) -> Tracer:
     pos = np.asarray(geometry.positions, np.float32)
     ind = np.asarray(geometry.indices, np.int32)
     v0, v1, v2 = pos[ind[:, 0]], pos[ind[:, 1]], pos[ind[:, 2]]
-    kind = "dense" if t <= DENSE_MAX_TRIS else "resident"
+    if kind is None:
+        kind = "dense" if t <= DENSE_MAX_TRIS else "resident"
+    if kind not in _ACCEL:
+        raise ValueError(f"unknown tracer kind {kind!r}")
     accel = _ACCEL[kind][1].prepare(v0, v1, v2, opacity=shadow_opacity(scene),
                                     device=device)
+    atlas = None
+    if textures:
+        atlas = tex_mod.build_atlas(textures, texture_srgb, device=device)
+    # textured alpha cutouts present? (a constant-alpha MASK is already
+    # baked into the traversal opacity)
+    mat = np.asarray(geometry.tri_material, np.int32)
+    alpha_mode = np.asarray(scene.materials.alpha_mode, np.int32)[mat]
+    tex_idx = np.asarray(scene.materials.texture_index, np.int32)[mat, 0]
+    alpha_test = atlas is not None and bool(
+        np.any((alpha_mode == ALPHA_MASK) & (tex_idx >= 0)))
 
     def dev(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
     return Tracer(accel, dev(table), dev(light_table),
-                  dev(scene.lights.cdf))
+                  dev(scene.lights.cdf), atlas, alpha_test)

@@ -1,11 +1,13 @@
 """G-buffer generation: primary visibility + surface attributes + motion
-(port of `tpu_pbrt/passes/gbuffer.py`, untextured).
+(port of `tpu_pbrt/passes/gbuffer.py`).
 
 One traversal over the pixel pool (the tracer's closest hit: the dense
 sweep, or the resident walk for big scenes, whose hits carry u = v = 0
 like the dense ones) and one 64-column shade-table fetch (kernel 4), which
-re-derives the barycentrics against the winning triangle; all channels
-come back as SoA tensors.
+re-derives the barycentrics against the winning triangle; a textured scene
+then applies its maps (`shade_table.apply_textures`), mip levels chosen
+from the primary ray's cone width at the hit when `cone_spread` > 0. All
+channels come back as SoA tensors.
 """
 
 from __future__ import annotations
@@ -65,16 +67,23 @@ def project_to_uv(cam: CameraData, world_pos: Vec3, previous: bool = False):
     return (ndc_x + 1.0) * 0.5, (1.0 - ndc_y) * 0.5
 
 
-def generate(tracer, env_color: torch.Tensor, cam: CameraData,
+def generate(tracer, env, cam: CameraData,
              origin: Vec3, direction: Vec3, t_min, t_max,
              pixel_u: torch.Tensor, pixel_v: torch.Tensor,
-             dims: tuple[int, int]) -> GBuffer:
+             dims: tuple[int, int], cone_spread: float = 0.0) -> GBuffer:
     """Trace primary rays and fill the G-buffer. pixel_u/v is the jittered
-    UV each ray was generated from (for motion-vector deltas)."""
+    UV each ray was generated from (for motion-vector deltas). `env` is
+    the environment (`models.scene.environment_radiance`'s argument);
+    cone_spread > 0 (one pixel's ray-cone angle) makes the texture fetches
+    mip-aware."""
     hit = tracer.closest_hit(origin, direction, t_min, t_max)
     attrs = shade_table.fetch(tracer.shade_table,
                               torch.clamp(hit.tri, min=0), origin, direction)
-    env = environment_radiance(env_color, direction)
+    if tracer.textured:
+        fp = (cone_spread * torch.clamp(hit.t, min=0.0)
+              if cone_spread > 0 else None)
+        attrs = shade_table.apply_textures(tracer.atlas, attrs, footprint=fp)
+    env = environment_radiance(env, direction)
     emission = vec.where(hit.mask, attrs.emission, env)
 
     # linear view depth = t * dot(dir, forward_unit)

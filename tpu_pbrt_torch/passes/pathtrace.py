@@ -3,9 +3,12 @@ default permutation).
 
 A Python loop over a fixed bounce count carries an active mask over the
 whole ray pool; terminated lanes idle. Per bounce: the tracer's closest
-hit (kernel 1, or the resident walk for big scenes) and the bounce fetch
-(kernel 3), or both from the fused closest-hit-and-shade kernel when the
-tracer supports it (`TPU_PBRT_TRACE_FUSED=1`); one power-sampled light with
+hit (kernel 1, or the resident walk for big scenes; with alpha cutouts the
+tracer's re-intersection loop around it) and the bounce fetch (kernel 3; in
+a textured scene kernel 4 on the textured sub-table and the texture maps,
+their mip level from the ray cone's width `cone_spread` x path length), or
+both from the fused closest-hit-and-shade kernel when the tracer supports
+it (`TPU_PBRT_TRACE_FUSED=1`); one power-sampled light with
 an any-hit shadow ray (kernel 2, or the resident walk) and
 balance-heuristic MIS, 3-lobe BSDF
 sampling from the pcg4d streams, Russian roulette, the throughput cutoff,
@@ -21,8 +24,8 @@ Estimator semantics match the reference:
   * luminance cutoff on throughput; non-finite sample guard
 
 Not ported (raise `NotImplementedError` when set): `sharc_mode`,
-`external_di`, `cone_spread`. The SHARC roughness accumulator and the
-ray-cone path length only feed those, so the state leaves them out.
+`external_di`. The SHARC roughness accumulator only feeds those, so the
+state leaves it out.
 """
 
 from __future__ import annotations
@@ -56,6 +59,9 @@ class PathTraceSettings:
     # each listed bounce (strictly increasing, in [1, bounces]; the pool
     # size must divide by 2**len(schedule))
     compaction_schedule: tuple = ()
+    # ray-cone spread angle per unit distance (~ pixel angular size): > 0
+    # enables mip-aware texture sampling, footprint = cone_spread * path
+    # length at each hit
     cone_spread: float = 0.0
 
     def check_ported(self) -> None:
@@ -63,8 +69,6 @@ class PathTraceSettings:
             raise NotImplementedError("sharc_mode (SHARC radiance cache)")
         if self.external_di:
             raise NotImplementedError("external_di (ReSTIR DI composite)")
-        if self.cone_spread > 0.0:
-            raise NotImplementedError("cone_spread (ray-cone texture mips)")
 
 
 class _PathState(NamedTuple):
@@ -80,13 +84,19 @@ class _PathState(NamedTuple):
     # per-lane rays-traced counter; folds pairwise-sum, one reduce per frame
     ray_count: torch.Tensor    # (R,) f32
     prev_bsdf_pdf: torch.Tensor  # (R,) solid-angle pdf of the ray direction
+    # (R,) path length so far (ray-cone width); None when `cone_spread` is
+    # 0 and nothing reads it
+    path_t: torch.Tensor | None
 
 
 def _map_state(state: _PathState, fn) -> _PathState:
     """Apply fn to every (R,) tensor of the state."""
     out = []
     for f in state:
-        out.append(f.map(fn) if isinstance(f, Vec3) else fn(f))
+        if f is None:
+            out.append(None)
+        else:
+            out.append(f.map(fn) if isinstance(f, Vec3) else fn(f))
     return _PathState(*out)
 
 
@@ -136,14 +146,15 @@ def _fold_half(state: _PathState, px, py, idx, frame, sample_offset,
     return state, sel(px), sel(py), sel(idx)
 
 
-def trace(tracer, env_color: torch.Tensor, light_count: int, origin: Vec3,
+def trace(tracer, env_color, light_count: int, origin: Vec3,
           direction: Vec3, t_min, t_max, px: torch.Tensor, py: torch.Tensor,
           frame: int, settings: PathTraceSettings, sample_offset: int = 0,
           primary_hit: Hit | None = None):
     """Trace one sample per pool entry; returns (radiance: Vec3,
     first_lobe, first_hit_t, ray_count (0-dim float64 tensor)). px/py
-    (int64) key the per-pixel RNG stream. `primary_hit` (if given)
-    supplies the bounce-0 hit from the G-buffer pass."""
+    (int64) key the per-pixel RNG stream. `env_color` is the environment
+    (`environment_radiance`'s argument). `primary_hit` (if given) supplies
+    the bounce-0 hit from the G-buffer pass."""
     settings.check_ported()
     r = origin.x.shape[0]
     dev = origin.x.device
@@ -180,6 +191,7 @@ def trace(tracer, env_color: torch.Tensor, light_count: int, origin: Vec3,
         first_hit_t=lane(float("inf")),
         ray_count=lane(0.0),
         prev_bsdf_pdf=lane(0.0),
+        path_t=lane(0.0) if settings.cone_spread > 0.0 else None,
     )
     zero3 = Vec3.splat(0.0)
 
@@ -192,9 +204,12 @@ def trace(tracer, env_color: torch.Tensor, light_count: int, origin: Vec3,
         is_hit = hit.mask & state.active
 
         if attrs is None:
-            attrs = shade_table.fetch_bounce(
-                tracer.shade_table, torch.clamp(hit.tri, min=0), state.origin,
-                state.direction)
+            fp = None
+            if settings.cone_spread > 0.0:
+                fp = settings.cone_spread * (
+                    state.path_t + torch.clamp(hit.t, min=0.0))
+            attrs = tracer.fetch_bounce(torch.clamp(hit.tri, min=0),
+                                        state.origin, state.direction, fp)
         b = _bsdf_from_attrs(attrs)
         emission = attrs.emission
 
@@ -323,6 +338,8 @@ def trace(tracer, env_color: torch.Tensor, light_count: int, origin: Vec3,
             first_hit_t=first_hit_t,
             ray_count=new_count,
             prev_bsdf_pdf=torch.where(is_hit, next_pdf, state.prev_bsdf_pdf),
+            path_t=(None if state.path_t is None else torch.where(
+                is_hit, state.path_t + hit.t, state.path_t)),
         )
 
     fused = tracer.supports_fused_shade()

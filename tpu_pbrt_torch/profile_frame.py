@@ -1,9 +1,10 @@
 """Where one 1080p frame's time goes on the card.
 
     python -m tpu_pbrt_torch.profile_frame [cornell] [cornell_fused] [helmet]
+                                           [helmet_textured]
     python -m tpu_pbrt_torch.profile_frame --alternate ROUNDS
 
-For each named path (all three by default) it renders two warm-up frames,
+For each named path (all four by default) it renders two warm-up frames,
 times four frames by the host clock around work that ends in
 `torch.cuda.synchronize()`, then profiles two more with `torch.profiler`
 and prints one JSON line: wall ms per frame, device kernel time per frame
@@ -11,7 +12,10 @@ and prints one JSON line: wall ms per frame, device kernel time per frame
 frame (one minus the union of the kernel intervals per profiled frame over
 the unprofiled wall time per frame: the profiler slows the host, not the
 device), kernel launches per frame, the hand-written kernels' time per
-frame, and the ten kernels that take the most time.
+frame, the host syncs of one frame, and the ten kernels that take the most
+time. For a textured path it also gives the texture taps' share: the
+kernels launched inside `shade_table.apply_textures` (a profiler range put
+around it here), their count and device time per frame.
 
 `--alternate ROUNDS` compares the Cornell frame unfused and fused on one
 renderer: after two warm-up frames of each it counts each configuration's
@@ -21,12 +25,14 @@ ROUNDS pairs of frames in the order unfused, fused, fused, unfused, ...
 and prints every frame's time and each configuration's median.
 
 The paths are those of `chip_smoke.py`: the Cornell main path, its fused
-configuration (`TRACE_FUSED` on) and the 25,280-triangle helmet. Needs a
+configuration (`TRACE_FUSED` on), the 25,280-triangle helmet and the same
+helmet with its checker base-color map and ray-cone mip selection. Needs a
 CUDA device; exits 2 without one.
 """
 
 from __future__ import annotations
 
+import bisect
 import json
 import statistics
 import subprocess
@@ -53,8 +59,14 @@ def _renderer(name: str):
     from .render.renderer import Renderer
 
     trace_shade_fused.TRACE_FUSED = name == "cornell_fused"
+    if name == "helmet_textured":
+        scene, textures, srgb = helmet.make_textured_scene()
+        return Renderer(scene, WIDTH, HEIGHT, helmet.settings(True, HEIGHT),
+                        device="cuda", textures=textures, texture_srgb=srgb)
     if name == "helmet":
         scene, settings = helmet.make_scene(), helmet.settings()
+    elif name not in ("cornell", "cornell_fused"):
+        raise ValueError(f"unknown path {name!r}")
     else:
         scene = make_cornell_box()
         settings = PathTraceSettings(bounces=8, samples_per_pixel=1,
@@ -73,13 +85,44 @@ def _union_us(intervals) -> float:
     return busy
 
 
+TEXTURE_RANGE = "apply_textures"
+
+
+def _texture_kernels(events, kernels) -> list:
+    """The device kernels launched inside the `TEXTURE_RANGE` ranges: the
+    host-side launch calls whose start lies in a range share a correlation
+    id with their kernel."""
+    ranges = sorted((e.start_ns(), e.end_ns()) for e in events
+                    if e.name() == TEXTURE_RANGE
+                    and e.device_type() == torch.autograd.DeviceType.CPU)
+    if not ranges:
+        return []
+    starts = [r[0] for r in ranges]
+    ids = set()
+    for e in events:
+        if (e.device_type() != torch.autograd.DeviceType.CPU
+                or not e.name().startswith("cudaLaunchKernel")):
+            continue
+        k = bisect.bisect_right(starts, e.start_ns()) - 1
+        if k >= 0 and e.start_ns() <= ranges[k][1]:
+            ids.add(e.correlation_id())
+    return [e for e in kernels if e.correlation_id() in ids]
+
+
 def profile(name: str) -> dict:
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import (ProfilerActivity, profile as tprofile,
+                                record_function)
 
     from .models.cornell import make_cornell_camera
+    from .ops import shade_table
 
     renderer = _renderer(name)
     camera = make_cornell_camera(WIDTH, HEIGHT)
+    apply_textures = shade_table.apply_textures
+
+    def ranged(*args, **kwargs):
+        with record_function(TEXTURE_RANGE):
+            return apply_textures(*args, **kwargs)
     for f in range(WARMUP):
         renderer.render(camera, f)
     torch.cuda.synchronize()
@@ -89,19 +132,30 @@ def profile(name: str) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED
 
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for f in range(PROFILED):
-            renderer.render(camera, WARMUP + TIMED + f)
-        torch.cuda.synchronize()
-        prof_wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.profiler.kineto_results.events()
+    syncs = _host_syncs(renderer, camera, WARMUP + TIMED)
+
+    shade_table.apply_textures = ranged
+    try:
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for f in range(PROFILED):
+                renderer.render(camera, WARMUP + TIMED + 1 + f)
+            torch.cuda.synchronize()
+            prof_wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        shade_table.apply_textures = apply_textures
+    events = prof.profiler.kineto_results.events()
+    # the profiler mirrors a host range onto the device's timeline under the
+    # range's name: that is no kernel
+    kernels = [e for e in events
                if e.device_type() == torch.autograd.DeviceType.CUDA
-               and not e.name().startswith(("Memcpy", "Memset"))]
+               and not e.name().startswith(("Memcpy", "Memset"))
+               and e.name() != TEXTURE_RANGE]
     out = {"path": name, "tracer": renderer.tracer.kind,
            "triangles": renderer.tracer.num_tris,
-           "wall_ms_per_frame": wall_ms,
+           "textured": renderer.tracer.textured,
+           "wall_ms_per_frame": wall_ms, "host_syncs_per_frame": syncs,
            "profiled_wall_ms_per_frame": prof_wall_us / 1e3 / PROFILED}
     if not kernels:
         out["device"] = "not measured: the profiler traced no device kernel"
@@ -123,6 +177,18 @@ def profile(name: str) -> dict:
         top_kernels=[{"name": n[:120], "ms_per_frame": sum(v) / 1e3 / PROFILED,
                       "launches_per_frame": len(v) / PROFILED}
                      for n, v in top])
+    if renderer.tracer.textured:
+        taps = _texture_kernels(events, kernels)
+        if not taps:
+            out["texture_taps"] = ("not measured: no kernel matched the "
+                                   "texture ranges")
+        else:
+            tap_us = sum(e.duration_ns() for e in taps) / 1e3
+            out["texture_taps"] = {
+                "launches_per_frame": len(taps) / PROFILED,
+                "ms_per_frame": tap_us / 1e3 / PROFILED,
+                "share_of_device_time": tap_us / total_us,
+                "share_of_launches": len(taps) / len(kernels)}
     return out
 
 
@@ -188,7 +254,8 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["--alternate"]:
         print(json.dumps(alternate(int(argv[1]))), flush=True)
         return 0
-    for name in argv or ["cornell", "cornell_fused", "helmet"]:
+    for name in argv or ["cornell", "cornell_fused", "helmet",
+                         "helmet_textured"]:
         print(json.dumps(profile(name)), flush=True)
     return 0
 

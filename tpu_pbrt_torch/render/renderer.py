@@ -2,7 +2,8 @@
 `tpu_pbrt/render/renderer.py`).
 
 `Renderer` is an `nn.Module` on an explicit device: it owns the `Tracer`
-(whose buffers hold the scene tables) and the environment color buffer.
+(whose buffers hold the scene tables, the texture atlas among them) and
+the environment's buffers.
 One frame is G-buffer (primary visibility) -> path trace reusing the
 primary hit, as in the reference's frame graph.
 """
@@ -14,7 +15,7 @@ import torch
 from torch import nn
 
 from ..device import resolve
-from ..models.scene import Scene
+from ..models.scene import EnvironmentTensors, Scene, environment_tensors
 from ..ops import tonemap, tracer as tracer_mod, vec
 from ..ops.sampling import camera_jitter
 from ..ops.traverse import Hit
@@ -27,10 +28,14 @@ class Renderer(nn.Module):
     def __init__(self, scene: Scene, width: int, height: int,
                  settings: pathtrace.PathTraceSettings | None = None, *,
                  device: str | torch.device,
-                 tracer: tracer_mod.Tracer | None = None):
+                 tracer: tracer_mod.Tracer | None = None,
+                 textures=None, texture_srgb=None):
         """`device` is required ('cuda', 'cuda:0' or 'cpu'); naming CUDA
-        without a card raises. `tracer` (optional) supplies prebuilt tables
-        (see `convert.tracer_from_numpy`); it is moved to `device`."""
+        without a card raises. `textures` / `texture_srgb` (the scene's
+        images and their sRGB flags, as `gltf.load` returns them) go into
+        the tracer's atlas. `tracer` (optional) supplies prebuilt tables
+        instead (see `convert.tracer_from_numpy`); it is moved to
+        `device`."""
         super().__init__()
         self.device = resolve(device)
         self.scene = scene
@@ -39,12 +44,21 @@ class Renderer(nn.Module):
         self.settings = settings or pathtrace.PathTraceSettings()
         self.settings.check_ported()
         if tracer is None:
-            tracer = tracer_mod.build_for_scene(scene, device=self.device)
+            tracer = tracer_mod.build_for_scene(
+                scene, textures, texture_srgb, device=self.device)
+        elif textures:
+            raise ValueError("pass textures or a prebuilt tracer, not both")
         self.tracer = tracer.to(self.device)
         self.light_count = int(np.asarray(scene.lights.count))
-        self.register_buffer("environment", torch.as_tensor(
-            np.asarray(scene.environment.color, np.float32),
-            device=self.device))
+        env = environment_tensors(scene.environment, device=self.device)
+        self.register_buffer("environment", env.color)
+        self.register_buffer("environment_rotation", env.rotation)
+        self.register_buffer("environment_texture", env.texture)
+
+    @property
+    def env(self) -> EnvironmentTensors:
+        return EnvironmentTensors(self.environment, self.environment_rotation,
+                                  self.environment_texture)
 
     def render(self, camera: Camera, frame_index: int = 0,
                jitter: bool = False) -> torch.Tensor:
@@ -59,7 +73,7 @@ class Renderer(nn.Module):
         jit = (camera_jitter(frame_index, 64) if jitter
                else np.zeros(2, np.float32))
         cam = camera.data(jitter=jit, device=self.device)
-        return _render_frame(self.tracer, self.environment,
+        return _render_frame(self.tracer, self.env,
                              self.light_count, cam, frame_index,
                              width=self.width, height=self.height,
                              settings=self.settings)
@@ -79,7 +93,7 @@ class Renderer(nn.Module):
         return tonemap.to_srgb8(img).cpu().numpy()
 
 
-def _render_frame(tracer, env_color: torch.Tensor, light_count: int,
+def _render_frame(tracer, env_color, light_count: int,
                   cam: CameraData, frame: int, *, width: int, height: int,
                   settings: pathtrace.PathTraceSettings,
                   with_gbuffer: bool = False):
@@ -94,7 +108,8 @@ def _render_frame(tracer, env_color: torch.Tensor, light_count: int,
     pixel_v = (py.to(torch.float32) + 0.5 + cam.jitter[1]) / height
     gb = gbuffer_mod.generate(tracer, env_color, cam, origin, direction,
                               t_min, t_max, pixel_u, pixel_v,
-                              (width, height))
+                              (width, height),
+                              cone_spread=settings.cone_spread)
     fwd = vec.normalize(vec.Vec3(cam.forward[0], cam.forward[1],
                                  cam.forward[2]))
     primary = Hit(
