@@ -62,6 +62,25 @@ runs only the dense sweeps' checks and timings (and the times of the fused
 kernel and the bounce fetch, which share the sub-table's row layout), on
 the package of the checkout at DIR (this one or an older one, whose kernels
 it builds): the way to time two versions on the same sets within one call.
+
+    python3 chip_smoke.py --fetch-times DIR
+
+does the same for the row fetch alone: it checks and times the row fetch of
+the package at DIR at every shape this script holds it to (below), and on
+seeded tables either side of the line between its two designs
+(`RULE_PROBES`), one JSON line.
+
+The row fetch is held, bit for bit against its plain version and against
+`torch.index_select`, and timed beside the library call at: the Cornell
+G-buffer's 128 x 64 table; the helmet's and the textured helmet's 25,344 x
+64 tables (the G-buffer, camera slots); the textured helmet's 25,344 x 50
+sub-table at camera and bounce slots and at two folded pools (259,200 and
+518,400 slots); the cutout frame's 128 x 50 and 128 x 19 sub-tables at
+camera, bounce and folded (1,036,800) slots; and two tables no driven path
+launches it on: a seeded 128 x 17 light table with slots uniform over its
+rows (the light fetch of a scene with more than eight lights), and a seeded
+101,760 x 50 table (the `helmet-100k` scale, 20 MB) at 2,073,600
+incoherent slots. Their `kernels` entries give launches 0 and path null.
 """
 
 from __future__ import annotations
@@ -122,6 +141,14 @@ PATH_KERNELS = {
 }
 # the smallest pool of a 1080p frame folded at three bounces
 FOLDED_POOL = WIDTH * HEIGHT // 8
+# the row fetch's held-only tables: rows of the light table (more than
+# SELECT_MAX_LIGHTS lights) and of a helmet-100k-sized textured sub-table
+LIGHT_ROWS = 128
+BIG_TABLE_ROWS = 101760
+# seeded tables (rows, columns) on both sides of the row fetch's lines
+# between its staged-table and tile designs (a table of at most 32 columns
+# and 48 KB at its odd row stride is staged): --fetch-times only
+RULE_PROBES = ((128, 32), (128, 33), (722, 17), (723, 17), (63, 64))
 
 
 def fail(msg: str) -> None:
@@ -585,11 +612,12 @@ def check_fused_adversarial(device) -> dict:
     return out
 
 
-def check_fetch_rows_shapes(cases: dict, path: str) -> dict:
-    """Kernel 4 at the shapes the textured path `path` gives it, name ->
-    (table, slot): each bit-exact against `fetch_rows_plain` and the library
-    call, with kernel, plain and library times and the bound (bytes: the
-    table, 4 B of slot in and 4 x columns B out per ray)."""
+def check_fetch_rows_shapes(cases: dict, path: str | None) -> dict:
+    """Kernel 4 at the shapes the path `path` gives it (None: a shape no
+    driven path launches), name -> (table, slot): each bit-exact against
+    `fetch_rows_plain` and the library call, with kernel, plain and library
+    times and the bound (bytes: the table, 4 B of slot in and 4 x columns B
+    out per ray)."""
     import torch
     from tpu_pbrt_torch.ops import shade_table as st
 
@@ -616,12 +644,14 @@ def check_fetch_rows_shapes(cases: dict, path: str) -> dict:
     return out
 
 
-def slot_cases(tables: dict, tracer, cam_rays, bounce_rays, pool: int) -> dict:
+def slot_cases(tables: dict, tracer, cam_rays, bounce_rays, pool: int,
+               more_pools=()) -> dict:
     """Row-fetch cases on each of `tables` (prefix -> table) from the
     tracer's own hits: the camera rays' slots (coherent), the bounce rays'
     (incoherent), and a folded pool of `pool` lanes, the path's smallest:
     the bounce rays that hit, then dead lanes (slot 0, as the clamp of a
-    miss gives) if those are fewer."""
+    miss gives) if those are fewer; `more_pools` adds bigger folded pools
+    the same way (`<prefix>_bounce_folded_<lanes>`)."""
     import torch
 
     cam = torch.clamp(tracer.closest_hit(*cam_rays).tri, min=0)
@@ -630,12 +660,51 @@ def slot_cases(tables: dict, tracer, cam_rays, bounce_rays, pool: int) -> dict:
     if int(hit.mask.sum()) < pool // 2:
         fail(f"{list(tables)}: only {int(hit.mask.sum())} bounce rays hit, "
              f"under half of a folded pool's {pool} lanes")
-    fold = torch.cat([bounce[hit.mask], bounce[~hit.mask]])[:pool].contiguous()
+    hits_first = torch.cat([bounce[hit.mask], bounce[~hit.mask]])
     out = {}
     for prefix, table in tables.items():
         out.update({f"{prefix}_camera": (table, cam),
                     f"{prefix}_bounce": (table, bounce),
-                    f"{prefix}_bounce_folded": (table, fold)})
+                    f"{prefix}_bounce_folded": (
+                        table, hits_first[:pool].contiguous())})
+        for lanes in more_pools:
+            out[f"{prefix}_bounce_folded_{lanes}"] = (
+                table, hits_first[:lanes].contiguous())
+    return out
+
+
+def held_only_cases(device) -> dict:
+    """The row fetch's tables that no driven path launches it on: a seeded
+    light table (LIGHT_ROWS x 17) with slots uniform over its rows, as the
+    power-CDF draw of a scene with more than eight lights gives, and a
+    seeded BIG_TABLE_ROWS x 50 table (helmet-100k's triangle count at the
+    textured bounce's width) at one incoherent slot a pixel."""
+    import torch
+    from tpu_pbrt_torch.ops import shade_table as st
+
+    rng = np.random.default_rng(SEED + 7)
+    n = WIDTH * HEIGHT
+    out = {}
+    for name, rows, cols in (("light17_uniform", LIGHT_ROWS, st.LIGHT_COLS),
+                             ("big50_uniform", BIG_TABLE_ROWS, 50)):
+        table = rng.normal(size=(rows, cols)).astype(np.float32)
+        slot = rng.integers(0, rows, n).astype(np.int32)
+        out[name] = (torch.as_tensor(table, device=device),
+                     torch.as_tensor(slot, device=device))
+    return out
+
+
+def rule_probe_cases(device) -> dict:
+    """Seeded RULE_PROBES tables, one uniform slot a pixel each."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 8)
+    out = {}
+    for rows, cols in RULE_PROBES:
+        table = rng.normal(size=(rows, cols)).astype(np.float32)
+        slot = rng.integers(0, rows, WIDTH * HEIGHT).astype(np.int32)
+        out[f"probe_{rows}x{cols}"] = (torch.as_tensor(table, device=device),
+                                       torch.as_tensor(slot, device=device))
     return out
 
 
@@ -1173,12 +1242,72 @@ def dense_times(root: str) -> int:
     return 0
 
 
+def fetch_times(root: str) -> int:
+    """The row fetch of the package at `root` alone, at every shape the
+    full run holds it to (the Cornell, helmet, textured helmet and cutout
+    tracers' own slots, and the held-only tables): the checks and times of
+    `check_fetch_rows_shapes`, one JSON line."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    from tpu_pbrt_torch.models import cutout, helmet
+    from tpu_pbrt_torch.models.cornell import (make_cornell_box,
+                                               make_cornell_camera)
+    from tpu_pbrt_torch.ops import cuda
+    from tpu_pbrt_torch.ops.tracer import build_for_scene
+    from tpu_pbrt_torch.render.camera import generate_rays
+
+    device = torch.device("cuda")
+    cuda.library()
+    cam_rays = generate_rays(
+        make_cornell_camera(WIDTH, HEIGHT).data(device=device), WIDTH, HEIGHT)
+    out = {}
+
+    def camera_slots(trc, rays):
+        return torch.clamp(trc.closest_hit(*rays).tri, min=0)
+
+    trc = build_for_scene(make_cornell_box(), device=device)
+    out.update(check_fetch_rows_shapes(
+        {"cornell64_camera": (trc.shade_table, camera_slots(trc, cam_rays))},
+        "cornell"))
+    trc = build_for_scene(helmet.make_scene(), device=device)
+    out.update(check_fetch_rows_shapes(
+        {"helmet64_camera": (trc.shade_table, camera_slots(trc, cam_rays))},
+        "helmet"))
+    scene_t, textures, tex_srgb = helmet.make_textured_scene()
+    trc = build_for_scene(scene_t, textures, tex_srgb, device=device)
+    cases = slot_cases(
+        {"tex50": trc.bounce_sub}, trc, cam_rays,
+        mesh_rays(scene_t.geometry, WIDTH * HEIGHT, device, SEED + 4),
+        FOLDED_POOL, (2 * FOLDED_POOL,))
+    cases["tex64_camera"] = (trc.shade_table, camera_slots(trc, cam_rays))
+    out.update(check_fetch_rows_shapes(cases, "helmet_textured"))
+    cut_scene, cut_tex, cut_srgb = cutout.make_scene(cutout.frame_parts())
+    trc = build_for_scene(cut_scene, cut_tex, cut_srgb, device=device)
+    cut_rays = generate_rays(
+        cutout.frame_camera(WIDTH, HEIGHT).data(device=device), WIDTH, HEIGHT)
+    out.update(check_fetch_rows_shapes(slot_cases(
+        {"alpha19": trc.alpha_sub, "tex50_cutout": trc.bounce_sub}, trc,
+        cut_rays, random_rays(WIDTH * HEIGHT, device, SEED + 5,
+                              [-1.2, 0.05, -1.2], [1.2, 2.9, 1.2], dead=0.0),
+        WIDTH * HEIGHT // 2), "cutout"))
+    out.update(check_fetch_rows_shapes(held_only_cases(device), None))
+    out.update(check_fetch_rows_shapes(rule_probe_cases(device), None))
+    print(json.dumps({"fetch_times": out, "package": os.path.abspath(root),
+                      "gpu": gpu_line(), "ptxas": ptxas_usage(
+                          cuda.build_log, "fetch_rows")}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--dense-times", metavar="DIR", default=None,
                         help="only check and time the dense sweeps of the "
+                             "checkout at DIR")
+    parser.add_argument("--fetch-times", metavar="DIR", default=None,
+                        help="only check and time the row fetch of the "
                              "checkout at DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1187,6 +1316,8 @@ def main() -> int:
         return 2
     if args.dense_times is not None:
         return dense_times(args.dense_times)
+    if args.fetch_times is not None:
+        return fetch_times(args.fetch_times)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpu_pbrt_torch.models import cutout, helmet
     from tpu_pbrt_torch.models.cornell import (make_cornell_box,
@@ -1225,6 +1356,11 @@ def main() -> int:
     print(json.dumps({"ptxas_dense_sweeps": ptxas_usage(
         cuda.build_log, "dense_closest_hit_kernel", "dense_any_hit_kernel")}),
         flush=True)
+    # the row fetch's two designs (dynamic shared memory on top: a tile of
+    # 128 rows, or the whole staged table, at an odd row stride)
+    print(json.dumps({"ptxas_fetch_rows": ptxas_usage(cuda.build_log,
+                                                      "fetch_rows")}),
+          flush=True)
 
     camera = make_cornell_camera(WIDTH, HEIGHT)
     kres, paths, pngs = {}, {}, {}
@@ -1275,13 +1411,21 @@ def main() -> int:
     print(json.dumps({"kernel_checks": {
         k: kres[k] for k in ("resident_closest_hit", "resident_any_hit")}}),
         flush=True)
-    mask = renderer.tracer.closest_hit(*cam_rays).mask
+    cam_hit = renderer.tracer.closest_hit(*cam_rays)
+    mask = cam_hit.mask
+    # the G-buffer's fetch: the 64-column table at the camera rays' slots
+    fetch_shapes = check_fetch_rows_shapes(
+        {"helmet64_camera": (renderer.tracer.shade_table,
+                             torch.clamp(cam_hit.tri, min=0))}, "helmet")
+    del cam_hit
     sky = environment_radiance(renderer.environment, cam_rays[1])
     sky = torch.stack([sky.x, sky.y, sky.z], -1).reshape(HEIGHT, WIDTH, 3)
     mask = mask.reshape(HEIGHT, WIDTH).cpu().numpy()
     sky = sky.cpu().numpy()
     del cam_rays
     paths["helmet"], img = run_path("helmet", renderer, camera)
+    shape_launches = fetch_shape_launches(paths["helmet"], fetch_shapes,
+                                          "helmet")
     if not 0.0 < mask.mean() < 0.5:
         fail(f"helmet covers {mask.mean()} of the frame")
     on_mesh = float(np.abs(img[mask] - sky[mask]).mean())
@@ -1313,14 +1457,17 @@ def main() -> int:
     rows_cases = slot_cases(
         {"tex50": trc.bounce_sub}, trc, cam_rays,
         mesh_rays(scene_t.geometry, WIDTH * HEIGHT, device, SEED + 4),
-        FOLDED_POOL)
+        FOLDED_POOL, (2 * FOLDED_POOL,))
+    rows_cases["tex64_camera"] = (
+        trc.shade_table, torch.clamp(trc.closest_hit(*cam_rays).tri, min=0))
     del cam_rays
-    fetch_shapes = check_fetch_rows_shapes(rows_cases, "helmet_textured")
+    fetch_shapes.update(check_fetch_rows_shapes(rows_cases,
+                                                "helmet_textured"))
     del rows_cases
     paths["helmet_textured"], img = run_path("helmet_textured", renderer,
                                              camera)
-    shape_launches = fetch_shape_launches(paths["helmet_textured"],
-                                          fetch_shapes, "helmet_textured")
+    shape_launches.update(fetch_shape_launches(
+        paths["helmet_textured"], fetch_shapes, "helmet_textured"))
     on_mesh = float(np.abs(img[mask] - untextured[mask]).mean())
     off_mesh = float(np.abs(img[~mask] - untextured[~mask]).max())
     if on_mesh <= 0.01 or off_mesh > 1e-6:
@@ -1369,6 +1516,9 @@ def main() -> int:
         cam_rays, bounce_rays, WIDTH * HEIGHT // 2)
     fetch_shapes.update(check_fetch_rows_shapes(rows_cases, "cutout"))
     del rows_cases
+    # the two tables no driven path launches the row fetch on
+    fetch_shapes.update(check_fetch_rows_shapes(held_only_cases(device),
+                                                None))
     # the frame's own tracer against the plain loop on the card
     cutout_loop = check_alpha_loop(trc, {
         "camera": cam_rays, "bounce": bounce_rays,
@@ -1445,12 +1595,13 @@ def main() -> int:
     # the row fetch again, at the textured paths' shapes
     k4 = cuda.KERNELS["fetch_rows"]
     # (launches: those the path's run made at this table width and slot
-    # count, of its fetch_rows launches in all)
+    # count, of its fetch_rows launches in all; 0 for a held-only table)
     for name, res in fetch_shapes.items():
         kernels.append(
             {"name": f"fetch_rows/{name}", "route": "cuda",
              "source": k4.source, "replaces": k4.replaces,
-             "path": res["path"], "launches": shape_launches[name],
+             "path": res["path"],
+             "launches": shape_launches[name] if res["path"] else 0,
              **{key: res[key] for key in keys}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

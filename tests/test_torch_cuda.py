@@ -9,8 +9,9 @@ and the wrappers' argument checks; for the resident walk also chunks that
 straddle two octants, all-idle chunks, an all-pad last block, and the
 adversarial sets of its block cull (`adversarial_case`); for the fused
 closest-hit-and-shade kernel soups up to its 1024-row gate and the dense
-adversarial sets; the row fetch at the textured and alpha sub-tables'
-shapes; and the alpha re-trace loop's all-empty and mostly-empty pools
+adversarial sets; the row fetch's two designs (a staged table, a tile of
+rows) at every width it serves, on both sides of the line between them;
+and the alpha re-trace loop's all-empty and mostly-empty pools
 through kernel 1 and the resident walk.
 
 These need an NVIDIA GPU and nvcc; elsewhere they skip. On the card (no
@@ -156,25 +157,65 @@ def test_dense_all_occluded(dev, nray):
     assert torch.equal(hit.t.view(torch.int32), want.t.view(torch.int32))
 
 
-@pytest.mark.parametrize("t,c,r", [(128, 64, 1), (128, 64, 3001),
-                                   (5133, 30, 2000), (4, 3, 700),
-                                   (25344, 50, 70001), (25344, 50, 255),
-                                   (128, 19, 70001), (25344, 19, 4099)])
-def test_fetch_rows_kernel_exact(dev, t, c, r):
-    """Among them the textured bounce sub-table's shape (25,344 x 50) and
-    the alpha test's 19 columns; slots run from -2 to t + 1, so some fall
-    outside the table on either side (zero rows). The launch is counted
-    once, under its table width and slot count too."""
+# Kernel 4's branches: a table of at most 32 columns and 48 KB at its odd
+# row stride (T * (C | 1) * 4 bytes) is staged whole in shared memory, any
+# other read a 128-slot tile at a time in 16-, 8- or 4-byte pieces of a row (by
+# C and the table's alignment). Each width the kernel serves (64: the
+# G-buffer, 50: the textured bounce, 19: the alpha test, 17: the light
+# rows), odd widths, tables on both sides of both lines, the
+# helmet-100k sub-table, slot counts of 1, of no whole tile or group of 4,
+# and of a 1080p frame.
+_FETCH_ROWS_CASES = [
+    (128, 64, 1, "range"), (128, 64, 3001, "range"),
+    (63, 64, 3001, "range"), (189, 64, 3001, "range"),
+    (128, 64, 2073600, "range"), (25344, 64, 70001, "range"),
+    (128, 64, 4099, "one"),
+    (128, 50, 70001, "range"), (25344, 50, 70001, "range"),
+    (25344, 50, 255, "range"), (25344, 50, 2073600, "range"),
+    (25344, 50, 70001, "one"), (25344, 50, 4099, "offset"),
+    (101760, 50, 2073600, "range"),
+    (128, 19, 70001, "range"), (25344, 19, 4099, "range"),
+    (128, 17, 4099, "range"), (722, 17, 70001, "range"),
+    (723, 17, 70001, "range"), (128, 17, 2073600, "range"),
+    (128, 19, 4099, "one"),
+    (128, 32, 4099, "range"), (128, 33, 4099, "range"),
+    (4, 3, 700, "range"), (4096, 3, 4099, "range"), (4097, 3, 4099, "range"),
+    (5000, 3, 4099, "range"),
+    (5133, 30, 2000, "range"),
+]
+
+
+@pytest.mark.parametrize("t,c,r,slots", _FETCH_ROWS_CASES)
+def test_fetch_rows_kernel_exact(dev, t, c, r, slots):
+    """`slots`: "range" runs from -2 to t + 1, so some fall outside the
+    table on either side (zero rows); "one" is one row for every slot;
+    "offset" also starts the table 4 bytes past an aligned address (the
+    4-byte pieces). Equal to the plain version and, on the slots in the
+    table, to `torch.index_select`; the launch is counted once, under its
+    table width and slot count too."""
     rng = np.random.default_rng(t * c)
-    table = torch.as_tensor(rng.normal(size=(t, c)).astype(np.float32),
-                            device=dev)
-    slot = torch.as_tensor(rng.integers(-2, t + 2, r).astype(np.int32),
-                           device=dev)
+    values = rng.normal(size=(t, c)).astype(np.float32)
+    if slots == "offset":
+        flat = torch.empty(t * c + 1, device=dev)
+        table = flat[1:].view(t, c)
+        table.copy_(torch.as_tensor(values))
+        assert table.data_ptr() % 8 != 0
+    else:
+        table = torch.as_tensor(values, device=dev)
+    if slots == "one":
+        slot_np = np.full(r, t // 3, np.int32)
+    else:
+        slot_np = rng.integers(-2, t + 2, r).astype(np.int32)
+    slot = torch.as_tensor(slot_np, device=dev)
     cuda.reset_launches()
-    assert torch.equal(st.fetch_rows_cuda(table, slot),
-                       st.fetch_rows_plain(table, slot))
+    got = st.fetch_rows_cuda(table, slot)
     assert st.FETCH_ROWS_KERNEL.launches == 1
     assert st.FETCH_ROWS_KERNEL.launches_by_tag == {(c, r): 1}
+    assert torch.equal(got, st.fetch_rows_plain(table, slot))
+    ok = (slot >= 0) & (slot < t)
+    assert torch.equal(got[:, ok], torch.index_select(table.t(), 1,
+                                                      slot[ok]))
+    assert not bool(got[:, ~ok].any())
 
 
 @pytest.mark.parametrize("t,r", [(128, 1), (128, 4099), (1200, 600)])
@@ -213,6 +254,10 @@ def test_wrappers_check_arguments(dev):
                                                 device=dev))
     with pytest.raises(ValueError, match="CUDA"):
         st.fetch_rows_cuda(tris.v0, torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="columns"):
+        st.fetch_rows_cuda(torch.zeros((4, st.FETCH_ROWS_MAX_COLS + 1),
+                                       device=dev),
+                           torch.zeros(8, dtype=torch.int32, device=dev))
     with pytest.raises(ValueError, match="rows"):
         td.closest_hit_cuda(tris._replace(rows=tris.rows[:, :9].contiguous()),
                             o, d, tmin, tmax)

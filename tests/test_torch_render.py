@@ -55,13 +55,18 @@ _SETTINGS = {
     # the main path's fold at a small size: 2 folds (pool / 4)
     "4b_fold2": dict(bounces=4, count_rays=True, compaction_schedule=(2, 3)),
 }
+# uncounted rays: the total is the fold schedule's static bound
+_STATIC_SETTINGS = {
+    "4b_fold2_static": dict(bounces=4, count_rays=False,
+                            compaction_schedule=(2, 3)),
+}
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_cornell_frame(name):
     """The reference's same-seed Cornell frame under _SETTINGS[name] (one
     trace and compile per setting for the whole module)."""
-    js = JSettings(**_SETTINGS[name])
+    js = JSettings(**{**_SETTINGS, **_STATIC_SETTINGS}[name])
     jr = jrenderer.Renderer(jcornell.make_cornell_box(), W, H, js)
     cam = jcornell.make_cornell_camera(W, H).data()
     return jax.jit(lambda trc, scene, c: jrenderer._render_frame(
@@ -120,6 +125,28 @@ def test_frame_matches_reference(frames):
     d = np.abs(timg - jimg).max(-1)
     agree = (d <= 1e-3 * np.maximum(1.0, np.abs(jimg).max(-1))).mean()
     assert agree >= 0.99, agree
+
+
+def test_static_ray_total_matches_reference():
+    """`count_rays` off under a folded schedule: the frame's ray total is
+    the schedule's static bound, made on the frame's device (no host copy),
+    and equal to the reference's; the frame agrees as the counted ones do."""
+    name = "4b_fold2_static"
+    (jimg, jrays, _), jtracer = _jax_cornell_frame(name)
+    tr = trenderer.Renderer(tcornell.make_cornell_box(), W, H,
+                            TSettings(**_STATIC_SETTINGS[name]),
+                            device="cpu", tracer=_port_tracer(jtracer))
+    timg, trays, _ = trenderer._render_frame(
+        tr.tracer, tr.env, tr.light_count,
+        tcornell.make_cornell_camera(W, H).data(device="cpu"), FRAME,
+        width=W, height=H, settings=tr.settings, with_gbuffer=True)
+    assert trays.dtype == torch.float64 and trays.shape == ()
+    # two rays (path, NEE) a pool lane a bounce: 2 * (2 * 3072 + 1536
+    # + 2 * 768)
+    assert float(trays) == float(jrays) == 18432.0
+    jimg, timg = np.asarray(jimg), timg.numpy()
+    assert np.isfinite(timg).all()
+    assert abs(timg.mean() - jimg.mean()) / jimg.mean() <= 1e-3
 
 
 @pytest.mark.parametrize("color", [(0.0, 0.0, 0.0, 1.0),

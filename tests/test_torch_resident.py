@@ -160,6 +160,40 @@ def test_sort_matches_reference(case):
                                   rays_t.numpy()[same])
 
 
+@pytest.mark.parametrize("n", [1000, 4100])
+def test_sort_pads_part_chunks_like_reference(n):
+    """A pool of part chunks (n not a multiple of 256): the pad rows the
+    port fills on the device are the reference's, and so are the sorted
+    rows, lanes and chunk octants. Every lane is live, so the octant+Morton
+    keys do not tie (the pad rows tie, and all of them are alike)."""
+    v0, v1, v2, op = _soup()
+    rng = np.random.default_rng(n)
+    o = rng.uniform(-3, 3, (3, n)).astype(np.float32)
+    d = rng.normal(size=(3, n))
+    d = (d / np.linalg.norm(d, axis=0)).astype(np.float32)
+    t0, t1 = np.zeros(n, np.float32), np.full(n, np.inf, np.float32)
+    rays_j, slane_j, octs_j, rp = jres._sort_for_traversal(
+        jres.prepare(v0, v1, v2, op),
+        JVec3(*(jnp.asarray(c) for c in o)),
+        JVec3(*(jnp.asarray(c) for c in d)), jnp.asarray(t0),
+        jnp.asarray(t1))
+    rays_t, perm_t, octs_t = tres.sort_rays(
+        tres.prepare(v0, v1, v2, op, device="cpu"),
+        TVec3(*(torch.as_tensor(c) for c in o)),
+        TVec3(*(torch.as_tensor(c) for c in d)), torch.as_tensor(t0),
+        torch.as_tensor(t1))
+    assert rp == rays_t.shape[0] == -(-n // tres.CHUNK) * tres.CHUNK > n
+    perm = perm_t.numpy()
+    np.testing.assert_array_equal(np.asarray(slane_j),
+                                  np.where(perm >= n, -1, perm))
+    np.testing.assert_array_equal(np.asarray(rays_j), rays_t.numpy())
+    np.testing.assert_array_equal(np.asarray(octs_j), octs_t.numpy())
+    pad = rays_t.numpy()[perm >= n]
+    assert len(pad) == rp - n
+    np.testing.assert_array_equal(
+        pad, np.broadcast_to(np.float32([0, 0, 0, 0, 0, 1, 0, -1]), pad.shape))
+
+
 def test_closest_hit_matches_reference(case):
     want = case["want_hit"]
     got = tres.closest_hit(case["tacc"], *case["t"])

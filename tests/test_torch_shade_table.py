@@ -26,7 +26,9 @@ torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("t,c,r", [(128, 64, 3000), (37, 30, 1000),
-                                   (130, 7, 128), (5133, 30, 2000)])
+                                   (130, 7, 128), (5133, 30, 2000),
+                                   (128, 50, 2000), (128, 19, 2000),
+                                   (40, 17, 2000)])
 def test_fetch_rows_matches_pallas(t, c, r):
     rng = np.random.default_rng(t + c)
     table = rng.normal(size=(t, c)).astype(np.float32)

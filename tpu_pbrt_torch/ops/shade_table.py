@@ -192,12 +192,23 @@ def fetch_rows_plain(table: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     return torch.where(ok[:, None], rows, 0.0).T.contiguous()
 
 
+# the widest row kernel 4 takes: the shade table's (a 128-slot tile of such
+# rows fits 48 KB of shared memory)
+FETCH_ROWS_MAX_COLS = COLS
+
+
 def fetch_rows_cuda(table: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
-    """Kernel 4 (`tpb_fetch_rows`): exact, bit-equal to the plain version."""
+    """Kernel 4 (`tpb_fetch_rows`): exact, bit-equal to the plain version.
+    A table of at most 32 columns and 48 KB at an odd row stride
+    (T * (C | 1) * 4 bytes) is staged whole in shared memory; any other is
+    read a 128-slot tile of rows at a time."""
     tp, c = table.shape
     r = slot.shape[0]
     cuda.check(slot, "slot", torch.int32, (r,))
     cuda.check(table, "table", torch.float32, (tp, c), slot.device)
+    if c > FETCH_ROWS_MAX_COLS:
+        raise ValueError(f"table: {c} columns, kernel 4 takes at most "
+                         f"{FETCH_ROWS_MAX_COLS}")
     out = torch.empty((c, r), dtype=torch.float32, device=slot.device)
     FETCH_ROWS_KERNEL.launch(table, tp, c, slot, r, out, tag=(c, r))
     return out

@@ -257,9 +257,12 @@ def sort_rays(tris: ResidentTris, origin: Vec3, direction: Vec3, t_min,
     rows = torch.stack([origin.x, origin.y, origin.z, direction.x,
                         direction.y, direction.z, t_min, teff], -1)
     if rp > r:
-        pad = torch.tensor([0, 0, 0, 0, 0, 1, 0, -1], dtype=torch.float32,
-                           device=dev)
-        rows = torch.cat([rows, pad.expand(rp - r, 8)])
+        # device fills only: a host-built pad row would be a host-to-device
+        # copy (a host sync) at every call on a pool of part chunks
+        pad = torch.zeros((rp - r, 8), dtype=torch.float32, device=dev)
+        pad[:, 5].fill_(1.0)
+        pad[:, 7].fill_(-1.0)
+        rows = torch.cat([rows, pad])
         key = torch.cat([key, torch.full((rp - r,), _M32, dtype=torch.int64,
                                          device=dev)])
     skey, perm = torch.sort(key, stable=True)

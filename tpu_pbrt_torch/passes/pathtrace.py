@@ -395,8 +395,8 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
         for end in list(schedule) + [settings.bounces + 1]:
             pools += (end - b0) * pool
             pool, b0 = pool // 2, end
-        total_rays = torch.tensor(
-            float(pools * per - (r if primary_hit is not None else 0)),
+        total_rays = torch.full(
+            (), float(pools * per - (r if primary_hit is not None else 0)),
             dtype=torch.float64, device=dev)
 
     # non-finite guard

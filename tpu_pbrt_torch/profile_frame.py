@@ -48,7 +48,7 @@ WARMUP, TIMED, PROFILED = 2, 4, 2
 # substrings of the hand-written kernels' symbol names (csrc/*.cu)
 HAND_WRITTEN = ("dense_closest_hit_kernel", "dense_closest_hit_shade_kernel",
                 "dense_any_hit_kernel", "fetch_bounce_kernel",
-                "fetch_rows_kernel", "resident_walk_kernel")
+                "fetch_rows_", "resident_walk_kernel")
 
 
 def _renderer(name: str):
