@@ -80,7 +80,8 @@ camera, bounce and folded (1,036,800) slots; and two tables no driven path
 launches it on: a seeded 128 x 17 light table with slots uniform over its
 rows (the light fetch of a scene with more than eight lights), and a seeded
 101,760 x 50 table (the `helmet-100k` scale, 20 MB) at 2,073,600
-incoherent slots. Their `kernels` entries give launches 0 and path null.
+incoherent slots. Their `kernels` entries give launches and path null:
+no run of a path launches the row fetch on them.
 """
 
 from __future__ import annotations
@@ -1595,13 +1596,14 @@ def main() -> int:
     # the row fetch again, at the textured paths' shapes
     k4 = cuda.KERNELS["fetch_rows"]
     # (launches: those the path's run made at this table width and slot
-    # count, of its fetch_rows launches in all; 0 for a held-only table)
+    # count, of its fetch_rows launches in all; null for a held-only table,
+    # which no path's run launches on)
     for name, res in fetch_shapes.items():
         kernels.append(
             {"name": f"fetch_rows/{name}", "route": "cuda",
              "source": k4.source, "replaces": k4.replaces,
              "path": res["path"],
-             "launches": shape_launches[name] if res["path"] else 0,
+             "launches": shape_launches.get(name),
              **{key: res[key] for key in keys}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

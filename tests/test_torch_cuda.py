@@ -159,8 +159,8 @@ def test_dense_all_occluded(dev, nray):
 
 # Kernel 4's branches: a table of at most 32 columns and 48 KB at its odd
 # row stride (T * (C | 1) * 4 bytes) is staged whole in shared memory, any
-# other read a 128-slot tile at a time in 16-, 8- or 4-byte pieces of a row (by
-# C and the table's alignment). Each width the kernel serves (64: the
+# other read a 128-slot tile at a time in 8- or 4-byte pieces of a row (by
+# C's parity and the table's alignment). Each width the kernel serves (64: the
 # G-buffer, 50: the textured bounce, 19: the alpha test, 17: the light
 # rows), odd widths, tables on both sides of both lines, the
 # helmet-100k sub-table, slot counts of 1, of no whole tile or group of 4,

@@ -163,7 +163,7 @@ def test_sort_matches_reference(case):
 @pytest.mark.parametrize("n", [1000, 4100])
 def test_sort_pads_part_chunks_like_reference(n):
     """A pool of part chunks (n not a multiple of 256): the pad rows the
-    port fills on the device are the reference's, and so are the sorted
+    port keeps beside its tables are the reference's, and so are the sorted
     rows, lanes and chunk octants. Every lane is live, so the octant+Morton
     keys do not tie (the pad rows tie, and all of them are alike)."""
     v0, v1, v2, op = _soup()
@@ -290,8 +290,8 @@ def test_convert_carries_resident_tables():
     for f in tres.ResidentTris._fields[:-1]:
         got = getattr(trc.accel, f)
         assert got.dtype == getattr(own.accel, f).dtype, f
-        # the boxes are the port's own table, derived from the leaves
-        want = own.accel.boxes.numpy() if f == "boxes" else leaves[f]
+        # the boxes and the sort's pad rows are the port's own tables
+        want = getattr(own.accel, f).numpy() if f not in leaves else leaves[f]
         np.testing.assert_array_equal(want, got.numpy(), err_msg=f)
     o, d, t0, t1 = (torch.as_tensor(a) for a in _soup_rays())
     o, d = TVec3(*o), TVec3(*d)

@@ -18,6 +18,8 @@ from .ops import texture, traverse_dense, traverse_resident
 from .ops.tracer import Tracer
 
 _INT_FIELDS = ("tri_id", "orders")
+# the port's own tables, which the reference's accel does not carry
+_DERIVED = ("boxes", "rows", "pad_rows", "pad_keys")
 
 
 def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
@@ -29,8 +31,9 @@ def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
     `ResidentTris` (tris, tri_id, orders, keys, lo, hi, scene_diag) as
     arrays, and `num` as an int. The tables the reference does not have
     are derived as `prepare` derives them: the resident block boxes from
-    the packed rows (`traverse_resident.block_boxes`), the dense packed
-    rows from v0, e1, e2 and opacity (`traverse_dense.pack_rows`). `atlas`
+    the packed rows (`traverse_resident.block_boxes`) and the sort's pad
+    rows (`traverse_resident.sort_pad`), the dense packed rows from v0, e1,
+    e2 and opacity (`traverse_dense.pack_rows`). `atlas`
     holds the reference atlas's `texels` ((N, 4) uint32), `desc` and
     `levels`; `alpha_test` is the reference tracer's flag."""
 
@@ -41,10 +44,12 @@ def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
     cls = (traverse_resident.ResidentTris if resident
            else traverse_dense.DenseTris)
     fields = {f: t(accel[f], np.int32 if f in _INT_FIELDS else np.float32)
-              for f in cls._fields[:-1] if f not in ("boxes", "rows")}
+              for f in cls._fields[:-1] if f not in _DERIVED}
     if resident:
         fields["boxes"] = traverse_resident.block_boxes(
             fields["tris"], fields["tri_id"], fields["scene_diag"])
+        fields["pad_rows"], fields["pad_keys"] = traverse_resident.sort_pad(
+            device)
     else:
         fields["rows"] = traverse_dense.pack_rows(
             fields["v0"], fields["e1"], fields["e2"], fields["opacity"])

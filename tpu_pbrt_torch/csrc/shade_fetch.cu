@@ -22,9 +22,12 @@
 // table's width and size:
 //   * tile (fetch_rows_tile_kernel): a block takes 128 slots across all
 //     columns. It reads its slots once, then each needed row once:
-//     consecutive threads read consecutive 4-, 8- or 16-byte pieces of one
-//     row (the widest the row's alignment allows), so a row costs its own
-//     sectors and no more. The rows land in shared memory at an odd row
+//     consecutive threads read consecutive 8-byte pieces of one row (4-byte
+//     ones for an odd width or a table off 8-byte alignment), so a row
+//     costs its own sectors and no more. On 50 columns (200-byte rows) the
+//     4-byte loads alone took 5-13% longer; on 64 columns 16-byte pieces
+//     measured level with 4-byte ones (chip_smoke.py --fetch-times, H100
+//     80GB HBM3, 700 W). The rows land in shared memory at an odd row
 //     stride (C | 1); the (C, R) output is then written column by column,
 //     consecutive threads on consecutive slots (conflict-free shared reads,
 //     128-byte coalesced stores, C / 2 independent stores a thread).
@@ -56,6 +59,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 
 #include "bounce_unpack.cuh"
 
@@ -84,12 +88,17 @@ constexpr int kTileSlots = 128;           // slots a block of the tile design
 constexpr int kMaxCols = 64;              // the widest table: the shade table
 constexpr int kStagedMaxCols = 32;
 constexpr int kStagedMaxBytes = 48 * 1024;
+constexpr int kSmThreads = 2048;          // sm_90: threads an SM holds
+constexpr size_t kSmShared = 228 * 1024;  // sm_90: shared memory an SM holds
+constexpr size_t kBlockReserved = 1024;   // sm_90: shared memory a block keeps
 static_assert(kTileSlots <= kThreads && kThreads % kTileSlots == 0,
               "a thread loads one slot and writes one slot's columns");
 static_assert(kTileSlots * (kMaxCols | 1) * sizeof(float) <= 48 * 1024,
               "a tile fits the dynamic shared memory a launch gets unasked");
 
-template <int V> struct Piece;             // V floats of a row, one load
+// V floats of a row in one load: 8-byte pieces where the row's width and
+// the table's alignment allow, else 4-byte ones
+template <int V> struct Piece;
 template <> struct Piece<1> {
     using T = float;
     static __device__ __forceinline__ T zero() { return 0.0f; }
@@ -101,18 +110,6 @@ template <> struct Piece<2> {
     static __device__ __forceinline__ void put(float* d, T v) {
         d[0] = v.x;
         d[1] = v.y;
-    }
-};
-template <> struct Piece<4> {
-    using T = float4;
-    static __device__ __forceinline__ T zero() {
-        return make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    static __device__ __forceinline__ void put(float* d, T v) {
-        d[0] = v.x;
-        d[1] = v.y;
-        d[2] = v.z;
-        d[3] = v.w;
     }
 };
 
@@ -208,21 +205,32 @@ cudaError_t launch_tile(const float* table, int t_rows, int cols,
     return cudaGetLastError();
 }
 
+// the current device's SMs, asked once a device: the query would cost
+// host time at every launch
+int sm_count() {
+    constexpr int kMaxDevices = 64;
+    static std::atomic<int> cached[kMaxDevices];
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+    if (dev < kMaxDevices && (sms = cached[dev].load()) > 0) return sms;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess)
+        return 0;
+    if (dev < kMaxDevices) cached[dev].store(sms);
+    return sms;
+}
+
 cudaError_t launch_staged(const float* table, int t_rows, int cols,
                           const int* slot, int n, float* out,
                           cudaStream_t stream) {
     const size_t shared = (size_t)t_rows * (cols | 1) * sizeof(float);
-    int dev, sms, per_sm;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, fetch_rows_staged_kernel, kThreads, shared);
-    if (err != cudaSuccess) return err;
-    const int blocks = std::min((n + kThreads - 1) / kThreads,
-                                sms * std::max(per_sm, 1));
+    const int sms = sm_count();
+    if (sms <= 0) return cudaErrorInvalidDevice;
+    // as many blocks as fit on an SM at once: by threads, or by the staged
+    // table and the 1 KB an sm_90 block reserves in the SM's 228 KB
+    const int per_sm = std::min<int>(kSmThreads / kThreads,
+                                     kSmShared / (shared + kBlockReserved));
+    const int blocks = std::min((n + kThreads - 1) / kThreads, sms * per_sm);
     fetch_rows_staged_kernel<<<blocks, kThreads, shared, stream>>>(
         table, t_rows, cols, slot, n, out);
     return cudaGetLastError();
@@ -252,11 +260,8 @@ int tpb_fetch_rows(const float* table, int t_rows, int cols, const int* slot,
     if (t_rows > 0 && cols <= kStagedMaxCols &&
         (size_t)t_rows * (cols | 1) * sizeof(float) <= kStagedMaxBytes)
         return (int)launch_staged(table, t_rows, cols, slot, n, out, stream);
-    // tile: the widest piece a row's alignment allows
-    const uintptr_t a = reinterpret_cast<uintptr_t>(table);
-    if (cols % 4 == 0 && a % 16 == 0)
-        return (int)launch_tile<4>(table, t_rows, cols, slot, n, out, stream);
-    if (cols % 2 == 0 && a % 8 == 0)
+    // tile: 8-byte pieces of a row where its width and the table allow
+    if (cols % 2 == 0 && reinterpret_cast<uintptr_t>(table) % 8 == 0)
         return (int)launch_tile<2>(table, t_rows, cols, slot, n, out, stream);
     return (int)launch_tile<1>(table, t_rows, cols, slot, n, out, stream);
 }

@@ -70,6 +70,8 @@ class ResidentTris(NamedTuple):
     lo: torch.Tensor          # (3,) scene vertex bounds (ray Morton sort)
     hi: torch.Tensor          # (3,)
     scene_diag: torch.Tensor  # () f32
+    pad_rows: torch.Tensor    # (CHUNK, 8) f32 rows `sort_rays` pads with
+    pad_keys: torch.Tensor    # (CHUNK,) i64 their sort keys
     num: int
 
 
@@ -148,12 +150,24 @@ def prepare(v0, v1, v2, opacity=None, *,
 
     tris, tri_id = dev(packed), dev(sid.astype(np.int32))
     scene_diag = torch.tensor(diag, dtype=torch.float32, device=device)
+    pad_rows, pad_keys = sort_pad(device)
     return ResidentTris(
         tris=tris, tri_id=tri_id, orders=dev(orders),
         keys=dev(keys.astype(np.float32)),
         boxes=block_boxes(tris, tri_id, scene_diag),
         lo=dev(vlo.astype(np.float32)), hi=dev(vhi.astype(np.float32)),
-        scene_diag=scene_diag, num=t)
+        scene_diag=scene_diag, pad_rows=pad_rows, pad_keys=pad_keys, num=t)
+
+
+def sort_pad(device: str | torch.device):
+    """The rows and keys `sort_rays` appends to fill a pool's last chunk:
+    inactive rows (direction +z, teff -1) whose key 0xFFFFFFFF sorts after
+    every lane's. Built once with the tables, so a sort copies nothing from
+    the host."""
+    rows = torch.zeros((CHUNK, 8), dtype=torch.float32, device=device)
+    rows[:, 5] = 1.0
+    rows[:, 7] = -1.0
+    return rows, torch.full((CHUNK,), _M32, dtype=torch.int64, device=device)
 
 
 def block_boxes(tris: torch.Tensor, tri_id: torch.Tensor,
@@ -226,7 +240,6 @@ def sort_rays(tris: ResidentTris, origin: Vec3, direction: Vec3, t_min,
     the bbox; those sort after the active lanes, and the pad rows (lane
     >= R, key 0xFFFFFFFF) after them."""
     r = origin.x.shape[0]
-    dev = origin.x.device
     rp = -(-r // CHUNK) * CHUNK
     octant = ((direction.x >= 0).to(torch.int64)
               + 2 * (direction.y >= 0).to(torch.int64)
@@ -257,14 +270,8 @@ def sort_rays(tris: ResidentTris, origin: Vec3, direction: Vec3, t_min,
     rows = torch.stack([origin.x, origin.y, origin.z, direction.x,
                         direction.y, direction.z, t_min, teff], -1)
     if rp > r:
-        # device fills only: a host-built pad row would be a host-to-device
-        # copy (a host sync) at every call on a pool of part chunks
-        pad = torch.zeros((rp - r, 8), dtype=torch.float32, device=dev)
-        pad[:, 5].fill_(1.0)
-        pad[:, 7].fill_(-1.0)
-        rows = torch.cat([rows, pad])
-        key = torch.cat([key, torch.full((rp - r,), _M32, dtype=torch.int64,
-                                         device=dev)])
+        rows = torch.cat([rows, tris.pad_rows[:rp - r]])
+        key = torch.cat([key, tris.pad_keys[:rp - r]])
     skey, perm = torch.sort(key, stable=True)
     octs = torch.clamp(skey[::CHUNK] >> 27, max=7).to(torch.int32)
     return rows[perm].contiguous(), perm, octs
