@@ -26,7 +26,16 @@ launch counts set to 0 just before and read just after:
 * an alpha-cutout scene (`models/cutout.py`: a floor, a masked quad with a
   checker of holes, a light): the re-trace loop around the dense closest hit
   at every bounce and every shadow ray, the row fetch on the 19-column
-  alpha sub-table.
+  alpha sub-table;
+* the App frame graph (`render/app.App`, driven by `tick`): the Cornell
+  box at 1920x1080 output, 960x540 internal, ReSTIR DI and SHARC off, folds
+  4,5,6 (bench.py's app fold default), the settings' defaults otherwise
+  (denoiser 4 iterations, TAA, bloom 0.05, ACES); kernels 1-4 at the App's
+  pool, then denoise, TAA, bloom and tonemap. After two warm-up ticks one
+  tick holds every kernel launch it makes against the plain version on the
+  same inputs, one counts the host syncs, and the timed ticks carry the
+  history; a `{"app": ...}` line gives ms a tick (median and spread),
+  Mrays/s, launches a tick of each kernel, host syncs a tick.
 
 Before each path it holds every kernel the path runs against its plain
 PyTorch version on the card at the path's shapes (for the resident walk
@@ -51,7 +60,10 @@ tracer is held the same way on the card on its 1080p camera rays, on
 seeded bounce rays and on shadow segments. After the paths it runs the walk
 alone at `helmet-100k` (101,760 triangles), then holds small frames
 rendered through the kernels against the same frames rendered by the
-plain versions on the CPU. It writes PNGs under `chiprun_out/` and
+plain versions on the CPU, and a 64x48 App (32x24 internal, 3 bounces,
+one fold) ticked three times on the card against the same App on the CPU
+(after ACES: mean absolute difference <= 1e-3, >= 99% of pixels within
+1e-2, every tick). It writes PNGs under `chiprun_out/` and
 prints one JSON line per result, then the `{"kernels": [...]}` line and,
 last, the `{"ok": true, "device": ...}` summary. Any failure exits nonzero
 before it. It never falls back to the CPU: without a usable card it exits 2.
@@ -72,7 +84,8 @@ seeded tables either side of the line between its two designs
 
 The row fetch is held, bit for bit against its plain version and against
 `torch.index_select`, and timed beside the library call at: the Cornell
-G-buffer's 128 x 64 table; the helmet's and the textured helmet's 25,344 x
+G-buffer's 128 x 64 table, at 1080p camera slots and at the App's 518,400
+internal-resolution ones; the helmet's and the textured helmet's 25,344 x
 64 tables (the G-buffer, camera slots); the textured helmet's 25,344 x 50
 sub-table at camera and bounce slots and at two folded pools (259,200 and
 518,400 slots); the cutout frame's 128 x 50 and 128 x 19 sub-tables at
@@ -139,7 +152,17 @@ PATH_KERNELS = {
     "helmet_textured": ("resident_closest_hit", "resident_any_hit",
                         "fetch_rows"),
     "cutout": ("dense_closest_hit", "fetch_rows"),
+    # the App frame graph: the Cornell path's kernels at the internal
+    # resolution, then denoise, TAA, bloom and tonemap in PyTorch
+    "app": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
+            "fetch_rows"),
 }
+# the App path (`profile_frame.app_settings`: bench.py's app config
+# without ReSTIR DI and SHARC, folds 4,5,6): warm-up ticks, timed ticks
+APP_WARMUP, APP_TICKS = 2, 8
+# the small App gate: 64x48 (32x24 internal), 3 bounces, one fold, three
+# ticks with history carried, on the card against the CPU
+SMALL_APP_TICKS = 3
 # the smallest pool of a 1080p frame folded at three bounces
 FOLDED_POOL = WIDTH * HEIGHT // 8
 # the row fetch's held-only tables: rows of the light table (more than
@@ -1182,6 +1205,224 @@ def check_small_frame(name: str, scene, settings, camera, min_hits: float,
     return out
 
 
+@contextlib.contextmanager
+def checked_wrappers(record: dict):
+    """Inside, every launch of kernels 1-4 through its wrapper (as the
+    path's own code makes it) is held against the plain version on the same
+    inputs, by the rules of `check_closest`, `check_any`,
+    `check_bounce_block` and the row fetch's bit-exactness; `record` gets
+    {kernel: {rays: {"launches": n, "max_abs_err": e}}}. The plain
+    versions launch no kernel."""
+    import torch
+    from tpu_pbrt_torch.ops import shade_table as st
+    from tpu_pbrt_torch.ops import traverse_dense as td
+
+    saved = (td.closest_hit_cuda, td.any_hit_cuda,
+             st.fetch_bounce_block_cuda, st.fetch_rows_cuda)
+
+    def note(name, rays, err):
+        entry = record.setdefault(name, {}).setdefault(
+            rays, {"launches": 0, "max_abs_err": 0.0})
+        entry["launches"] += 1
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+
+    def closest(tris, o, d, t_min, t_max):
+        got = saved[0](tris, o, d, t_min, t_max)
+        want = td.closest_hit_plain(tris, o, d, t_min, t_max)
+        if not torch.equal(got.tri, want.tri) or not torch.equal(
+                got.t.view(torch.int32), want.t.view(torch.int32)):
+            fail(f"dense_closest_hit at {o.x.shape[0]} rays: tri ids or t "
+                 f"differ from the plain version")
+        note("dense_closest_hit", o.x.shape[0], max_abs(got.t, want.t))
+        return got
+
+    def occluded(tris, o, d, t_min, t_max):
+        got = saved[1](tris, o, d, t_min, t_max)
+        if not torch.equal(got, td.any_hit_plain(tris, o, d, t_min, t_max)):
+            fail(f"dense_any_hit at {o.x.shape[0]} rays: flags differ")
+        note("dense_any_hit", o.x.shape[0], 0.0)
+        return got
+
+    def bounce(sub, slot, o, d):
+        got = saved[2](sub, slot, o, d)
+        want = st.fetch_bounce_block_plain(sub, slot, o, d)
+        note("fetch_bounce", slot.shape[0],
+             check_bounce_block(got, want, f"fetch_bounce at "
+                                           f"{slot.shape[0]} rays"))
+        return got
+
+    def rows(table, slot):
+        got = saved[3](table, slot)
+        if not torch.equal(got, st.fetch_rows_plain(table, slot)):
+            fail(f"fetch_rows {tuple(table.shape)} at {slot.shape[0]} "
+                 f"slots: rows differ bitwise")
+        note("fetch_rows", slot.shape[0], 0.0)
+        return got
+
+    (td.closest_hit_cuda, td.any_hit_cuda, st.fetch_bounce_block_cuda,
+     st.fetch_rows_cuda) = closest, occluded, bounce, rows
+    try:
+        yield
+    finally:
+        (td.closest_hit_cuda, td.any_hit_cuda, st.fetch_bounce_block_cuda,
+         st.fetch_rows_cuda) = saved
+
+
+def run_app(app) -> tuple[dict, np.ndarray, dict]:
+    """The App path at 1080p: APP_WARMUP ticks, one tick with every kernel
+    launch held against its plain version (`checked_wrappers`), one tick
+    in sync-debug mode (host syncs), then APP_TICKS timed ticks with the
+    history carried, each ending in `torch.cuda.synchronize()`, with the
+    launch counts set to 0 just before and read just after. Fails if a
+    kernel of the path was not launched. Returns (result, last image,
+    the checked tick's record)."""
+    import torch
+    from tpu_pbrt_torch.ops import cuda
+    from tpu_pbrt_torch.profile_frame import sync_sites
+
+    for _ in range(APP_WARMUP):
+        app.tick()
+    checked = {}
+    with checked_wrappers(checked):
+        app.tick()
+    syncs = sync_sites(app.tick)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rays = torch.zeros((), dtype=torch.float64, device=app.device)
+    times = []
+    cuda.reset_launches()
+    for _ in range(APP_TICKS):
+        t0 = time.perf_counter()
+        img, rc = app.tick()
+        rays += rc
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.name: k.launches for k in cuda.KERNELS.values()}
+    fetch_shapes = dict(cuda.KERNELS["fetch_rows"].launches_by_tag)
+    for k in PATH_KERNELS["app"]:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched by the app path")
+    out = img.cpu().numpy()
+    if out.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(out).all():
+        fail(f"app: output shape {out.shape} or non-finite pixels")
+    if out.mean() <= 0.01:
+        fail(f"app: output is black (mean {out.mean()})")
+    total_rays = float(rays.item())
+    s = app.settings
+    return {
+        "resolution": [app.out_w, app.out_h],
+        "render_resolution": [app.render_w, app.render_h],
+        "triangles": app.tracer.num_tris, "tracer": app.tracer.kind,
+        "bounces": app.pt_settings.bounces,
+        "folds": list(app.pt_settings.compaction_schedule),
+        "denoiser": s.post_processing.denoiser,
+        "denoiser_iterations": s.post_processing.denoiser_iterations,
+        "upscaler": s.post_processing.upscaler,
+        "bloom_strength": s.post_processing.bloom_strength,
+        "tonemap": s.post_processing.tonemap_operator,
+        "ticks": APP_TICKS, "warmup_ticks": APP_WARMUP,
+        "ms_per_tick": times,
+        "ms_per_tick_median": float(np.median(times)),
+        "ms_per_tick_spread": [min(times), max(times)],
+        # the tick's device total: G-buffer primaries + the path tracer's
+        # rays, the fold schedule's static bound (the reference App does
+        # not count live lanes)
+        "rays_per_tick": total_rays / APP_TICKS,
+        "mrays_per_s": total_rays / (sum(times) / 1e3) / 1e6,
+        "host_syncs_per_tick": len(syncs), "host_sync_sites": syncs,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "image_mean": float(out.mean()),
+        "launches_per_tick": {k: n / APP_TICKS
+                              for k, n in launches.items()},
+        "launches": launches,
+        # the row fetch's launches by (table columns, slots)
+        "fetch_rows_launches": {
+            f"{c}x{r}": n for (c, r), n in sorted(fetch_shapes.items())},
+    }, out, checked
+
+
+def app_path(scene, device) -> tuple[dict, np.ndarray, dict, dict]:
+    """The App path on `scene` (the Cornell box) at WIDTH x HEIGHT with
+    `profile_frame.app_settings`: the row fetch held and timed at the App's
+    G-buffer shape (the 64-column table at the internal resolution's camera
+    slots), then `run_app`; the output must show the Cornell image's layout.
+    Returns (result, output image, the row fetch's shape entry, the
+    launches the App's run made at that shape)."""
+    import torch
+    from tpu_pbrt_torch.models.cornell import make_cornell_camera
+    from tpu_pbrt_torch.profile_frame import APP_FOLDS, app_settings
+    from tpu_pbrt_torch.render.app import App
+    from tpu_pbrt_torch.render.camera import generate_rays
+
+    app = App(scene, make_cornell_camera(WIDTH, HEIGHT),
+              app_settings(WIDTH, HEIGHT), device=device)
+    rw, rh = app.render_w, app.render_h
+    if (rw, rh) != (WIDTH // 2, HEIGHT // 2) or tuple(
+            app.pt_settings.compaction_schedule) != APP_FOLDS:
+        fail(f"app: internal {rw}x{rh}, folds "
+             f"{app.pt_settings.compaction_schedule}")
+    rays = generate_rays(app.camera.data(device=device), rw, rh)
+    shapes = check_fetch_rows_shapes(
+        {"cornell64_app_camera": (app.tracer.shade_table, torch.clamp(
+            app.tracer.closest_hit(*rays).tri, min=0))}, "app")
+    del rays
+    result, img, checked = run_app(app)
+    launches = fetch_shape_launches(result, shapes, "app")
+    check_cornell_image("app", img)
+    for k in PATH_KERNELS["app"]:
+        if k not in checked:
+            fail(f"app: the checked tick made no {k} launch")
+    result["kernel_checks"] = {
+        k: {str(r): v for r, v in sorted(by_rays.items())}
+        for k, by_rays in checked.items()}
+    return result, img, shapes, launches
+
+
+def check_small_app() -> dict:
+    """A 64x48 App (32x24 internal, 3 bounces, one fold) ticked three times
+    with history carried on the card, through the kernels, and on the CPU,
+    through the plain versions: after ACES the outputs agree on every tick
+    within a mean absolute difference of 1e-3, with >= 99% of pixels
+    within 1e-2 (an ulp can flip a path, and the denoiser and TAA spread
+    it)."""
+    from tpu_pbrt_torch.models.cornell import (make_cornell_box,
+                                               make_cornell_camera)
+    from tpu_pbrt_torch.ops import cuda
+    from tpu_pbrt_torch.profile_frame import app_settings
+    from tpu_pbrt_torch.render.app import App
+
+    imgs, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        app = App(make_cornell_box(), make_cornell_camera(SMALL_W, SMALL_H),
+                  app_settings(SMALL_W, SMALL_H, bounces=3, folds=(2,)),
+                  device=dev)
+        cuda.reset_launches()
+        imgs[dev] = [app.tick()[0].cpu().numpy()
+                     for _ in range(SMALL_APP_TICKS)]
+        launches[dev] = {k.name: k.launches for k in cuda.KERNELS.values()}
+    if any(launches["cpu"].values()):
+        fail(f"small app: the CPU run launched kernels {launches['cpu']}")
+    for k in PATH_KERNELS["app"]:
+        if launches["cuda"][k] <= 0:
+            fail(f"small app: kernel {k} was not launched on the card")
+    ticks = []
+    for g, c in zip(imgs["cuda"], imgs["cpu"]):
+        if g.shape != (SMALL_H, SMALL_W, 3) or not np.isfinite(g).all():
+            fail(f"small app: output shape {g.shape} or non-finite pixels")
+        d = np.abs(g - c)
+        within = float((d.max(-1) <= 1e-2).mean())
+        ticks.append({"mean_abs_diff": float(d.mean()),
+                      "pixels_within_1e-2": within,
+                      "max_abs_diff": float(d.max()),
+                      "image_mean": float(g.mean())})
+        if ticks[-1]["mean_abs_diff"] > 1e-3 or \
+                ticks[-1]["pixels_within_1e-2"] < 0.99:
+            fail(f"small app disagrees with the CPU: {ticks}")
+    return {"resolution": [SMALL_W, SMALL_H], "render_resolution":
+            [SMALL_W // 2, SMALL_H // 2], "ticks": ticks,
+            "launches_cuda": launches["cuda"]}
+
+
 def ptxas_usage(log: str, *kernels: str) -> dict:
     """{entry function: ptxas' "Used N registers, ..." line} for the entry
     functions of nvcc's log whose name holds one of `kernels`."""
@@ -1545,6 +1786,15 @@ def main() -> int:
     del renderer, trc
     torch.cuda.empty_cache()
 
+    # --- the App frame graph at 1080p (960x540 internal) ------------------
+    paths["app"], img, app_shapes, app_launches = app_path(cornell, device)
+    fetch_shapes.update(app_shapes)
+    shape_launches.update(app_launches)
+    print(json.dumps({"app": paths["app"]}), flush=True)
+    pngs["app"] = os.path.join(out_dir, "app_1080p.png")
+    write_png(pngs["app"], to_srgb8(torch.as_tensor(img)).numpy())
+    torch.cuda.empty_cache()
+
     # --- helmet-100k: the walk alone at 101,760 triangles -----------------
     print(json.dumps({"helmet_100k": check_helmet_100k(device)}), flush=True)
     torch.cuda.empty_cache()
@@ -1581,6 +1831,7 @@ def main() -> int:
         if got != want:
             fail(f"small frame {name}: (tracer, textured, alpha_test) = "
                  f"{got}, expected {want}")
+    small["app"] = check_small_app()
     print(json.dumps({"small_frames_vs_cpu": small}), flush=True)
     print(json.dumps({"png": pngs, "seconds": time.perf_counter() - t_start}),
           flush=True)

@@ -12,7 +12,10 @@ closest-hit-and-shade kernel soups up to its 1024-row gate and the dense
 adversarial sets; the row fetch's two designs (a staged table, a tile of
 rows) at every width it serves, on both sides of the line between them;
 and the alpha re-trace loop's all-empty and mostly-empty pools
-through kernel 1 and the resident walk.
+through kernel 1 and the resident walk. For the App: the edge-replicate
+shift and the float16 patch taps on the card equal the CPU's, and a 64x48
+App ticked three times on the card agrees with the CPU's (the tolerance of
+`tests/test_torch_app.py`).
 
 These need an NVIDIA GPU and nvcc; elsewhere they skip. On the card (no
 JAX there, so without the JAX-pinning conftest):
@@ -651,3 +654,71 @@ def test_new_kernels_count_launches(dev):
     assert cuda.KERNELS["resident_closest_hit"].launches == 1
     assert cuda.KERNELS["resident_any_hit"].launches == 1
     assert cuda.KERNELS["dense_closest_hit_shade"].launches == 1
+
+
+# --- the App's image-space passes and the App on the card ----------------
+
+@pytest.mark.parametrize("dy,dx", [(0, 0), (1, -1), (-2, 3), (40, -50),
+                                   (-9, 70)])
+def test_shift2d_on_card_exact(dev, dy, dx):
+    from tpu_pbrt_torch.passes import denoise
+
+    img = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(37, 61, 10)).astype(np.float32))
+    got = denoise._shift2d(img.to(dev), dy, dx)
+    assert torch.equal(got.cpu(), denoise._shift2d(img, dy, dx))
+
+
+def test_patch_taps_on_card_exact(dev):
+    """The float16 patch taps (rounded to nearest even on both devices)
+    and their blend equal the CPU's."""
+    from tpu_pbrt_torch.passes import denoise, taa
+
+    rng = np.random.default_rng(6)
+    img = torch.as_tensor(np.minimum(rng.exponential(
+        300.0, (37, 61, 10)), 6e4).astype(np.float32))
+    gy, gx = np.meshgrid(np.arange(37), np.arange(61), indexing="ij")
+    m = rng.normal(0, 3.0, (37, 61, 2))
+    xy = torch.as_tensor(np.stack([gx + m[..., 0], gy + m[..., 1]],
+                                  -1).astype(np.float32))
+    gb, gn = denoise._patch_sample(img.to(dev), xy.to(dev))
+    cb, cn = denoise._patch_sample(img, xy)
+    assert torch.equal(gn.cpu(), cn)
+    assert torch.equal(gb.cpu(), cb)
+    mx, my = torch.tensor(0.37), torch.tensor(-2.6)
+    assert torch.equal(
+        taa._bilinear_shift(img.to(dev), mx.to(dev), my.to(dev)).cpu(),
+        taa._bilinear_shift(img, mx, my))
+
+
+def test_app_on_card_matches_cpu(dev):
+    """A 64x48 App (32x24 internal, 3 bounces, one fold), three ticks with
+    history carried, through the kernels on the card and the plain
+    versions on the CPU: after ACES a mean absolute difference <= 1e-3 and
+    >= 99% of pixels within 1e-2 on every tick; the card's ticks launch
+    kernels 1-4."""
+    from tpu_pbrt_torch.models.cornell import (make_cornell_box,
+                                               make_cornell_camera)
+    from tpu_pbrt_torch.render.app import App
+    from tpu_pbrt_torch.utils import config
+
+    def ticks(device):
+        s = config.GraphicsSettings(width=64, height=48)
+        s.raytracing.bounces = 3
+        s.raytracing.restir_di = False
+        s.raytracing.sharc = False
+        s.raytracing.compaction_schedule = (2,)
+        app = App(make_cornell_box(), make_cornell_camera(64, 48), s.check(),
+                  device=device)
+        return [app.tick()[0].cpu().numpy() for _ in range(3)]
+
+    cuda.reset_launches()
+    on_card = ticks(dev)
+    for k in ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
+              "fetch_rows"):
+        assert cuda.KERNELS[k].launches > 0, k
+    for g, c in zip(on_card, ticks("cpu")):
+        assert g.shape == (48, 64, 3) and np.isfinite(g).all()
+        d = np.abs(g - c)
+        assert d.mean() <= 1e-3
+        assert (d.max(-1) <= 1e-2).mean() >= 0.99

@@ -1,4 +1,5 @@
-"""Carry the JAX package's scene and tracer arrays into the port.
+"""Carry the JAX package's scene, tracer and App history arrays into the
+port.
 
 The inputs are plain numpy arrays keyed by the reference's NamedTuple field
 names (a caller holding a `tpu_pbrt` `Tracer` or `Scene` passes
@@ -16,6 +17,9 @@ from .models.mesh import Geometry
 from .models.scene import EmissiveLights, EnvironmentLight, Scene
 from .ops import texture, traverse_dense, traverse_resident
 from .ops.tracer import Tracer
+from .passes.denoise import DenoiserState
+from .passes.taa import TAAState
+from .render.app import FrameHistory
 
 _INT_FIELDS = ("tri_id", "orders")
 # the port's own tables, which the reference's accel does not carry
@@ -77,3 +81,17 @@ def scene_from_numpy(geometry: dict, materials: dict, environment: dict,
                            None if tex is None else np.asarray(tex, np.float32))
     return Scene(nt(Geometry, geometry), nt(MaterialTable, materials), env,
                  nt(EmissiveLights, lights))
+
+
+def history_from_numpy(denoiser: dict, taa: dict, *,
+                       device: str | torch.device):
+    """Port an App's `FrameHistory` from a reference App's history: the
+    fields of its `DenoiserState` (color, moments, depth, normal,
+    history_len) and `TAAState` (history, valid) as numpy arrays."""
+    def nt(cls, fields):
+        return cls(**{k: torch.as_tensor(np.array(fields[k], np.float32),
+                                         device=device)
+                      for k in cls._fields})
+
+    return FrameHistory(denoiser=nt(DenoiserState, denoiser),
+                        taa=nt(TAAState, taa))

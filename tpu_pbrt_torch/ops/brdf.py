@@ -69,3 +69,11 @@ def environment_term_soa(f0: Vec3, nov, roughness) -> Vec3:
     bias = 1.04 * a004 + rw
     out = f0 * scale + bias
     return out.map(lambda c: torch.clamp(c, 0.0, 1.0))
+
+
+def environment_term(f0: torch.Tensor, nov: torch.Tensor,
+                     roughness: torch.Tensor) -> torch.Tensor:
+    """`environment_term_soa` on (..., 3) f0 with (...) nov and roughness
+    (the denoiser's demodulation albedo)."""
+    return environment_term_soa(Vec3(f0[..., 0], f0[..., 1], f0[..., 2]),
+                                nov, roughness).to_tensor()

@@ -1,6 +1,8 @@
 """Scalar math helpers the main path uses (port of `tpu_pbrt/ops/math.py`).
 
-Every function is elementwise over tensors of any shape.
+Every function is elementwise over tensors of any shape; `dot` and
+`luminance` reduce a trailing axis of 3 (the image-space passes' (H, W, 3)
+layout).
 """
 
 from __future__ import annotations
@@ -12,6 +14,17 @@ import torch
 _ORIGIN = 1.0 / 32.0
 _FLOAT_SCALE = 1.0 / 65536.0
 _INT_SCALE = 256.0
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product over the trailing axis, which is dropped."""
+    return (a * b).sum(-1)
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """Rec.709 luminance over the trailing RGB axis (scalar weights, so no
+    constant is copied to the device)."""
+    return rgb[..., 0] * 0.2126 + rgb[..., 1] * 0.7152 + rgb[..., 2] * 0.0722
 
 
 def srgb_to_linear(c: torch.Tensor) -> torch.Tensor:

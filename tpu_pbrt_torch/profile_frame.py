@@ -1,11 +1,12 @@
 """Where one 1080p frame's time goes on the card.
 
     python -m tpu_pbrt_torch.profile_frame [cornell] [cornell_fused] [helmet]
-                                           [helmet_textured]
+                                           [helmet_textured] [cornell_540]
+                                           [app]
     python -m tpu_pbrt_torch.profile_frame --alternate ROUNDS
 
-For each named path (all four by default) it renders two warm-up frames,
-times four frames by the host clock around work that ends in
+For each named path (the first four by default) it renders two warm-up
+frames, times four frames by the host clock around work that ends in
 `torch.cuda.synchronize()`, then profiles two more with `torch.profiler`
 and prints one JSON line: wall ms per frame, device kernel time per frame
 (the sum of the traced kernels' durations), the device's idle share of a
@@ -17,6 +18,15 @@ time. For a textured path it also gives the texture taps' share: the
 kernels launched inside `shade_table.apply_textures` (a profiler range put
 around it here), their count and device time per frame.
 
+`app` does the same for ticks of the App frame graph (`render/app.py`:
+the Cornell box at 1920x1080 output, 960x540 internal, ReSTIR DI and SHARC
+off, folds 4,5,6, the other settings at their defaults) and splits each
+tick by the App's own profiler ranges: gbuffer, pathtrace, denoise, taa,
+bloom_tonemap (and what runs outside them), with each range's launches and
+device time per tick. `cornell_540` is a `Renderer` frame at the App's
+internal resolution with the App's path-trace settings: the App tick
+without its image-space passes.
+
 `--alternate ROUNDS` compares the Cornell frame unfused and fused on one
 renderer: after two warm-up frames of each it counts each configuration's
 host syncs in one frame (`torch.cuda.set_sync_debug_mode`), then times
@@ -25,9 +35,9 @@ ROUNDS pairs of frames in the order unfused, fused, fused, unfused, ...
 and prints every frame's time and each configuration's median.
 
 The paths are those of `chip_smoke.py`: the Cornell main path, its fused
-configuration (`TRACE_FUSED` on), the 25,280-triangle helmet and the same
-helmet with its checker base-color map and ray-cone mip selection. Needs a
-CUDA device; exits 2 without one.
+configuration (`TRACE_FUSED` on), the 25,280-triangle helmet, the same
+helmet with its checker base-color map and ray-cone mip selection, and the
+App. Needs a CUDA device; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -44,11 +54,29 @@ import torch
 
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, TIMED, PROFILED = 2, 4, 2
+APP_FOLDS = (4, 5, 6)
+APP_STAGES = ("gbuffer", "pathtrace", "denoise", "taa", "bloom_tonemap")
 
 # substrings of the hand-written kernels' symbol names (csrc/*.cu)
 HAND_WRITTEN = ("dense_closest_hit_kernel", "dense_closest_hit_shade_kernel",
                 "dense_any_hit_kernel", "fetch_bounce_kernel",
                 "fetch_rows_", "resident_walk_kernel")
+
+
+def app_settings(width: int = WIDTH, height: int = HEIGHT,
+                 bounces: int | None = None, folds=APP_FOLDS):
+    """The App path's settings (bench.py's app config without ReSTIR DI and
+    SHARC): the given folds, the defaults otherwise (8 bounces, scale 0.5,
+    denoiser 4 iterations, TAA, bloom 0.05, ACES)."""
+    from .utils import config
+
+    s = config.GraphicsSettings(width=width, height=height)
+    s.raytracing.restir_di = False
+    s.raytracing.sharc = False
+    s.raytracing.compaction_schedule = tuple(folds)
+    if bounces is not None:
+        s.raytracing.bounces = bounces
+    return s.check()
 
 
 def _renderer(name: str):
@@ -59,6 +87,15 @@ def _renderer(name: str):
     from .render.renderer import Renderer
 
     trace_shade_fused.TRACE_FUSED = name == "cornell_fused"
+    if name == "cornell_540":
+        rt = app_settings().raytracing
+        return Renderer(make_cornell_box(), WIDTH // 2, HEIGHT // 2,
+                        PathTraceSettings(
+                            bounces=rt.bounces,
+                            samples_per_pixel=rt.samples_per_pixel,
+                            russian_roulette=rt.russian_roulette,
+                            compaction_schedule=rt.compaction_schedule),
+                        device="cuda")
     if name == "helmet_textured":
         scene, textures, srgb = helmet.make_textured_scene()
         return Renderer(scene, WIDTH, HEIGHT, helmet.settings(True, HEIGHT),
@@ -88,12 +125,12 @@ def _union_us(intervals) -> float:
 TEXTURE_RANGE = "apply_textures"
 
 
-def _texture_kernels(events, kernels) -> list:
-    """The device kernels launched inside the `TEXTURE_RANGE` ranges: the
-    host-side launch calls whose start lies in a range share a correlation
-    id with their kernel."""
+def _range_kernels(events, kernels, name: str) -> list:
+    """The device kernels launched inside the host ranges called `name`:
+    the host-side launch calls whose start lies in a range share a
+    correlation id with their kernel."""
     ranges = sorted((e.start_ns(), e.end_ns()) for e in events
-                    if e.name() == TEXTURE_RANGE
+                    if e.name() == name
                     and e.device_type() == torch.autograd.DeviceType.CPU)
     if not ranges:
         return []
@@ -132,7 +169,7 @@ def profile(name: str) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED
 
-    syncs = _host_syncs(renderer, camera, WARMUP + TIMED)
+    sites = sync_sites(lambda: renderer.render(camera, WARMUP + TIMED))
 
     shade_table.apply_textures = ranged
     try:
@@ -145,17 +182,12 @@ def profile(name: str) -> dict:
             prof_wall_us = (time.perf_counter() - t0) * 1e6
     finally:
         shade_table.apply_textures = apply_textures
-    events = prof.profiler.kineto_results.events()
-    # the profiler mirrors a host range onto the device's timeline under the
-    # range's name: that is no kernel
-    kernels = [e for e in events
-               if e.device_type() == torch.autograd.DeviceType.CUDA
-               and not e.name().startswith(("Memcpy", "Memset"))
-               and e.name() != TEXTURE_RANGE]
+    events, kernels = _device_kernels(prof, (TEXTURE_RANGE,))
     out = {"path": name, "tracer": renderer.tracer.kind,
            "triangles": renderer.tracer.num_tris,
            "textured": renderer.tracer.textured,
-           "wall_ms_per_frame": wall_ms, "host_syncs_per_frame": syncs,
+           "wall_ms_per_frame": wall_ms, "host_syncs_per_frame": len(sites),
+           "host_sync_sites": sites,
            "profiled_wall_ms_per_frame": prof_wall_us / 1e3 / PROFILED}
     if not kernels:
         out["device"] = "not measured: the profiler traced no device kernel"
@@ -178,7 +210,7 @@ def profile(name: str) -> dict:
                       "launches_per_frame": len(v) / PROFILED}
                      for n, v in top])
     if renderer.tracer.textured:
-        taps = _texture_kernels(events, kernels)
+        taps = _range_kernels(events, kernels, TEXTURE_RANGE)
         if not taps:
             out["texture_taps"] = ("not measured: no kernel matched the "
                                    "texture ranges")
@@ -192,19 +224,109 @@ def profile(name: str) -> dict:
     return out
 
 
-def _host_syncs(renderer, camera, frame: int) -> int:
-    """Host syncs in one frame: the warnings `torch.cuda` raises for each
-    synchronizing call in sync-debug mode."""
+def sync_sites(fn) -> list[str]:
+    """The host syncs while fn() runs, one "file:line" each (the Python
+    line that made the synchronizing call): the warnings `torch.cuda`
+    raises for each synchronizing call in sync-debug mode. The notice that
+    the mode is a prototype, which its first switch-on in a process
+    raises, is no sync."""
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            renderer.render(camera, frame)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return [f"{w.filename}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def _host_syncs(renderer, camera, frame: int) -> int:
+    """Host syncs in one frame of `renderer`."""
+    return len(sync_sites(lambda: renderer.render(camera, frame)))
+
+
+def _device_kernels(prof, ranges=()) -> tuple[list, list]:
+    """(all events, the device kernels): the profiler mirrors a host range
+    onto the device's timeline under the range's name, which is no
+    kernel."""
+    events = prof.profiler.kineto_results.events()
+    kernels = [e for e in events
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.name().startswith(("Memcpy", "Memset"))
+               and e.name() not in ranges]
+    return events, kernels
+
+
+def profile_app() -> dict:
+    """The App tick's breakdown: wall ms, host syncs, device time, idle
+    share and launches per tick, split by the App's profiler ranges."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from .models.cornell import make_cornell_box, make_cornell_camera
+    from .render.app import App
+
+    app = App(make_cornell_box(), make_cornell_camera(WIDTH, HEIGHT),
+              app_settings(), device="cuda")
+    for _ in range(WARMUP):
+        app.tick()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(TIMED):
+        t0 = time.perf_counter()
+        app.tick()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(walls)
+    sites = sync_sites(app.tick)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED):
+            app.tick()
+        torch.cuda.synchronize()
+    events, kernels = _device_kernels(prof, APP_STAGES)
+    out = {"path": "app", "resolution": [app.out_w, app.out_h],
+           "render_resolution": [app.render_w, app.render_h],
+           "folds": list(app.pt_settings.compaction_schedule),
+           "wall_ms_per_tick": walls, "wall_ms_per_tick_median": wall_ms,
+           "host_syncs_per_tick": len(sites), "host_sync_sites": sites}
+    if not kernels:
+        out["device"] = "not measured: the profiler traced no device kernel"
+        return out
+    total_us = sum(e.duration_ns() for e in kernels) / 1e3
+    busy_us = _union_us((e.start_ns() / 1e3, e.end_ns() / 1e3)
+                        for e in kernels)
+    stages, seen = {}, set()
+    for name in APP_STAGES:
+        ks = _range_kernels(events, kernels, name)
+        seen.update(e.correlation_id() for e in ks)
+        stages[name] = {
+            "launches_per_tick": len(ks) / PROFILED,
+            "device_ms_per_tick": sum(e.duration_ns() for e in ks)
+            / 1e6 / PROFILED}
+    rest = [e for e in kernels if e.correlation_id() not in seen]
+    stages["outside_ranges"] = {
+        "launches_per_tick": len(rest) / PROFILED,
+        "device_ms_per_tick": sum(e.duration_ns() for e in rest)
+        / 1e6 / PROFILED}
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        by_name.setdefault(e.name(), []).append(e.duration_ns() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
+    out.update(
+        device_kernel_ms_per_tick=total_us / 1e3 / PROFILED,
+        device_idle_share=1.0 - busy_us / 1e3 / PROFILED / wall_ms,
+        launches_per_tick=len(kernels) / PROFILED, stages=stages,
+        hand_written_ms_per_tick={
+            n: sum(v) / 1e3 / PROFILED for n, v in by_name.items()
+            if any(h in n for h in HAND_WRITTEN)},
+        top_kernels=[{"name": n[:120],
+                      "ms_per_tick": sum(v) / 1e3 / PROFILED,
+                      "launches_per_tick": len(v) / PROFILED}
+                     for n, v in top])
+    return out
 
 
 def alternate(rounds: int) -> dict:
@@ -256,7 +378,8 @@ def main(argv: list[str]) -> int:
         return 0
     for name in argv or ["cornell", "cornell_fused", "helmet",
                          "helmet_textured"]:
-        print(json.dumps(profile(name)), flush=True)
+        print(json.dumps(profile_app() if name == "app" else profile(name)),
+              flush=True)
     return 0
 
 

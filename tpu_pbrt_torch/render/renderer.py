@@ -86,10 +86,25 @@ class Renderer(nn.Module):
             acc = acc + self.render(camera, f, jitter=jitter)
         return acc / frames
 
-    def tonemapped(self, linear_hdr: torch.Tensor,
+    def render_mean(self, camera: Camera, frames: int,
+                    frame_offset: int = 0) -> torch.Tensor:
+        """Average of `frames` un-jittered frames (frame indices
+        `frame_offset`, ...), accumulated on the device with no host read
+        between frames."""
+        cam = camera.data(device=self.device)
+        acc = torch.zeros((self.height, self.width, 3), device=self.device)
+        for i in range(frames):
+            img, _ = _render_frame(self.tracer, self.env, self.light_count,
+                                   cam, i + frame_offset, width=self.width,
+                                   height=self.height, settings=self.settings)
+            acc = acc + img
+        return acc / frames
+
+    def tonemapped(self, linear_hdr: torch.Tensor, operator: str = "aces",
                    exposure: float = 1.0) -> np.ndarray:
-        """ACES tonemap + sRGB8 encode, (H, W, 3) uint8 on the host."""
-        img = tonemap.apply(linear_hdr, exposure)
+        """Tonemap (`tonemap.apply`'s operators) + sRGB8 encode, (H, W, 3)
+        uint8 on the host."""
+        img = tonemap.apply(linear_hdr, operator, exposure)
         return tonemap.to_srgb8(img).cpu().numpy()
 
 
