@@ -5,8 +5,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from `tpu_pbrt_torch/csrc/` and
-drives five paths through `Renderer` at 1920x1080, each with the kernels'
-launch counts set to 0 just before and read just after:
+drives five paths through `Renderer` and three through the App at
+1920x1080, each with the kernels' launch counts set to 0 just before and
+read just after:
 
 * the main path: the Cornell box, 1 SPP, 8 bounces, NEE + MIS, Russian
   roulette, counted rays, pool folds at bounces 4-7 (kernels 1-4: dense
@@ -27,15 +28,36 @@ launch counts set to 0 just before and read just after:
   checker of holes, a light): the re-trace loop around the dense closest hit
   at every bounce and every shadow ray, the row fetch on the 19-column
   alpha sub-table;
-* the App frame graph (`render/app.App`, driven by `tick`): the Cornell
-  box at 1920x1080 output, 960x540 internal, ReSTIR DI and SHARC off, folds
-  4,5,6 (bench.py's app fold default), the settings' defaults otherwise
-  (denoiser 4 iterations, TAA, bloom 0.05, ACES); kernels 1-4 at the App's
-  pool, then denoise, TAA, bloom and tonemap. After two warm-up ticks one
-  tick holds every kernel launch it makes against the plain version on the
-  same inputs, one counts the host syncs, and the timed ticks carry the
-  history; a `{"app": ...}` line gives ms a tick (median and spread),
-  Mrays/s, launches a tick of each kernel, host syncs a tick.
+* `app_nodi`, the App frame graph (`render/app.App`, driven by `tick`)
+  without ReSTIR DI and SHARC: the Cornell box at 1920x1080 output,
+  960x540 internal, folds 4,5,6 (bench.py's app fold default), the
+  settings' defaults otherwise (denoiser 4 iterations, TAA, bloom 0.05,
+  ACES); kernels 1-4 at the App's pool, then denoise, TAA, bloom and
+  tonemap;
+* `app`, bench.py's app configuration: the same App at the
+  `GraphicsSettings()` defaults, ReSTIR DI (8 light and 1 BRDF candidates,
+  temporal and spatial reuse, final shading; ReGIR is skipped below 9
+  lights) and SHARC at 2^22 entries (the update pass at 240x135, 5
+  vertices, and the pool resolve), folds 4,5,6;
+* `manylight`, bench.py's manylight configuration: the 64-light room
+  (136 triangles, 128 of them emissive) seen from (0, 3, 9) at yaw 180,
+  pitch 15, the same App with ReGIR on (cell size 1.5): the row fetch also
+  reads the 128 x 17 light table, the ReGIR build's 128 x 4 table and the
+  4,096 x 32 cell rows.
+For each App path, after two warm-up ticks one tick holds every kernel
+launch it makes against the plain version on the same inputs, one counts
+the host syncs, and the timed ticks (8; 4 for `app_nodi`) carry the
+history; a `{"<path>": ...}` line gives ms a tick (median and spread), rays
+a tick, Mrays/s, launches a tick of each kernel, host syncs a tick and peak
+memory, and for `app` and `manylight` the device ms by stage (two more
+ticks under `torch.profiler`, split by the App's ranges), one SHARC resolve
+on the card against the CPU on the same records (keys, counts and stale
+equal, radiance within 1e-6 relative), the SHARC update pass through the
+fused kernel against kernels 1 and 3 (bit for bit), and every (kernel,
+shape) of the checked tick timed beside its plain version and its bound
+(the row fetch beside `torch.index_select`), each a `kernels` entry named
+`<kernel>/<path>_<rays>` (the row fetch `<columns>x<slots>`) whose
+launches are those the timed ticks made at that shape.
 
 Before each path it holds every kernel the path runs against its plain
 PyTorch version on the card at the path's shapes (for the resident walk
@@ -60,13 +82,15 @@ tracer is held the same way on the card on its 1080p camera rays, on
 seeded bounce rays and on shadow segments. After the paths it runs the walk
 alone at `helmet-100k` (101,760 triangles), then holds small frames
 rendered through the kernels against the same frames rendered by the
-plain versions on the CPU, and a 64x48 App (32x24 internal, 3 bounces,
-one fold) ticked three times on the card against the same App on the CPU
-(after ACES: mean absolute difference <= 1e-3, >= 99% of pixels within
-1e-2, every tick). It writes PNGs under `chiprun_out/` and
-prints one JSON line per result, then the `{"kernels": [...]}` line and,
-last, the `{"ok": true, "device": ...}` summary. Any failure exits nonzero
-before it. It never falls back to the CPU: without a usable card it exits 2.
+plain versions on the CPU, and a 64x48 App of each App path (32x24
+internal, 3 bounces, one fold; SHARC at 2^12) ticked three times on the
+card against the same App on the CPU (after ACES: mean absolute difference
+<= 1e-3, >= 99% of pixels within 1e-2, every tick; the full App paths take
+the CPU run's G-buffer motion vectors, see `check_small_app`). It writes
+PNGs under `chiprun_out/` and prints one JSON line per result, then the
+`{"kernels": [...]}` line and, last, the `{"ok": true, "device": ...}`
+summary. Any failure exits nonzero before it. It never falls back to the
+CPU: without a usable card it exits 2.
 
     python3 chip_smoke.py --dense-times DIR
 
@@ -91,10 +115,11 @@ sub-table at camera and bounce slots and at two folded pools (259,200 and
 518,400 slots); the cutout frame's 128 x 50 and 128 x 19 sub-tables at
 camera, bounce and folded (1,036,800) slots; and two tables no driven path
 launches it on: a seeded 128 x 17 light table with slots uniform over its
-rows (the light fetch of a scene with more than eight lights), and a seeded
-101,760 x 50 table (the `helmet-100k` scale, 20 MB) at 2,073,600
-incoherent slots. Their `kernels` entries give launches and path null:
-no run of a path launches the row fetch on them.
+rows, and a seeded 101,760 x 50 table (the `helmet-100k` scale, 20 MB) at
+2,073,600 incoherent slots. Their `kernels` entries give launches and path
+null: no run of a path launches the row fetch on them. The `app` and
+`manylight` paths hold every row fetch of their checked tick, the
+64-light room's own 128 x 17 light table among them, at its shapes.
 """
 
 from __future__ import annotations
@@ -152,14 +177,24 @@ PATH_KERNELS = {
     "helmet_textured": ("resident_closest_hit", "resident_any_hit",
                         "fetch_rows"),
     "cutout": ("dense_closest_hit", "fetch_rows"),
-    # the App frame graph: the Cornell path's kernels at the internal
-    # resolution, then denoise, TAA, bloom and tonemap in PyTorch
+    # the App frame graph without ReSTIR DI and SHARC: the Cornell path's
+    # kernels at the internal resolution, then denoise, TAA, bloom and
+    # tonemap in PyTorch
+    "app_nodi": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
+                 "fetch_rows"),
+    # the full App (bench.py's app): ReSTIR DI's BRDF candidates and
+    # visibility rays, the SHARC update's vertices, the path trace
     "app": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
             "fetch_rows"),
+    # the same on the 64-light room: the row fetch also reads the light
+    # table (128 x 17), the ReGIR build's (128 x 4) and its cell rows
+    # (4096 x 32)
+    "manylight": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
+                  "fetch_rows"),
 }
-# the App path (`profile_frame.app_settings`: bench.py's app config
-# without ReSTIR DI and SHARC, folds 4,5,6): warm-up ticks, timed ticks
-APP_WARMUP, APP_TICKS = 2, 8
+# the App paths (`profile_frame.make_app`, folds 4,5,6): warm-up ticks,
+# timed ticks of the full App paths and of app_nodi
+APP_WARMUP, APP_TICKS, APP_NODI_TICKS = 2, 8, 4
 # the small App gate: 64x48 (32x24 internal), 3 bounces, one fold, three
 # ticks with history carried, on the card against the CPU
 SMALL_APP_TICKS = 3
@@ -1206,13 +1241,15 @@ def check_small_frame(name: str, scene, settings, camera, min_hits: float,
 
 
 @contextlib.contextmanager
-def checked_wrappers(record: dict):
+def checked_wrappers(record: dict, keep: dict | None = None):
     """Inside, every launch of kernels 1-4 through its wrapper (as the
     path's own code makes it) is held against the plain version on the same
     inputs, by the rules of `check_closest`, `check_any`,
     `check_bounce_block` and the row fetch's bit-exactness; `record` gets
-    {kernel: {rays: {"launches": n, "max_abs_err": e}}}. The plain
-    versions launch no kernel."""
+    {kernel: {rays: {"launches": n, "max_abs_err": e}}} (for the row fetch
+    keyed "<columns>x<slots>"). With `keep`, the first inputs of each
+    (kernel, key) go to keep[(kernel, key)], for `shape_rows` to time. The
+    plain versions launch no kernel."""
     import torch
     from tpu_pbrt_torch.ops import shade_table as st
     from tpu_pbrt_torch.ops import traverse_dense as td
@@ -1220,11 +1257,13 @@ def checked_wrappers(record: dict):
     saved = (td.closest_hit_cuda, td.any_hit_cuda,
              st.fetch_bounce_block_cuda, st.fetch_rows_cuda)
 
-    def note(name, rays, err):
+    def note(name, rays, err, args):
         entry = record.setdefault(name, {}).setdefault(
             rays, {"launches": 0, "max_abs_err": 0.0})
         entry["launches"] += 1
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if keep is not None:
+            keep.setdefault((name, rays), args)
 
     def closest(tris, o, d, t_min, t_max):
         got = saved[0](tris, o, d, t_min, t_max)
@@ -1233,14 +1272,15 @@ def checked_wrappers(record: dict):
                 got.t.view(torch.int32), want.t.view(torch.int32)):
             fail(f"dense_closest_hit at {o.x.shape[0]} rays: tri ids or t "
                  f"differ from the plain version")
-        note("dense_closest_hit", o.x.shape[0], max_abs(got.t, want.t))
+        note("dense_closest_hit", o.x.shape[0], max_abs(got.t, want.t),
+             (tris, o, d, t_min, t_max))
         return got
 
     def occluded(tris, o, d, t_min, t_max):
         got = saved[1](tris, o, d, t_min, t_max)
         if not torch.equal(got, td.any_hit_plain(tris, o, d, t_min, t_max)):
             fail(f"dense_any_hit at {o.x.shape[0]} rays: flags differ")
-        note("dense_any_hit", o.x.shape[0], 0.0)
+        note("dense_any_hit", o.x.shape[0], 0.0, (tris, o, d, t_min, t_max))
         return got
 
     def bounce(sub, slot, o, d):
@@ -1248,7 +1288,8 @@ def checked_wrappers(record: dict):
         want = st.fetch_bounce_block_plain(sub, slot, o, d)
         note("fetch_bounce", slot.shape[0],
              check_bounce_block(got, want, f"fetch_bounce at "
-                                           f"{slot.shape[0]} rays"))
+                                           f"{slot.shape[0]} rays"),
+             (sub, slot, o, d))
         return got
 
     def rows(table, slot):
@@ -1256,7 +1297,8 @@ def checked_wrappers(record: dict):
         if not torch.equal(got, st.fetch_rows_plain(table, slot)):
             fail(f"fetch_rows {tuple(table.shape)} at {slot.shape[0]} "
                  f"slots: rows differ bitwise")
-        note("fetch_rows", slot.shape[0], 0.0)
+        note("fetch_rows", f"{table.shape[1]}x{slot.shape[0]}", 0.0,
+             (table, slot))
         return got
 
     (td.closest_hit_cuda, td.any_hit_cuda, st.fetch_bounce_block_cuda,
@@ -1268,22 +1310,26 @@ def checked_wrappers(record: dict):
          st.fetch_rows_cuda) = saved
 
 
-def run_app(app) -> tuple[dict, np.ndarray, dict]:
-    """The App path at 1080p: APP_WARMUP ticks, one tick with every kernel
-    launch held against its plain version (`checked_wrappers`), one tick
-    in sync-debug mode (host syncs), then APP_TICKS timed ticks with the
-    history carried, each ending in `torch.cuda.synchronize()`, with the
-    launch counts set to 0 just before and read just after. Fails if a
-    kernel of the path was not launched. Returns (result, last image,
-    the checked tick's record)."""
+def run_app(app, name: str, ticks: int, keep: dict | None = None,
+            stages: bool = False) -> tuple[dict, np.ndarray, dict]:
+    """An App path at 1080p: APP_WARMUP ticks, one tick with every kernel
+    launch held against its plain version (`checked_wrappers`; with `keep`
+    its first inputs at each shape kept), one tick in sync-debug mode (host
+    syncs), then `ticks` timed ticks with the history carried, each ending
+    in `torch.cuda.synchronize()`, with the launch counts set to 0 just
+    before and read just after; with `stages`, PROFILED more ticks under
+    `torch.profiler` split by the App's ranges. Fails if a kernel of the
+    path was not launched. Returns (result, last image, the checked tick's
+    record)."""
     import torch
     from tpu_pbrt_torch.ops import cuda
-    from tpu_pbrt_torch.profile_frame import sync_sites
+    from tpu_pbrt_torch.profile_frame import PROFILED, sync_sites, \
+        stage_breakdown
 
     for _ in range(APP_WARMUP):
         app.tick()
     checked = {}
-    with checked_wrappers(checked):
+    with checked_wrappers(checked, keep):
         app.tick()
     syncs = sync_sites(app.tick)
     torch.cuda.synchronize()
@@ -1291,63 +1337,86 @@ def run_app(app) -> tuple[dict, np.ndarray, dict]:
     rays = torch.zeros((), dtype=torch.float64, device=app.device)
     times = []
     cuda.reset_launches()
-    for _ in range(APP_TICKS):
+    for _ in range(ticks):
         t0 = time.perf_counter()
         img, rc = app.tick()
         rays += rc
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = {k.name: k.launches for k in cuda.KERNELS.values()}
-    fetch_shapes = dict(cuda.KERNELS["fetch_rows"].launches_by_tag)
-    for k in PATH_KERNELS["app"]:
+    by_tag = {k.name: {str(t): n for t, n in k.launches_by_tag.items()}
+              for k in cuda.KERNELS.values()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for k in PATH_KERNELS[name]:
         if launches[k] <= 0:
-            fail(f"kernel {k} was not launched by the app path")
+            fail(f"kernel {k} was not launched by the {name} path")
     out = img.cpu().numpy()
     if out.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(out).all():
-        fail(f"app: output shape {out.shape} or non-finite pixels")
+        fail(f"{name}: output shape {out.shape} or non-finite pixels")
     if out.mean() <= 0.01:
-        fail(f"app: output is black (mean {out.mean()})")
+        fail(f"{name}: output is black (mean {out.mean()})")
     total_rays = float(rays.item())
     s = app.settings
-    return {
+    rt = s.raytracing
+    fetch_shapes = dict(cuda.KERNELS["fetch_rows"].launches_by_tag)
+    median = float(np.median(times))
+    result = {
         "resolution": [app.out_w, app.out_h],
         "render_resolution": [app.render_w, app.render_h],
         "triangles": app.tracer.num_tris, "tracer": app.tracer.kind,
+        "lights": app.light_count,
         "bounces": app.pt_settings.bounces,
         "folds": list(app.pt_settings.compaction_schedule),
+        "restir_di": rt.restir_di, "regir": app.regir_settings is not None,
+        "sharc": rt.sharc,
+        "sharc_capacity_log2": app.sharc_settings.capacity_log2,
         "denoiser": s.post_processing.denoiser,
         "denoiser_iterations": s.post_processing.denoiser_iterations,
         "upscaler": s.post_processing.upscaler,
         "bloom_strength": s.post_processing.bloom_strength,
         "tonemap": s.post_processing.tonemap_operator,
-        "ticks": APP_TICKS, "warmup_ticks": APP_WARMUP,
+        "ticks": ticks, "warmup_ticks": APP_WARMUP,
         "ms_per_tick": times,
-        "ms_per_tick_median": float(np.median(times)),
+        "ms_per_tick_median": median,
         "ms_per_tick_spread": [min(times), max(times)],
-        # the tick's device total: G-buffer primaries + the path tracer's
-        # rays, the fold schedule's static bound (the reference App does
-        # not count live lanes)
-        "rays_per_tick": total_rays / APP_TICKS,
+        # the tick's total: G-buffer primaries, ReSTIR's counted rays, the
+        # SHARC update pool's bound and the path tracer's (the fold
+        # schedule's static bound, as the reference App counts)
+        "rays_per_tick": total_rays / ticks,
         "mrays_per_s": total_rays / (sum(times) / 1e3) / 1e6,
         "host_syncs_per_tick": len(syncs), "host_sync_sites": syncs,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_mem_gb": peak,
         "image_mean": float(out.mean()),
-        "launches_per_tick": {k: n / APP_TICKS
-                              for k, n in launches.items()},
-        "launches": launches,
+        "launches_per_tick": {k: n / ticks for k, n in launches.items()},
+        "launches": launches, "launches_by_rays": by_tag,
         # the row fetch's launches by (table columns, slots)
         "fetch_rows_launches": {
             f"{c}x{r}": n for (c, r), n in sorted(fetch_shapes.items())},
-    }, out, checked
+    }
+    if stages:
+        br = stage_breakdown(app, PROFILED)
+        result["device"] = br
+        if "busy_ms_per_tick" in br:
+            result["device_idle_share"] = 1.0 - br["busy_ms_per_tick"] / median
+    return result, out, checked
+
+
+def kernel_checks(name: str, checked: dict) -> dict:
+    for k in PATH_KERNELS[name]:
+        if k not in checked:
+            fail(f"{name}: the checked tick made no {k} launch")
+    return {k: {str(r): v for r, v in sorted(by_rays.items())}
+            for k, by_rays in checked.items()}
 
 
 def app_path(scene, device) -> tuple[dict, np.ndarray, dict, dict]:
-    """The App path on `scene` (the Cornell box) at WIDTH x HEIGHT with
-    `profile_frame.app_settings`: the row fetch held and timed at the App's
-    G-buffer shape (the 64-column table at the internal resolution's camera
-    slots), then `run_app`; the output must show the Cornell image's layout.
-    Returns (result, output image, the row fetch's shape entry, the
-    launches the App's run made at that shape)."""
+    """The App without ReSTIR DI and SHARC (`app_nodi`) on `scene` (the
+    Cornell box) at WIDTH x HEIGHT: the row fetch held and timed at the
+    App's G-buffer shape (the 64-column table at the internal resolution's
+    camera slots), then `run_app` (APP_NODI_TICKS timed ticks); the output
+    must show the Cornell image's layout. Returns (result, output image,
+    the row fetch's shape entry, the launches the run made at that
+    shape)."""
     import torch
     from tpu_pbrt_torch.models.cornell import make_cornell_camera
     from tpu_pbrt_torch.profile_frame import APP_FOLDS, app_settings
@@ -1359,56 +1428,266 @@ def app_path(scene, device) -> tuple[dict, np.ndarray, dict, dict]:
     rw, rh = app.render_w, app.render_h
     if (rw, rh) != (WIDTH // 2, HEIGHT // 2) or tuple(
             app.pt_settings.compaction_schedule) != APP_FOLDS:
-        fail(f"app: internal {rw}x{rh}, folds "
+        fail(f"app_nodi: internal {rw}x{rh}, folds "
              f"{app.pt_settings.compaction_schedule}")
     rays = generate_rays(app.camera.data(device=device), rw, rh)
     shapes = check_fetch_rows_shapes(
         {"cornell64_app_camera": (app.tracer.shade_table, torch.clamp(
-            app.tracer.closest_hit(*rays).tri, min=0))}, "app")
+            app.tracer.closest_hit(*rays).tri, min=0))}, "app_nodi")
     del rays
-    result, img, checked = run_app(app)
-    launches = fetch_shape_launches(result, shapes, "app")
-    check_cornell_image("app", img)
-    for k in PATH_KERNELS["app"]:
-        if k not in checked:
-            fail(f"app: the checked tick made no {k} launch")
-    result["kernel_checks"] = {
-        k: {str(r): v for r, v in sorted(by_rays.items())}
-        for k, by_rays in checked.items()}
+    result, img, checked = run_app(app, "app_nodi", APP_NODI_TICKS)
+    launches = fetch_shape_launches(result, shapes, "app_nodi")
+    check_cornell_image("app_nodi", img)
+    result["kernel_checks"] = kernel_checks("app_nodi", checked)
     return result, img, shapes, launches
 
 
-def check_small_app() -> dict:
-    """A 64x48 App (32x24 internal, 3 bounces, one fold) ticked three times
-    with history carried on the card, through the kernels, and on the CPU,
-    through the plain versions: after ACES the outputs agree on every tick
-    within a mean absolute difference of 1e-3, with >= 99% of pixels
-    within 1e-2 (an ulp can flip a path, and the denoiser and TAA spread
-    it)."""
-    from tpu_pbrt_torch.models.cornell import (make_cornell_box,
-                                               make_cornell_camera)
-    from tpu_pbrt_torch.ops import cuda
-    from tpu_pbrt_torch.profile_frame import app_settings
-    from tpu_pbrt_torch.render.app import App
+def check_manylight_image(img: np.ndarray) -> None:
+    """The 64-light room from bench.py's camera: the back wall's warm
+    material fills the top of the frame, the grey floor the bottom, both
+    lit: red over blue above 1.6 at the top and at least 0.3 lower at the
+    bottom, each band's mean above 0.1."""
+    top = img[: int(0.3 * HEIGHT)].reshape(-1, 3).mean(0)
+    bottom = img[int(0.6 * HEIGHT):].reshape(-1, 3).mean(0)
+    rb_top, rb_bottom = top[0] / top[2], bottom[0] / bottom[2]
+    if not (rb_top > 1.6 and rb_bottom < rb_top - 0.3
+            and top.mean() > 0.1 and bottom.mean() > 0.1):
+        fail(f"manylight: top band {top.tolist()}, bottom band "
+             f"{bottom.tolist()}: not the room's layout")
 
-    imgs, launches = {}, {}
-    for dev in ("cuda", "cpu"):
-        app = App(make_cornell_box(), make_cornell_camera(SMALL_W, SMALL_H),
-                  app_settings(SMALL_W, SMALL_H, bounces=3, folds=(2,)),
-                  device=dev)
+
+def shape_rows(name: str, keep: dict, by_tag: dict, ticks: int) -> list:
+    """One `kernels` entry per (kernel, shape) the path's checked tick
+    launched (`keep`): held bit for bit against the plain version again,
+    the kernel's time and the plain version's, the bound, the launches the
+    timed run made at that shape (`by_tag`: the wrappers' tags, over
+    `ticks` ticks) and, for the row fetch, `torch.index_select`'s time."""
+    import torch
+    from tpu_pbrt_torch.ops import shade_table as st
+    from tpu_pbrt_torch.ops import traverse_dense as td
+
+    rows = []
+    for (kernel, shape), args in sorted(keep.items(),
+                                        key=lambda kv: str(kv[0])):
+        lib = None
+        if kernel == "dense_closest_hit":
+            tris, *rays = args
+            ms = time_ms(lambda: td.closest_hit_cuda(tris, *rays))
+            pl = plain_ms(lambda: td.closest_hit_plain(tris, *rays))
+            err = check_closest(td, tris, rays, f"{name} {shape}")
+            bd = closest_bound(rays, tris.v0.shape[0], tris.num)
+            tag = str(shape)
+        elif kernel == "dense_any_hit":
+            tris, *rays = args
+            r = rays[0].x.shape[0]
+            occ = int(check_any(td, tris, rays, f"{name} {shape}").sum())
+            ms = time_ms(lambda: td.any_hit_cuda(tris, *rays))
+            pl = plain_ms(lambda: td.any_hit_plain(tris, *rays))
+            err = 0.0
+            bd = bound(r * 32 + r + tris.v0.shape[0] * 40,
+                       ((n_active(rays[2], rays[3], r) - occ) * tris.num
+                        + occ) * FLOPS_TEST_SCALED)
+            tag = str(shape)
+        elif kernel == "fetch_bounce":
+            sub, slot, o, d = args
+            r = slot.shape[0]
+            err = check_bounce_block(
+                st.fetch_bounce_block_cuda(sub, slot, o, d),
+                st.fetch_bounce_block_plain(sub, slot, o, d),
+                f"fetch_bounce {name} {shape}")
+            ms = time_ms(lambda: st.fetch_bounce_block_cuda(sub, slot, o, d))
+            pl = plain_ms(lambda: st.fetch_bounce_block_plain(sub, slot, o,
+                                                              d))
+            bd = bound(sub.numel() * 4 + r * 4 + r * 24 + r * st.FB_OUT * 4,
+                       r * FLOPS_UNPACK)
+            tag = str(shape)
+        else:
+            table, slot = args
+            r = slot.shape[0]
+            got = st.fetch_rows_cuda(table, slot)
+            if not torch.equal(got, st.fetch_rows_plain(table, slot)) or \
+                    not torch.equal(got, torch.index_select(table.t(), 1,
+                                                            slot)):
+                fail(f"fetch_rows {name} {shape}: rows differ bitwise")
+            err = 0.0
+            ms = time_ms(lambda: st.fetch_rows_cuda(table, slot))
+            pl = plain_ms(lambda: st.fetch_rows_plain(table, slot))
+            lib = time_ms(lambda: torch.index_select(table.t(), 1, slot))
+            bd = bound(table.numel() * 4 + r * 4 + r * table.shape[1] * 4,
+                       0.0)
+            tag = str((table.shape[1], r))
+        n = by_tag[kernel].get(tag, 0)
+        if n <= 0:
+            fail(f"{kernel} at {shape}: the {name} run made no launch there")
+        rows.append({"name": f"{kernel}/{name}_{shape}", "kernel": kernel,
+                     "path": name, "shape": str(shape),
+                     "table": (list(args[0].shape) if kernel == "fetch_rows"
+                               else None),
+                     "launches": n, "launches_per_tick": n / ticks,
+                     "max_abs_err": err, "ms": ms, "plain_ms": pl,
+                     "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                     "library_ms": lib})
+    return rows
+
+
+def check_sharc_resolve(app) -> dict:
+    """One SHARC pool resolve on the card against the CPU on the same
+    records (this tick's update pass, on the card) and the same table (the
+    App's history): keys, counts and stale equal, radiance within 1e-6
+    relative."""
+    import torch
+    from tpu_pbrt_torch.passes import sharc as sh
+
+    cam = app.camera.data(device=app.device)
+    keys, rec, valid, _ = app.sharc_update(cam, app.frame_index)
+    state = app.history.sharc
+    got = sh.resolve(state, keys, rec, valid, app.sharc_settings)
+
+    def cpu(x):
+        return x.map(lambda t: t.cpu()) if hasattr(x, "map") else x.cpu()
+
+    want = sh.resolve(
+        sh.SHARCState(*(t.cpu() for t in state)),
+        sh.VoxelKey(keys.lo.cpu(), keys.hi.cpu()), cpu(rec), valid.cpu(),
+        app.sharc_settings)
+    for f in ("key_lo", "key_hi", "count", "stale", "qdata"):
+        if not torch.equal(getattr(got, f).cpu(), getattr(want, f)):
+            fail(f"SHARC resolve on the card: {f} differs from the CPU's")
+    g, w = got.radiance.cpu().double(), want.radiance.double()
+    rel = float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())
+    if rel > 1e-6:
+        fail(f"SHARC resolve on the card: radiance {rel} relative off")
+    live = int((want.key_lo != sh.EMPTY_KEY).sum())
+    return {"capacity": int(state.key_lo.shape[0]),
+            "records": int(valid.shape[0]), "valid_records": int(valid.sum()),
+            "live_entries": live, "radiance_max_rel_err": rel}
+
+
+def check_fused_sharc_update(app) -> dict:
+    """`trace_sharc_update` with the fused closest-hit-and-shade kernel
+    (`TRACE_FUSED`) against the same pass through kernels 1 and 3, on the
+    card: keys, valid flags and records bit for bit."""
+    import torch
+    from tpu_pbrt_torch.ops import cuda
+    from tpu_pbrt_torch.ops import trace_shade_fused as tsf
+
+    cam = app.camera.data(device=app.device)
+    want = app.sharc_update(cam, app.frame_index)
+    tsf.TRACE_FUSED = True
+    try:
+        if not app.tracer.supports_fused_shade():
+            fail("the App's tracer does not take the fused kernel")
         cuda.reset_launches()
-        imgs[dev] = [app.tick()[0].cpu().numpy()
-                     for _ in range(SMALL_APP_TICKS)]
+        got = app.sharc_update(cam, app.frame_index)
+        fused = cuda.KERNELS["dense_closest_hit_shade"].launches
+    finally:
+        tsf.TRACE_FUSED = False
+    if fused <= 0:
+        fail("trace_sharc_update: no fused-kernel launch under TRACE_FUSED")
+    (gk, gr, gv, _), (wk, wr, wv, _) = got, want
+    same = (torch.equal(gk.lo, wk.lo) and torch.equal(gk.hi, wk.hi)
+            and torch.equal(gv, wv)
+            and all(torch.equal(getattr(gr, a), getattr(wr, a))
+                    for a in "xyz"))
+    if not same:
+        fail("trace_sharc_update: the fused pass differs from kernels 1+3")
+    return {"records": int(gv.shape[0]), "fused_launches": fused}
+
+
+def full_app_path(name: str, device) -> tuple[dict, np.ndarray, list]:
+    """An App path at the settings' defaults (bench.py's `app` on the
+    Cornell box, `manylight` on the 64-light room): `run_app` with kernel
+    inputs kept and stages profiled, the output's layout, one SHARC
+    resolve card vs CPU, the fused SHARC update, then every (kernel, shape)
+    of the tick timed (`shape_rows`). Returns (result, image, rows)."""
+    from tpu_pbrt_torch.profile_frame import APP_FOLDS, make_app
+
+    app = make_app(name, WIDTH, HEIGHT, device=device)
+    rt = app.settings.raytracing
+    if ((app.render_w, app.render_h) != (WIDTH // 2, HEIGHT // 2)
+            or tuple(app.pt_settings.compaction_schedule) != APP_FOLDS
+            or not (rt.restir_di and rt.sharc)
+            or app.sharc_settings.capacity_log2 != 22
+            or (app.regir_settings is not None) != (name == "manylight")):
+        fail(f"{name}: internal {app.render_w}x{app.render_h}, folds "
+             f"{app.pt_settings.compaction_schedule}, restir {rt.restir_di}, "
+             f"sharc {rt.sharc} at 2^{app.sharc_settings.capacity_log2}, "
+             f"regir {app.regir_settings}")
+    keep = {}
+    result, img, checked = run_app(app, name, APP_TICKS, keep, stages=True)
+    if name == "manylight":
+        check_manylight_image(img)
+    else:
+        check_cornell_image(name, img)
+    result["kernel_checks"] = kernel_checks(name, checked)
+    result["sharc_resolve_vs_cpu"] = check_sharc_resolve(app)
+    result["fused_sharc_update"] = check_fused_sharc_update(app)
+    rows = shape_rows(name, keep, result["launches_by_rays"], APP_TICKS)
+    del keep, app
+    return result, img, rows
+
+
+@contextlib.contextmanager
+def _motions(record: list | None = None, replay: list | None = None):
+    """Record each G-buffer's motion vectors, or replace them by recorded
+    ones (in order, moved to the G-buffer's device)."""
+    from tpu_pbrt_torch.passes import gbuffer as gbuffer_mod
+
+    orig = gbuffer_mod.generate
+    it = iter(replay or ())
+
+    def wrapped(*args, **kwargs):
+        gb = orig(*args, **kwargs)
+        if record is not None:
+            record.append((gb.motion_x.cpu(), gb.motion_y.cpu()))
+            return gb
+        mx, my = next(it)
+        return gb._replace(motion_x=mx.to(gb.depth.device),
+                           motion_y=my.to(gb.depth.device))
+
+    gbuffer_mod.generate = wrapped
+    try:
+        yield
+    finally:
+        gbuffer_mod.generate = orig
+
+
+def check_small_app(name: str) -> dict:
+    """A 64x48 App (32x24 internal, 3 bounces, one fold) of the path `name`
+    ticked three times with history carried on the card, through the
+    kernels, and on the CPU, through the plain versions: after ACES the
+    outputs agree on every tick within a mean absolute difference of 1e-3,
+    with >= 99% of pixels within 1e-2 (an ulp can flip a path, and the
+    denoiser and TAA spread it). The full App paths (SHARC at 2^12) take
+    the CPU run's G-buffer motion vectors on the card, as the CPU tests
+    carry the reference's: their ~1e-5 pixels of float noise decide at the
+    image border whether ReSTIR's temporal tap and the denoiser's
+    reprojection keep their history."""
+    from tpu_pbrt_torch.ops import cuda
+    from tpu_pbrt_torch.profile_frame import make_app
+
+    extra = {} if name == "app_nodi" else {"sharc_log2": 12}
+    imgs, launches, motions = {}, {}, []
+    for dev in ("cpu", "cuda"):
+        app = make_app(name, SMALL_W, SMALL_H, device=dev, bounces=3,
+                       folds=(2,), **extra)
+        cuda.reset_launches()
+        pin = (_motions(record=motions) if dev == "cpu"
+               else _motions(replay=motions)) if extra else \
+            contextlib.nullcontext()
+        with pin:
+            imgs[dev] = [app.tick()[0].cpu().numpy()
+                         for _ in range(SMALL_APP_TICKS)]
         launches[dev] = {k.name: k.launches for k in cuda.KERNELS.values()}
     if any(launches["cpu"].values()):
-        fail(f"small app: the CPU run launched kernels {launches['cpu']}")
-    for k in PATH_KERNELS["app"]:
+        fail(f"small {name}: the CPU run launched kernels {launches['cpu']}")
+    for k in PATH_KERNELS[name]:
         if launches["cuda"][k] <= 0:
-            fail(f"small app: kernel {k} was not launched on the card")
+            fail(f"small {name}: kernel {k} was not launched on the card")
     ticks = []
     for g, c in zip(imgs["cuda"], imgs["cpu"]):
         if g.shape != (SMALL_H, SMALL_W, 3) or not np.isfinite(g).all():
-            fail(f"small app: output shape {g.shape} or non-finite pixels")
+            fail(f"small {name}: output shape {g.shape} or non-finite")
         d = np.abs(g - c)
         within = float((d.max(-1) <= 1e-2).mean())
         ticks.append({"mean_abs_diff": float(d.mean()),
@@ -1417,10 +1696,10 @@ def check_small_app() -> dict:
                       "image_mean": float(g.mean())})
         if ticks[-1]["mean_abs_diff"] > 1e-3 or \
                 ticks[-1]["pixels_within_1e-2"] < 0.99:
-            fail(f"small app disagrees with the CPU: {ticks}")
+            fail(f"small {name} disagrees with the CPU: {ticks}")
     return {"resolution": [SMALL_W, SMALL_H], "render_resolution":
-            [SMALL_W // 2, SMALL_H // 2], "ticks": ticks,
-            "launches_cuda": launches["cuda"]}
+            [SMALL_W // 2, SMALL_H // 2], "motion_from_cpu": bool(extra),
+            "ticks": ticks, "launches_cuda": launches["cuda"]}
 
 
 def ptxas_usage(log: str, *kernels: str) -> dict:
@@ -1786,14 +2065,25 @@ def main() -> int:
     del renderer, trc
     torch.cuda.empty_cache()
 
-    # --- the App frame graph at 1080p (960x540 internal) ------------------
-    paths["app"], img, app_shapes, app_launches = app_path(cornell, device)
+    # --- the App without ReSTIR DI and SHARC at 1080p (960x540) ---------
+    paths["app_nodi"], img, app_shapes, app_launches = app_path(cornell,
+                                                                device)
     fetch_shapes.update(app_shapes)
     shape_launches.update(app_launches)
-    print(json.dumps({"app": paths["app"]}), flush=True)
-    pngs["app"] = os.path.join(out_dir, "app_1080p.png")
-    write_png(pngs["app"], to_srgb8(torch.as_tensor(img)).numpy())
+    print(json.dumps({"app_nodi": paths["app_nodi"]}), flush=True)
+    pngs["app_nodi"] = os.path.join(out_dir, "app_nodi_1080p.png")
+    write_png(pngs["app_nodi"], to_srgb8(torch.as_tensor(img)).numpy())
     torch.cuda.empty_cache()
+
+    # --- the full App at its defaults: bench.py's app and manylight -------
+    app_rows = []
+    for name in ("app", "manylight"):
+        paths[name], img, rows = full_app_path(name, device)
+        app_rows += rows
+        print(json.dumps({name: paths[name]}), flush=True)
+        pngs[name] = os.path.join(out_dir, f"{name}_1080p.png")
+        write_png(pngs[name], to_srgb8(torch.as_tensor(img)).numpy())
+        torch.cuda.empty_cache()
 
     # --- helmet-100k: the walk alone at 101,760 triangles -----------------
     print(json.dumps({"helmet_100k": check_helmet_100k(device)}), flush=True)
@@ -1831,7 +2121,8 @@ def main() -> int:
         if got != want:
             fail(f"small frame {name}: (tracer, textured, alpha_test) = "
                  f"{got}, expected {want}")
-    small["app"] = check_small_app()
+    for name in ("app_nodi", "app", "manylight"):
+        small[name] = check_small_app(name)
     print(json.dumps({"small_frames_vs_cpu": small}), flush=True)
     print(json.dumps({"png": pngs, "seconds": time.perf_counter() - t_start}),
           flush=True)
@@ -1856,6 +2147,14 @@ def main() -> int:
              "path": res["path"],
              "launches": shape_launches.get(name),
              **{key: res[key] for key in keys}})
+    # every (kernel, shape) of one tick of the full App paths, with the
+    # launches their timed run made at that shape
+    for row in app_rows:
+        k = cuda.KERNELS[row["kernel"]]
+        kernels.append({"name": row["name"], "route": "cuda",
+                        "source": k.source, "replaces": k.replaces,
+                        "path": row["path"], "launches": row["launches"],
+                        **{key: row[key] for key in keys}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

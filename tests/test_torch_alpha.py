@@ -222,10 +222,11 @@ def test_empty_pools_through_the_loop(tracer):
 
 
 def test_convert_carries_atlas_and_alpha_test(reference):
-    """`convert.tracer_from_numpy` with the reference's atlas leaves and
-    flag gives the port tracer `build_for_scene` builds."""
+    """`convert.tracer_from_numpy` with the reference's atlas leaves, flag
+    and light fields gives the port tracer `build_for_scene` builds."""
     scene, tex = _build(1, tscene, build_geometry, make_table)
     built = ttracer.build_for_scene(scene, tex, [False], device="cpu")
+    jlights = _build(1, jscene, jbuild_geometry, jmake_table)[0].lights
     acc = reference.accel
     carried = convert.tracer_from_numpy(
         dict(v0=np.array(acc.v0), e1=np.array(acc.e1), e2=np.array(acc.e2),
@@ -235,7 +236,9 @@ def test_convert_carries_atlas_and_alpha_test(reference):
         np.array(reference.light_cdf),
         atlas={f: np.array(getattr(reference.atlas, f))
                for f in reference.atlas._fields},
-        alpha_test=reference.alpha_test, device="cpu")
+        alpha_test=reference.alpha_test,
+        lights={f: np.array(getattr(jlights, f)) for f in jlights._fields},
+        device="cpu")
     assert carried.alpha_test and carried.textured
     want = dict(built.named_buffers())
     got = dict(carried.named_buffers())

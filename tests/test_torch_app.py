@@ -1,7 +1,9 @@
-"""PyTorch port vs `tpu_pbrt`: the App frame graph without ReSTIR DI and
-SHARC (settings, jittered rays, G-buffer, path trace, denoise, TAA, bloom,
-tonemap, history carried), the camera controller and thin lens, and the
-`Renderer` entry points `tonemapped` and `render_mean`.
+"""PyTorch port vs `tpu_pbrt`: the App frame graph (settings, jittered
+rays, G-buffer, ReGIR, ReSTIR DI, SHARC, path trace, denoise, TAA, bloom,
+tonemap, history carried), without ReSTIR DI and SHARC and at the
+`GraphicsSettings()` defaults on the Cornell box and the 64-light room,
+the camera controller and thin lens, and the `Renderer` entry points
+`tonemapped` and `render_mean`.
 
 Tolerances. The App's output after ACES agrees on every tick within a
 mean absolute difference of 1e-3, with at least 99% of pixels within 1e-2:
@@ -12,8 +14,25 @@ neighbours. The camera controller is numpy in both packages: bit-equal.
 Rays agree to 1e-6. The reference App is traced and compiled once for the
 module (its history is passed as numpy arrays so the second tick does not
 compile again).
+
+The default App (ReSTIR DI, SHARC at 2^22, ReGIR on the 64-light room, 8
+bounces, no folds) is held to the same gate on every tick, with the
+G-buffer's motion vectors carried from the reference into the port. Those
+vectors are ~1e-5 pixels of float noise around 0 for a still camera, and
+their sign decides, at the image border, whether ReSTIR's temporal tap and
+the denoiser's reprojection fall inside the image (x >= 0, x <= w - 1): the
+two packages' noise differs, so border pixels accept or drop their history
+independently, and spatial reuse, the à-trous filter and TAA spread that.
+Without the carried motion the Cornell box still holds mean <= 1e-3 and
+>= 97% of pixels within 1e-2 (measured 5.3e-4 and 98.2% at the third tick;
+`test_default_app_own_motion`); the 64-light room, whose border pixels see
+the bright emitters, measured 4.2e-3 and 92.6% at the second tick and 77%
+at the third, so it is held with the carried motion only. The ReSTIR
+reservoirs and the SHARC table are held directly as well: the reservoir's
+light equal on >= 99% of the lanes, the SHARC keys and counts equal.
 """
 
+import contextlib
 import types
 
 import numpy as np
@@ -212,7 +231,6 @@ def test_history_resets_on_settings_change():
 
 
 @pytest.mark.parametrize("field,value,module", [
-    ("restir_di", True, "restir"), ("sharc", True, "sharc"),
     ("debug_view", "sharc_voxels", "debug_view"),
     ("debug_view", "regir_cells", "debug_view")])
 def test_unported_settings_raise(field, value, module):
@@ -226,9 +244,9 @@ def test_unported_settings_raise(field, value, module):
     setattr(app.settings.raytracing, field, value)
     with pytest.raises(NotImplementedError, match=module):
         app.tick()
-    # regir is read only under ReSTIR DI: on its own it raises nothing
+    # ReSTIR DI, ReGIR and SHARC are ported: none of them raises
     s = _settings(tconfig, 32, 24)
-    s.raytracing.regir = True
+    s.raytracing.regir = s.raytracing.restir_di = s.raytracing.sharc = True
     tapp.App(tcornell.make_cornell_box(), _camera(tcornell), s, device="cpu")
 
 
@@ -359,3 +377,174 @@ def test_renderer_tonemapped_and_render_mean_match_reference():
     np.testing.assert_array_equal(
         tr.tonemapped(torch.tensor(want), "aces"),
         tr.tonemapped(torch.tensor(want)))
+
+
+# --- the App at the GraphicsSettings() defaults ---------------------------
+
+def _default_settings(cfg):
+    return cfg.GraphicsSettings(width=W, height=H).check()
+
+
+def _default_scene(name, mods):
+    cornell, manylight, camera = mods
+    if name == "cornell":
+        return cornell.make_cornell_box(), _camera(cornell, 0.0)
+    cam = camera.Camera(position=np.asarray([0.0, 3.0, 9.0], np.float32))
+    cam.look(180.0, 15.0)
+    return manylight.make_many_light_room(), cam
+
+
+def _full_history_numpy(history):
+    out = _history_numpy(history)
+    r = history.restir
+    out["restir"] = {
+        "reservoir": {f: np.asarray(getattr(r.reservoir, f))
+                      for f in r.reservoir._fields},
+        "depth": np.asarray(r.depth), "surface": np.asarray(r.surface),
+        "normal": {a: np.asarray(getattr(r.normal, a)) for a in "xyz"}}
+    out["sharc"] = {f: np.asarray(getattr(history.sharc, f))
+                    for f in history.sharc._fields}
+    return out
+
+
+@pytest.fixture(scope="module", params=["cornell", "manylight"])
+def reference_default(request):
+    """The reference App at the defaults, TICKS ticks (one compile): each
+    tick's image, rays, the history it started from and its G-buffer
+    motion vectors, and the final ReSTIR and SHARC state, as numpy."""
+    from tpu_pbrt.models import manylight as jmanylight
+    from tpu_pbrt.passes import gbuffer as jgbuffer
+
+    motions = []
+    orig = jgbuffer.generate
+
+    def recording(*args, **kwargs):
+        gb = orig(*args, **kwargs)
+        jax.debug.callback(lambda mx, my: motions.append(
+            (np.asarray(mx), np.asarray(my))), gb.motion_x, gb.motion_y)
+        return gb
+
+    scene, cam = _default_scene(request.param,
+                                (jcornell, jmanylight, jcamera))
+    app = japp.App(scene=scene, camera=cam,
+                   settings=_default_settings(jconfig))
+    japp.gbuffer_mod.generate = recording
+    try:
+        ticks = []
+        for _ in range(TICKS):
+            app.history = jax.tree.map(np.asarray, app.history)
+            before = _full_history_numpy(app.history)
+            img, rays = app.tick()
+            ticks.append((np.asarray(img), float(rays), before))
+        jax.effects_barrier()
+    finally:
+        japp.gbuffer_mod.generate = orig
+    assert len(motions) == TICKS
+    return request.param, ticks, motions, _full_history_numpy(app.history)
+
+
+def _default_port_app(name, motions=None):
+    """The port's default App; with `motions`, each tick's G-buffer takes
+    the reference's motion vectors (in tick order)."""
+    from tpu_pbrt_torch.models import manylight as tmanylight
+
+    scene, cam = _default_scene(name, (tcornell, tmanylight, tcamera))
+    app = tapp.App(scene, cam, _default_settings(tconfig), device="cpu")
+    if motions is not None:
+        it = iter(motions)
+        orig = tapp.gbuffer_mod.generate
+
+        def pinned(*args, **kwargs):
+            gb = orig(*args, **kwargs)
+            mx, my = next(it)
+            return gb._replace(motion_x=torch.as_tensor(np.array(mx)),
+                               motion_y=torch.as_tensor(np.array(my)))
+
+        app._pinned = (orig, pinned)
+    return app
+
+
+@contextlib.contextmanager
+def _motion_pinned(app):
+    orig, pinned = app._pinned
+    tapp.gbuffer_mod.generate = pinned
+    try:
+        yield
+    finally:
+        tapp.gbuffer_mod.generate = orig
+
+
+def _assert_state_matches(app, want):
+    valid = np.isfinite(want["restir"]["depth"])
+    got = app.history.restir.reservoir.light.numpy()
+    eq = got == want["restir"]["reservoir"]["light"]
+    assert eq[valid].mean() >= 0.99, eq[valid].mean()
+    for f in ("key_lo", "count"):
+        np.testing.assert_array_equal(
+            getattr(app.history.sharc, f).numpy(),
+            want["sharc"][f].astype(getattr(app.history.sharc, f).numpy()
+                                    .dtype), f)
+
+
+def test_default_app_ticks_match_reference(reference_default):
+    """Three ticks at the defaults from an empty history, history carried,
+    the reference's motion vectors carried in."""
+    name, want, motions, final = reference_default
+    app = _default_port_app(name, motions)
+    assert app.history.restir is not None and app.history.sharc is not None
+    assert app.sharc_settings.capacity_log2 == 22
+    assert (app.regir_settings is not None) == (name == "manylight")
+    assert app.pt_settings.external_di and \
+        app.pt_settings.sharc_mode == "query"
+    with _motion_pinned(app):
+        for k, (jimg, jrays, _) in enumerate(want):
+            img, rays = app.tick()
+            assert rays.dtype == torch.float64 and float(rays) == jrays, k
+            _assert_close_after_aces(img.numpy(), jimg)
+    _assert_state_matches(app, final)
+
+
+def test_default_app_tick_from_reference_history(reference_default):
+    """The last tick again, from the reference's own history (ReSTIR and
+    SHARC state included) carried across by `convert.history_from_numpy`."""
+    name, want, motions, final = reference_default
+    jimg, jrays, before = want[-1]
+    app = _default_port_app(name, motions[-1:])
+    app.history = convert.history_from_numpy(
+        before["denoiser"], before["taa"], before["restir"], before["sharc"],
+        device="cpu")
+    app.frame_index = TICKS - 1
+    with _motion_pinned(app):
+        img, rays = app.tick()
+    assert float(rays) == jrays
+    _assert_close_after_aces(img.numpy(), jimg)
+    _assert_state_matches(app, final)
+
+
+@pytest.mark.parametrize("reference_default", ["cornell"], indirect=True)
+def test_default_app_own_motion(reference_default):
+    """The Cornell box at the defaults with the port's own motion vectors:
+    mean <= 1e-3 and >= 97% of pixels within 1e-2 after ACES on every tick
+    (see the module docstring for the border pixels)."""
+    name, want, _, _ = reference_default
+    app = _default_port_app(name)
+    for jimg, jrays, _ in want:
+        img, rays = app.tick()
+        assert float(rays) == jrays
+        got = img.numpy()
+        d = np.abs(got - jimg)
+        assert np.isfinite(got).all() and d.mean() <= 1e-3, d.mean()
+        assert (d.max(-1) <= 1e-2).mean() >= 0.97
+
+
+def test_sharc_capacity_clamped_with_a_warning():
+    """A SHARC table above 2^SHARC_CAPACITY_CAP is clamped, loudly, as the
+    reference clamps it; the App then holds the clamped table."""
+    s = tconfig.GraphicsSettings(width=32, height=24)
+    s.raytracing.sharc_capacity_log2 = 24
+    s.check()
+    with pytest.warns(UserWarning, match="clamped to 22"):
+        app = tapp.App(tcornell.make_cornell_box(), _camera(tcornell), s,
+                       device="cpu")
+    assert app.sharc_settings.capacity_log2 == tapp.SHARC_CAPACITY_CAP == 22
+    assert app.history.sharc.key_lo.shape == (1 << 22,)

@@ -205,10 +205,37 @@ def test_renderer_cpu_image_checks():
 
 
 def test_unported_settings_raise():
+    """The SHARC query and the external-DI demux are ported: a Renderer
+    takes both settings and its frame runs once their inputs are given (the
+    SHARC state through `render_frame_sharc`, the DI mask through
+    `pathtrace.trace`); a frame without them raises, naming the input."""
+    from tpu_pbrt_torch.passes import pathtrace as tpt
+    from tpu_pbrt_torch.passes import sharc as tsharc
+    from tpu_pbrt_torch.render.camera import generate_rays, pixel_coords
+
     scene = tcornell.make_cornell_box()
-    for kw in (dict(sharc_mode="query"), dict(external_di=True)):
-        with pytest.raises(NotImplementedError):
-            trenderer.Renderer(scene, W, H, TSettings(**kw), device="cpu")
+    cam = tcornell.make_cornell_camera(16, 12)
+    query = trenderer.Renderer(scene, 16, 12, TSettings(
+        bounces=2, sharc_mode="query"), device="cpu")
+    with pytest.raises(ValueError, match="sharc_state"):
+        query.render(cam)
+    st = tsharc.SHARCSettings(capacity_log2=10)
+    img, rays, state = trenderer.render_frame_sharc(
+        query.tracer, query.env, query.light_count, cam.data(device="cpu"),
+        0, tsharc.init_state(st, device="cpu"), width=16, height=12,
+        settings=query.settings, sharc_settings=st)
+    assert np.isfinite(img.numpy()).all() and img.shape == (12, 16, 3)
+    assert int((state.key_lo != tsharc.EMPTY_KEY).sum()) > 0
+    di = trenderer.Renderer(scene, 16, 12, TSettings(
+        bounces=2, external_di=True), device="cpu")
+    with pytest.raises(ValueError, match="di_valid"):
+        di.render(cam)
+    o, d, t0, t1 = generate_rays(cam.data(device="cpu"), 16, 12)
+    px, py = pixel_coords(16, 12, "cpu")
+    rad = tpt.trace(di.tracer, di.env, di.light_count, o, d, t0, t1, px, py,
+                    0, di.settings,
+                    di_valid=torch.ones(16 * 12, dtype=torch.bool))[0]
+    assert np.isfinite(rad.to_tensor().numpy()).all()
     # the ray-cone spread of textured scenes is a ported setting
     trenderer.Renderer(scene, W, H, TSettings(cone_spread=0.01),
                        device="cpu")

@@ -1,5 +1,5 @@
-"""Carry the JAX package's scene, tracer and App history arrays into the
-port.
+"""Carry the JAX package's scene, tracer and App history arrays (the
+ReSTIR and SHARC state included) into the port.
 
 The inputs are plain numpy arrays keyed by the reference's NamedTuple field
 names (a caller holding a `tpu_pbrt` `Tracer` or `Scene` passes
@@ -14,10 +14,14 @@ import torch
 
 from .models.material import MaterialTable
 from .models.mesh import Geometry
-from .models.scene import EmissiveLights, EnvironmentLight, Scene
+from .models.scene import (EmissiveLights, EnvironmentLight, Scene,
+                           light_arrays)
 from .ops import texture, traverse_dense, traverse_resident
 from .ops.tracer import Tracer
+from .ops.vec import Vec3
 from .passes.denoise import DenoiserState
+from .passes.restir import Reservoir, ReSTIRState
+from .passes.sharc import SHARCState
 from .passes.taa import TAAState
 from .render.app import FrameHistory
 
@@ -28,7 +32,8 @@ _DERIVED = ("boxes", "rows", "pad_rows", "pad_keys")
 
 def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
                       light_table: np.ndarray, light_cdf: np.ndarray,
-                      atlas: dict | None = None, alpha_test: bool = False, *,
+                      atlas: dict | None = None, alpha_test: bool = False,
+                      lights: dict | None = None, *,
                       device: str | torch.device) -> Tracer:
     """Port `Tracer` from a reference tracer's leaves. `accel` holds the
     fields of a `DenseTris` (v0, e1, e2, tri_id, opacity) or of a
@@ -39,7 +44,10 @@ def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
     rows (`traverse_resident.sort_pad`), the dense packed rows from v0, e1,
     e2 and opacity (`traverse_dense.pack_rows`). `atlas`
     holds the reference atlas's `texels` ((N, 4) uint32), `desc` and
-    `levels`; `alpha_test` is the reference tracer's flag."""
+    `levels`; `alpha_test` is the reference tracer's flag. `lights` (the
+    reference scene's `EmissiveLights` fields, `count` included) gives the
+    tracer its light columns (`Tracer.lights`), which ReSTIR and ReGIR
+    read."""
 
     def t(a, dtype):
         return torch.as_tensor(np.array(a, dtype=dtype), device=device)
@@ -57,13 +65,18 @@ def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
     else:
         fields["rows"] = traverse_dense.pack_rows(
             fields["v0"], fields["e1"], fields["e2"], fields["opacity"])
+    light_cols = None if lights is None else {
+        k: torch.as_tensor(v, device=device)
+        for k, v in light_arrays(lights).items()}
     return Tracer(cls(**fields, num=int(accel["num"])),
                   t(shade_table, np.float32), t(light_table, np.float32),
                   t(light_cdf, np.float32),
                   None if atlas is None else texture.atlas_from_numpy(
                       atlas["texels"], atlas["desc"], atlas["levels"],
                       device=device),
-                  alpha_test)
+                  alpha_test, light_cols,
+                  None if lights is None else int(np.asarray(
+                      lights["count"])))
 
 
 def scene_from_numpy(geometry: dict, materials: dict, environment: dict,
@@ -83,15 +96,44 @@ def scene_from_numpy(geometry: dict, materials: dict, environment: dict,
                  nt(EmissiveLights, lights))
 
 
-def history_from_numpy(denoiser: dict, taa: dict, *,
+def history_from_numpy(denoiser: dict, taa: dict, restir: dict | None = None,
+                       sharc: dict | None = None, *,
                        device: str | torch.device):
     """Port an App's `FrameHistory` from a reference App's history: the
     fields of its `DenoiserState` (color, moments, depth, normal,
-    history_len) and `TAAState` (history, valid) as numpy arrays."""
-    def nt(cls, fields):
-        return cls(**{k: torch.as_tensor(np.array(fields[k], np.float32),
-                                         device=device)
-                      for k in cls._fields})
+    history_len) and `TAAState` (history, valid) as numpy arrays; with
+    `restir` its `ReSTIRState` (`reservoir`: a dict of the `Reservoir`
+    fields; depth; `normal`: a dict of x, y, z; surface) and with `sharc`
+    its `SHARCState` (the u32 key_lo, key_hi and qdata words become int64;
+    radiance, count, stale)."""
+    def f32(a):
+        return torch.as_tensor(np.array(a, np.float32), device=device)
 
+    def nt(cls, fields):
+        return cls(**{k: f32(fields[k]) for k in cls._fields})
+
+    restir_state = None
+    if restir is not None:
+        res = restir["reservoir"]
+        n = restir["normal"]
+        restir_state = ReSTIRState(
+            reservoir=Reservoir(
+                light=torch.as_tensor(np.array(res["light"], np.int32),
+                                      device=device),
+                **{k: f32(res[k]) for k in Reservoir._fields[1:]}),
+            depth=f32(restir["depth"]),
+            normal=Vec3(f32(n["x"]), f32(n["y"]), f32(n["z"])),
+            surface=f32(restir["surface"]))
+    sharc_state = None
+    if sharc is not None:
+        def u32(a):
+            return torch.as_tensor(np.array(a, np.uint32).astype(np.int64),
+                                   device=device)
+
+        sharc_state = SHARCState(
+            key_lo=u32(sharc["key_lo"]), key_hi=u32(sharc["key_hi"]),
+            radiance=f32(sharc["radiance"]), count=f32(sharc["count"]),
+            stale=f32(sharc["stale"]), qdata=u32(sharc["qdata"]))
     return FrameHistory(denoiser=nt(DenoiserState, denoiser),
-                        taa=nt(TAAState, taa))
+                        taa=nt(TAAState, taa), restir=restir_state,
+                        sharc=sharc_state)

@@ -129,6 +129,35 @@ class EmissiveLights(NamedTuple):
     count: np.ndarray        # () i32 — actual number of lights
 
 
+class LightTensors(NamedTuple):
+    """The emissive-light table on the device (the `Tracer` holds these as
+    buffers). `count` stays a Python int, so no branch on it reads the
+    device."""
+    v0: torch.Tensor             # (L, 3)
+    e1: torch.Tensor             # (L, 3)
+    e2: torch.Tensor             # (L, 3)
+    normal: torch.Tensor         # (L, 3)
+    radiance: torch.Tensor       # (L, 3)
+    area: torch.Tensor           # (L,)
+    power: torch.Tensor          # (L,)
+    cdf: torch.Tensor            # (L,)
+    tri_to_light: torch.Tensor   # (T,) i32
+    count: int
+
+
+LIGHT_FIELDS = ("v0", "e1", "e2", "normal", "radiance", "area", "power",
+                "tri_to_light")
+
+
+def light_arrays(lights) -> dict:
+    """The `LIGHT_FIELDS` of an `EmissiveLights` (or of a dict of the
+    reference's fields) as numpy arrays: float32, tri_to_light int32."""
+    get = lights.get if isinstance(lights, dict) else \
+        lambda k: getattr(lights, k)
+    return {k: np.asarray(get(k), np.int32 if k == "tri_to_light"
+                          else np.float32) for k in LIGHT_FIELDS}
+
+
 class Scene(NamedTuple):
     geometry: Geometry
     materials: MaterialTable

@@ -17,7 +17,9 @@ math); `rsqrtf` is the one approximate op, in the bounce fetch.
 
 Each `Kernel` keeps a plain integer launch count, incremented only where
 its wrapper launches it, and the same count split by the wrapper's `tag`
-(the row fetch tags a launch with its table width and slot count).
+(the row fetch tags a launch with its table width and slot count, the
+dense sweeps, the bounce fetch and the fused kernel with their ray
+count).
 """
 
 from __future__ import annotations

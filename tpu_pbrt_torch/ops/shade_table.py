@@ -466,7 +466,7 @@ def fetch_bounce_block_cuda(sub: torch.Tensor, slot: torch.Tensor, o: Vec3,
     for name, a in zip(("ox", "oy", "oz", "dx", "dy", "dz"), lanes):
         cuda.check(a, name, torch.float32, (r,), dev)
     out = torch.empty((FB_OUT, r), dtype=torch.float32, device=dev)
-    FETCH_BOUNCE_KERNEL.launch(slot, *lanes, sub, tp, r, out)
+    FETCH_BOUNCE_KERNEL.launch(slot, *lanes, sub, tp, r, out, tag=r)
     return out
 
 
@@ -613,6 +613,9 @@ _LRAD = 12
 _LPDFA = 15
 _LAREA = 16
 LIGHT_COLS = 17
+# the columns `light_rows` callers read directly
+LIGHT_PDF_AREA = _LPDFA
+LIGHT_AREA = _LAREA
 
 
 def build_light_table(lights) -> np.ndarray:
@@ -657,11 +660,33 @@ def _light_rows(table: torch.Tensor, li: torch.Tensor):
     return fetch_rows(table, li.to(torch.int32))   # (COLS, R)
 
 
+def fetch_light_pdf_area(table: torch.Tensor, li: torch.Tensor):
+    """The area-measure selection pdf column for explicit light indices."""
+    return _light_rows(table, torch.clamp(li, min=0))[_LPDFA]
+
+
+def fetch_light_area(table: torch.Tensor, li: torch.Tensor):
+    """The triangle area column for explicit light indices."""
+    return _light_rows(table, torch.clamp(li, min=0))[_LAREA]
+
+
 def fetch_light_by_index(table: torch.Tensor, li: torch.Tensor, bary_u,
                          bary_v) -> LightFetch:
     """Row fetch of explicit light indices + sqrt-warped point."""
-    row = _light_rows(table, torch.clamp(li, min=0))
+    return light_from_rows(_light_rows(table, torch.clamp(li, min=0)),
+                           bary_u, bary_v)
 
+
+def light_rows(table: torch.Tensor, li: torch.Tensor):
+    """The light table's rows for explicit light indices (negative ones
+    read row 0): 17 columns, each (R,); index with the column constants or
+    hand to `light_from_rows`. One fetch serves every column."""
+    return _light_rows(table, torch.clamp(li, min=0))
+
+
+def light_from_rows(row, bary_u, bary_v) -> LightFetch:
+    """Sqrt-warped point, normal, radiance and area pdf from fetched light
+    rows."""
     def v3(c):
         return Vec3(row[c], row[c + 1], row[c + 2])
 

@@ -83,7 +83,8 @@ def closest_hit_shade_cuda(tris: DenseTris, sub: torch.Tensor, o: Vec3,
     rows, num, idx_bits = traverse_dense._tri_args(tris, dev)
     st.check_bounce_sub(sub, dev)
     out = torch.empty((OUT_ROWS, r), dtype=torch.float32, device=dev)
-    KERNEL.launch(*lanes, rows, num, idx_bits, sub, sub.shape[0], r, out)
+    KERNEL.launch(*lanes, rows, num, idx_bits, sub, sub.shape[0], r, out,
+                  tag=r)
     return out
 
 

@@ -19,7 +19,9 @@ chunk on the card. `TPU_PBRT_FORCE_TRACER` is not ported.
 The scene tables are registered buffers, so `Tracer.to(device)` moves them
 all: the accel arrays (`accel_*`), the shade table and its sub-tables (the
 bounce loop's and the alpha test's column subsets, built once here), the
-light table, the light CDF and the texture atlas (`atlas_*`).
+light table, the light CDF, the light table's columns (`light_*`, which
+ReSTIR and ReGIR read through `Tracer.lights`; the light count is a Python
+int) and the texture atlas (`atlas_*`).
 
 A scene with textures carries the atlas (`textured`); one whose ALPHA_MASK
 materials have a base-color texture also sets `alpha_test`, which turns on
@@ -34,6 +36,7 @@ import torch
 from torch import nn
 
 from ..models.material import ALPHA_MASK
+from ..models.scene import LIGHT_FIELDS, LightTensors, light_arrays
 
 from . import shade_table as shade_mod
 from . import texture as tex_mod
@@ -60,7 +63,8 @@ class Tracer(nn.Module):
     def __init__(self, accel, shade_table: torch.Tensor,
                  light_table: torch.Tensor, light_cdf: torch.Tensor,
                  atlas: TextureAtlas | None = None,
-                 alpha_test: bool = False):
+                 alpha_test: bool = False, lights: dict | None = None,
+                 light_count: int | None = None):
         super().__init__()
         self.kind = next(k for k, (cls, _) in _ACCEL.items()
                          if isinstance(accel, cls))
@@ -74,6 +78,14 @@ class Tracer(nn.Module):
         self.register_buffer("shade_table", shade_table)
         self.register_buffer("light_table", light_table)
         self.register_buffer("light_cdf", light_cdf)
+        # the light table's columns one by one (ReSTIR, ReGIR and the
+        # BRDF-hit light lookup read them): `lights` maps LIGHT_FIELDS to
+        # tensors; without it only the packed table is there
+        self.has_lights = lights is not None
+        self.light_count = int(light_count or 0)
+        if self.has_lights:
+            for f in LIGHT_FIELDS:
+                self.register_buffer("light_" + f, lights[f])
         # the bounce loop's sub-table: the 30 untextured columns padded to
         # 32, or the 50 textured columns
         self.register_buffer("bounce_sub", shade_mod.bounce_subtable(
@@ -90,6 +102,16 @@ class Tracer(nn.Module):
         cls, _ = _ACCEL[self.kind]
         return cls(*(getattr(self, "accel_" + f) for f in cls._fields[:-1]),
                    num=self.num_tris)
+
+    @property
+    def lights(self) -> LightTensors:
+        """The emissive-light table on the tracer's device."""
+        if not self.has_lights:
+            raise ValueError("this tracer was built without its light "
+                             "columns (pass `lights=`)")
+        return LightTensors(
+            **{f: getattr(self, "light_" + f) for f in LIGHT_FIELDS},
+            cdf=self.light_cdf, count=self.light_count)
 
     @property
     def atlas(self) -> TextureAtlas | None:
@@ -206,5 +228,8 @@ def build_for_scene(scene, textures=None, texture_srgb=None, *,
     def dev(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
+    lights = {k: torch.as_tensor(v, device=device)
+              for k, v in light_arrays(scene.lights).items()}
     return Tracer(accel, dev(table), dev(light_table),
-                  dev(scene.lights.cdf), atlas, alpha_test)
+                  dev(scene.lights.cdf), atlas, alpha_test, lights,
+                  int(np.asarray(scene.lights.count)))

@@ -266,7 +266,8 @@ def closest_hit_cuda(tris: DenseTris, origin: Vec3, direction: Vec3,
     rows, num, idx_bits = _tri_args(tris, dev)
     out_t = torch.empty((r,), dtype=torch.float32, device=dev)
     out_tri = torch.empty((r,), dtype=torch.int32, device=dev)
-    CLOSEST_HIT_KERNEL.launch(*lanes, rows, num, idx_bits, r, out_t, out_tri)
+    CLOSEST_HIT_KERNEL.launch(*lanes, rows, num, idx_bits, r, out_t, out_tri,
+                              tag=r)
     zeros = torch.zeros((r,), dtype=torch.float32, device=dev)
     return Hit(out_t, zeros, zeros, out_tri)
 
@@ -279,7 +280,7 @@ def any_hit_cuda(tris: DenseTris, origin: Vec3, direction: Vec3, t_min,
     r, dev, lanes = _ray_args(origin, direction, t_min, t_max)
     rows, num, _ = _tri_args(tris, dev)
     out = torch.empty((r,), dtype=torch.bool, device=dev)
-    ANY_HIT_KERNEL.launch(*lanes, rows, num, r, out)
+    ANY_HIT_KERNEL.launch(*lanes, rows, num, r, out, tag=r)
     return out
 
 

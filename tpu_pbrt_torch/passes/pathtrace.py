@@ -16,16 +16,24 @@ and at scheduled bounces the stochastic pool fold. Every per-lane state
 tensor stays on the pool's device; the only host sync is the caller's read
 of the ray count.
 
+Two permutations feed the App's ReSTIR DI and SHARC passes:
+  * `external_di`: the first vertex's direct light comes from ReSTIR DI,
+    so bounce 0 skips its NEE and bounce 1 drops emission where the
+    caller's `di_valid` mask says DI was produced;
+  * `sharc_mode="query"`: from bounce 1 on, a hit whose voxel is in the
+    SHARC table and whose blur footprint (the path's accumulated
+    roughness, `rough_accum`, carried only then) covers the voxel ends in
+    the cached radiance.
+`trace_sharc_update` is the SHARC update pass: a short path per update
+pixel whose per-vertex radiance estimates become the resolve's records
+(through the fused kernel when the tracer takes it).
+
 Estimator semantics match the reference:
   * miss -> environment radiance, terminate
   * emission picked up on every hit, MIS-weighted against NEE
   * one-sample-MIS 3-lobe BSDF: throughput *= f(lobe)/pdf(lobe)
   * Russian roulette after `rr_start_bounce` on max-component throughput
   * luminance cutoff on throughput; non-finite sample guard
-
-Not ported (raise `NotImplementedError` when set): `sharc_mode`,
-`external_di`. The SHARC roughness accumulator only feeds those, so the
-state leaves it out.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from ..models.scene import environment_radiance
 from ..ops import bxdf, rng, shade_table, vec
 from ..ops.traverse import Hit
 from ..ops.vec import Vec3
+from . import sharc as sharc_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +60,11 @@ class PathTraceSettings:
     throughput_threshold: float = 1e-3
     # one-light NEE with balance-heuristic MIS
     next_event_estimation: bool = True
+    # SHARC radiance cache: "off" | "query" (terminate into cached radiance
+    # once the blur footprint covers the voxel)
     sharc_mode: str = "off"
+    # direct light supplied by the ReSTIR DI pass: skip bounce 0's NEE and
+    # bounce 1's emission where `di_valid`
     external_di: bool = False
     # exact live-lane ray counting (else the static pool-size bound)
     count_rays: bool = False
@@ -63,12 +76,6 @@ class PathTraceSettings:
     # enables mip-aware texture sampling, footprint = cone_spread * path
     # length at each hit
     cone_spread: float = 0.0
-
-    def check_ported(self) -> None:
-        if self.sharc_mode != "off":
-            raise NotImplementedError("sharc_mode (SHARC radiance cache)")
-        if self.external_di:
-            raise NotImplementedError("external_di (ReSTIR DI composite)")
 
 
 class _PathState(NamedTuple):
@@ -87,6 +94,9 @@ class _PathState(NamedTuple):
     # (R,) path length so far (ray-cone width); None when `cone_spread` is
     # 0 and nothing reads it
     path_t: torch.Tensor | None
+    # (R,) accumulated roughness along the path (the SHARC footprint);
+    # None unless `sharc_mode == "query"`
+    rough_accum: torch.Tensor | None
 
 
 def _map_state(state: _PathState, fn) -> _PathState:
@@ -119,8 +129,8 @@ def _bank_add(bank: Vec3, idx: torch.Tensor, rad: Vec3) -> Vec3:
                 bank.z + torch.where(m, rad.z.repeat(reps), 0.0))
 
 
-def _fold_half(state: _PathState, px, py, idx, frame, sample_offset,
-               bounce):
+def _fold_half(state: _PathState, px, py, idx, di_valid, frame,
+               sample_offset, bounce):
     """Stochastic pool compaction: pair lane i with lane i+R/2, keep ONE.
     If both are alive a fair coin picks the survivor and its throughput
     doubles (unbiased); if one is alive it survives with weight 1; dead
@@ -143,19 +153,22 @@ def _fold_half(state: _PathState, px, py, idx, frame, sample_offset,
     state = state._replace(
         ray_count=rc_fold,
         throughput=state.throughput * torch.where(both, 2.0, 1.0))
-    return state, sel(px), sel(py), sel(idx)
+    return (state, sel(px), sel(py), sel(idx),
+            None if di_valid is None else sel(di_valid))
 
 
 def trace(tracer, env_color, light_count: int, origin: Vec3,
           direction: Vec3, t_min, t_max, px: torch.Tensor, py: torch.Tensor,
           frame: int, settings: PathTraceSettings, sample_offset: int = 0,
-          primary_hit: Hit | None = None):
+          primary_hit: Hit | None = None, sharc_state=None,
+          sharc_settings=None, camera_pos=None, di_valid=None):
     """Trace one sample per pool entry; returns (radiance: Vec3,
     first_lobe, first_hit_t, ray_count (0-dim float64 tensor)). px/py
     (int64) key the per-pixel RNG stream. `env_color` is the environment
     (`environment_radiance`'s argument). `primary_hit` (if given) supplies
-    the bounce-0 hit from the G-buffer pass."""
-    settings.check_ported()
+    the bounce-0 hit from the G-buffer pass. `sharc_state`,
+    `sharc_settings` and `camera_pos` (a (3,) tensor) feed the SHARC
+    query; `di_valid` ((R,) bool) the external-DI demux."""
     r = origin.x.shape[0]
     dev = origin.x.device
     schedule = tuple(settings.compaction_schedule)
@@ -192,10 +205,16 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
         ray_count=lane(0.0),
         prev_bsdf_pdf=lane(0.0),
         path_t=lane(0.0) if settings.cone_spread > 0.0 else None,
+        rough_accum=lane(0.0) if settings.sharc_mode == "query" else None,
     )
+    if settings.external_di and di_valid is None:
+        raise ValueError("external_di needs the di_valid mask")
+    if settings.sharc_mode == "query" and sharc_state is None:
+        raise ValueError("sharc_mode='query' needs sharc_state, "
+                         "sharc_settings and camera_pos")
     zero3 = Vec3.splat(0.0)
 
-    def shade(bounce: int, state: _PathState, hit: Hit, px, py,
+    def shade(bounce: int, state: _PathState, hit: Hit, px, py, di_valid,
               attrs: shade_table.ShadeAttrs | None = None) -> _PathState:
         """Everything after traversal: miss env, emission MIS, NEE, BSDF
         sample, RR, cutoff, continuation ray. `attrs` (if given) comes from
@@ -213,9 +232,27 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
         b = _bsdf_from_attrs(attrs)
         emission = attrs.emission
 
+        # SHARC query: from bounce 1 on, terminate into cached radiance
+        # where the path footprint covers the voxel
+        radiance = state.radiance
+        if settings.sharc_mode == "query" and bounce > 0:
+            front_flat = vec.where(attrs.is_front_face, attrs.flat_normal,
+                                   -attrs.flat_normal)
+            key = sharc_mod.voxel_key(attrs.position, front_flat, camera_pos,
+                                      sharc_settings)
+            cached, found = sharc_mod.query(sharc_state, key)
+            fp_ok = sharc_mod.footprint_valid(
+                hit.t, state.rough_accum, attrs.position, camera_pos,
+                sharc_settings)
+            use_cache = is_hit & found & fp_ok
+            radiance = radiance + vec.where(
+                use_cache, state.throughput * cached, zero3)
+            # cached lanes contribute nothing else at this vertex
+            is_hit = is_hit & ~use_cache
+
         # miss: environment light, terminate
         env = environment_radiance(env_color, state.direction)
-        radiance = state.radiance + vec.where(
+        radiance = radiance + vec.where(
             state.active & ~hit.mask, state.throughput * env, zero3)
 
         # emission pickup, MIS-weighted against NEE when enabled
@@ -231,6 +268,10 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
                 state.prev_bsdf_pdf / torch.clamp(denom, min=1e-20))
         else:
             w_emit = 1.0
+        if settings.external_di and bounce == 1:
+            # ReSTIR owns the first vertex's direct light: no bounce-1
+            # emission where DI was produced
+            w_emit = torch.where(di_valid, 0.0, w_emit)
         radiance = radiance + vec.where(
             is_hit, state.throughput * (emission * w_emit), zero3)
 
@@ -264,6 +305,8 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
                             | (f_nee.z > 0.0)))
             if light_count <= 0:
                 valid_nee = torch.zeros_like(valid_nee)
+            if settings.external_di and bounce == 0:
+                valid_nee = valid_nee & ~di_valid
             shadow_o = vec.safe_spawn_offset(attrs.position,
                                              attrs.flat_normal, wi)
             occluded = tracer.any_hit(
@@ -340,25 +383,30 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
             prev_bsdf_pdf=torch.where(is_hit, next_pdf, state.prev_bsdf_pdf),
             path_t=(None if state.path_t is None else torch.where(
                 is_hit, state.path_t + hit.t, state.path_t)),
+            rough_accum=(None if state.rough_accum is None else torch.where(
+                is_hit, state.rough_accum + torch.where(
+                    lobe == bxdf.LOBE_DIFFUSE, 1.0, b.roughness),
+                state.rough_accum)),
         )
 
     fused = tracer.supports_fused_shade()
 
-    def bounce_step(bounce: int, state: _PathState, px, py) -> _PathState:
+    def bounce_step(bounce: int, state: _PathState, px, py,
+                    di_valid) -> _PathState:
         # inactive lanes traverse an empty interval
         t_max = torch.where(state.active, state.t_max, -float("inf"))
         if fused:
             hit, attrs = tracer.closest_hit_shade(
                 state.origin, state.direction, state.t_min, t_max)
-            return shade(bounce, state, hit, px, py, attrs)
+            return shade(bounce, state, hit, px, py, di_valid, attrs)
         hit = tracer.closest_hit(state.origin, state.direction, state.t_min,
                                  t_max)
-        return shade(bounce, state, hit, px, py)
+        return shade(bounce, state, hit, px, py, di_valid)
 
     # bounce 0 reuses the G-buffer's primary hit instead of retracing
     start = 0
     if primary_hit is not None:
-        state = shade(0, state, primary_hit, px, py)
+        state = shade(0, state, primary_hit, px, py, di_valid)
         if settings.count_rays:   # the primary ray was the G-buffer's
             state = state._replace(ray_count=state.ray_count - 1.0)
         start = 1
@@ -366,7 +414,7 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
     bank = idx = first_lobe = first_hit_t = None
     for k, end in enumerate(list(schedule) + [settings.bounces + 1]):
         for bounce in range(start, end):
-            state = bounce_step(bounce, state, px, py)
+            state = bounce_step(bounce, state, px, py, di_valid)
         start = max(start, end)
         if k >= len(schedule):
             break
@@ -382,8 +430,8 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
             bank = _bank_add(bank, idx, cur)
         state = state._replace(
             radiance=Vec3.zeros((state.active.shape[0],), dev))
-        state, px, py, idx = _fold_half(state, px, py, idx, frame,
-                                        sample_offset, end)
+        state, px, py, idx, di_valid = _fold_half(
+            state, px, py, idx, di_valid, frame, sample_offset, end)
 
     # total rays: ONE cross-pool reduction per frame (exact mode), or the
     # static bound from the fold schedule
@@ -410,18 +458,139 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
 def render_sample_radiance(tracer, env_color, light_count, origin: Vec3,
                            direction: Vec3, t_min, t_max, px, py, frame,
                            settings: PathTraceSettings,
-                           primary_hit: Hit | None = None):
+                           primary_hit: Hit | None = None, **trace_kwargs):
     """Average `samples_per_pixel` independent path samples; returns
-    (radiance Vec3, rays traced)."""
+    (radiance Vec3, rays traced). `trace_kwargs` go to `trace` (the SHARC
+    query's and the external-DI demux's inputs)."""
     acc = rays = None
     spp = settings.samples_per_pixel
     for s in range(spp):
         rad, _, _, rc = trace(tracer, env_color, light_count, origin,
                               direction, t_min, t_max, px, py, frame,
                               settings, sample_offset=s,
-                              primary_hit=primary_hit)
+                              primary_hit=primary_hit, **trace_kwargs)
         acc = rad if acc is None else acc + rad
         rays = rc if rays is None else rays + rc
     if spp == 1:
         return acc, rays
     return acc * (1.0 / spp), rays
+
+
+def trace_sharc_update(tracer, light_count: int, origin: Vec3,
+                       direction: Vec3, t_min, t_max, px, py, frame: int,
+                       settings: PathTraceSettings, sharc_settings,
+                       camera_pos):
+    """The SHARC update pass: a short path trace at reduced resolution
+    whose per-vertex radiance estimates feed the resolve.
+
+    Returns (keys, records, valid), each flattened from (B+1, R) bounce
+    by bounce: per vertex b, L(b) = (the contributions from b on) /
+    throughput(b). Roughness is floored to the SHARC threshold so the
+    cache trains on diffuse-like transport. Every vertex traces the
+    closest hit (kernel 1 and the bounce fetch, kernel 3, or the fused
+    kernel when the tracer takes it) and one NEE shadow ray (kernel 2)."""
+    r = origin.x.shape[0]
+    dev = origin.x.device
+    zero3 = Vec3.splat(0.0)
+
+    def draw(bounce, slot):
+        return rng.uniform4(px, py, frame, 7000 + slot + bounce * 8)
+
+    def bounds(x):
+        if isinstance(x, torch.Tensor):
+            return torch.broadcast_to(x.to(torch.float32), (r,))
+        return torch.full((r,), float(x), device=dev)
+
+    active = torch.ones((r,), dtype=torch.bool, device=dev)
+    o, d = origin, direction
+    tmin, tmax = bounds(t_min), bounds(t_max)
+    throughput = Vec3.full(1.0, (r,), dev)
+    keys, contribs, thrs, valids = [], [], [], []
+
+    fused = tracer.supports_fused_shade()
+    for bounce in range(settings.bounces + 1):
+        live_max = torch.where(active, tmax, -float("inf"))
+        if fused:
+            hit, attrs = tracer.closest_hit_shade(o, d, tmin, live_max)
+        else:
+            hit = tracer.closest_hit(o, d, tmin, live_max)
+            attrs = tracer.fetch_bounce(torch.clamp(hit.tri, min=0), o, d)
+        is_hit = hit.mask & active
+        b = _bsdf_from_attrs(attrs)
+        b = b._replace(roughness=torch.clamp(
+            b.roughness, min=sharc_settings.roughness_threshold))
+
+        front_flat = vec.where(attrs.is_front_face, attrs.flat_normal,
+                               -attrs.flat_normal)
+        key = sharc_mod.voxel_key(attrs.position, front_flat, camera_pos,
+                                  sharc_settings)
+
+        # vertex contribution: emission + one-light NEE (throughput-scaled)
+        contrib = vec.where(is_hit, throughput * attrs.emission, zero3)
+        sv = bxdf.make_surface_vectors(attrs.is_front_face,
+                                       attrs.flat_normal,
+                                       attrs.shading_normal)
+        view = -d
+        weights = bxdf.lobe_weights(b, sv, view)
+        u3 = draw(bounce, 2)
+        ls = shade_table.fetch_light(tracer.light_table, tracer.light_cdf,
+                                     u3[0], u3[1], u3[2])
+        to_l = ls.position - attrs.position
+        dist = vec.length(to_l)
+        wi = to_l * torch.reciprocal(torch.clamp(dist, min=1e-8))
+        cos_light = -vec.dot(ls.normal, wi)
+        pdf_sa = torch.where(
+            cos_light > 1e-6,
+            ls.pdf_area * dist * dist / torch.clamp(cos_light, min=1e-6),
+            0.0)
+        f_d, f_s = bxdf.evaluate_combined(b, sv, wi, view, weights)
+        f_nee = f_d + f_s
+        ok_nee = is_hit & (pdf_sa > 0.0)
+        if light_count <= 0:
+            ok_nee = torch.zeros_like(ok_nee)
+        shadow_o = vec.safe_spawn_offset(attrs.position, attrs.flat_normal,
+                                         wi)
+        occluded = tracer.any_hit(
+            shadow_o, wi, 0.0,
+            torch.where(ok_nee, dist * (1.0 - 1e-3), -float("inf")))
+        contrib = contrib + vec.where(
+            ok_nee & ~occluded,
+            throughput * f_nee * ls.radiance
+            * torch.reciprocal(torch.clamp(pdf_sa, min=1e-20)),
+            zero3)
+
+        keys.append(key)
+        contribs.append(contrib)
+        thrs.append(throughput)
+        valids.append(is_hit)
+
+        # continuation
+        u4 = draw(bounce, 0)
+        l, lobe, valid = bxdf.sample(b, sv, view, u4)
+        pdf = bxdf.pdf_sampled_lobe(b, sv, l, view, weights, lobe)
+        f = bxdf.evaluate_sampled_lobe(b, sv, l, view, weights, lobe)
+        ok = valid & (pdf > 0.0)
+        throughput = throughput * vec.where(
+            ok, f * torch.reciprocal(torch.clamp(pdf, min=1e-20)),
+            Vec3.splat(1.0))
+        active = is_hit & ok
+        o = vec.safe_spawn_offset(attrs.position, attrs.flat_normal, l)
+        d = vec.where(is_hit, l, d)
+        tmin = torch.zeros((r,), device=dev)
+        tmax = torch.full((r,), float("inf"), device=dev)
+
+    def stack(vs, c):
+        return torch.stack([getattr(v, c) for v in vs])   # (B+1, R)
+
+    # suffix sums over the bounce axis: S_b = sum_{k >= b} c_k
+    def suffix(x):
+        return torch.flip(torch.cumsum(torch.flip(x, (0,)), 0), (0,))
+
+    records = Vec3(*(suffix(stack(contribs, c))
+                     * torch.reciprocal(torch.clamp(stack(thrs, c),
+                                                    min=1e-6))
+                     for c in "xyz"))
+    return (sharc_mod.VoxelKey(lo=stack(keys, "lo").reshape(-1),
+                               hi=stack(keys, "hi").reshape(-1)),
+            records.map(lambda a: a.reshape(-1)),
+            torch.stack(valids).reshape(-1))

@@ -2,7 +2,7 @@
 
     python -m tpu_pbrt_torch.profile_frame [cornell] [cornell_fused] [helmet]
                                            [helmet_textured] [cornell_540]
-                                           [app]
+                                           [app] [manylight] [app_nodi]
     python -m tpu_pbrt_torch.profile_frame --alternate ROUNDS
 
 For each named path (the first four by default) it renders two warm-up
@@ -18,12 +18,17 @@ time. For a textured path it also gives the texture taps' share: the
 kernels launched inside `shade_table.apply_textures` (a profiler range put
 around it here), their count and device time per frame.
 
-`app` does the same for ticks of the App frame graph (`render/app.py`:
-the Cornell box at 1920x1080 output, 960x540 internal, ReSTIR DI and SHARC
-off, folds 4,5,6, the other settings at their defaults) and splits each
-tick by the App's own profiler ranges: gbuffer, pathtrace, denoise, taa,
-bloom_tonemap (and what runs outside them), with each range's launches and
-device time per tick. `cornell_540` is a `Renderer` frame at the App's
+`app` does the same for ticks of the App frame graph (`render/app.py`,
+bench.py's app configuration: the Cornell box at 1920x1080 output, 960x540
+internal, the `GraphicsSettings()` defaults (ReSTIR DI, SHARC at 2^22, 8
+bounces, denoiser, TAA, bloom, ACES) with folds 4,5,6) and splits each
+tick by the App's own profiler ranges: gbuffer, regir, restir,
+sharc_update, sharc_resolve, pathtrace, denoise, taa, bloom_tonemap (and
+what runs outside them), with each range's launches and device time per
+tick. `manylight` is bench.py's manylight configuration: the same App on
+the 64-light room (`models/manylight.py`, camera at (0, 3, 9) looking
+(180, 15)) with ReGIR on, cell size 1.5. `app_nodi` is the App with
+ReSTIR DI and SHARC off. `cornell_540` is a `Renderer` frame at the App's
 internal resolution with the App's path-trace settings: the App tick
 without its image-space passes.
 
@@ -55,7 +60,11 @@ import torch
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, TIMED, PROFILED = 2, 4, 2
 APP_FOLDS = (4, 5, 6)
-APP_STAGES = ("gbuffer", "pathtrace", "denoise", "taa", "bloom_tonemap")
+APP_STAGES = ("gbuffer", "regir", "restir", "sharc_update", "sharc_resolve",
+              "pathtrace", "denoise", "taa", "bloom_tonemap")
+# the App paths: the full frame graph on the Cornell box and on the 64-light
+# room, and the Cornell App without ReSTIR DI and SHARC
+APP_PATHS = ("app", "manylight", "app_nodi")
 
 # substrings of the hand-written kernels' symbol names (csrc/*.cu)
 HAND_WRITTEN = ("dense_closest_hit_kernel", "dense_closest_hit_shade_kernel",
@@ -64,19 +73,57 @@ HAND_WRITTEN = ("dense_closest_hit_kernel", "dense_closest_hit_shade_kernel",
 
 
 def app_settings(width: int = WIDTH, height: int = HEIGHT,
-                 bounces: int | None = None, folds=APP_FOLDS):
-    """The App path's settings (bench.py's app config without ReSTIR DI and
-    SHARC): the given folds, the defaults otherwise (8 bounces, scale 0.5,
-    denoiser 4 iterations, TAA, bloom 0.05, ACES)."""
+                 bounces: int | None = None, folds=APP_FOLDS,
+                 path: str = "app_nodi", sharc_log2: int | None = None):
+    """An App path's settings: the given folds, the defaults otherwise (8
+    bounces, scale 0.5, ReSTIR DI, SHARC at 2^22, denoiser 4 iterations,
+    TAA, bloom 0.05, ACES); `app_nodi` turns ReSTIR DI and SHARC off,
+    `manylight` sets bench.py's ReGIR cell size (1.5)."""
     from .utils import config
 
+    if path not in APP_PATHS:
+        raise ValueError(f"unknown App path {path!r}")
     s = config.GraphicsSettings(width=width, height=height)
-    s.raytracing.restir_di = False
-    s.raytracing.sharc = False
+    if path == "app_nodi":
+        s.raytracing.restir_di = False
+        s.raytracing.sharc = False
+    if path == "manylight":
+        s.raytracing.regir = True
+        s.raytracing.regir_cell_size = 1.5
     s.raytracing.compaction_schedule = tuple(folds)
     if bounces is not None:
         s.raytracing.bounces = bounces
+    if sharc_log2 is not None:
+        s.raytracing.sharc_capacity_log2 = sharc_log2
     return s.check()
+
+
+def app_scene(path: str, width: int = WIDTH, height: int = HEIGHT):
+    """(scene, camera) of an App path: the Cornell box and its camera, or
+    for `manylight` the 64-light room seen from (0, 3, 9) at yaw 180,
+    pitch 15 (bench.py's manylight camera)."""
+    import numpy as np
+
+    from .models.cornell import make_cornell_box, make_cornell_camera
+    from .models.manylight import make_many_light_room
+    from .render.camera import Camera
+
+    if path != "manylight":
+        return make_cornell_box(), make_cornell_camera(width, height)
+    cam = Camera(position=np.asarray([0.0, 3.0, 9.0], np.float32))
+    cam.look(180.0, 15.0)
+    return make_many_light_room(n_side=8), cam
+
+
+def make_app(path: str, width: int = WIDTH, height: int = HEIGHT, *,
+             device, **settings):
+    """The App of an App path on `device`; `settings` go to
+    `app_settings`."""
+    from .render.app import App
+
+    scene, cam = app_scene(path, width, height)
+    return App(scene, cam, app_settings(width, height, path=path,
+                                        **settings), device=device)
 
 
 def _renderer(name: str):
@@ -260,16 +307,60 @@ def _device_kernels(prof, ranges=()) -> tuple[list, list]:
     return events, kernels
 
 
-def profile_app() -> dict:
-    """The App tick's breakdown: wall ms, host syncs, device time, idle
-    share and launches per tick, split by the App's profiler ranges."""
+def stage_breakdown(app, ticks: int = PROFILED) -> dict:
+    """`ticks` ticks of `app` under `torch.profiler`: device kernel ms,
+    launches a tick, and both split by the App's ranges (`APP_STAGES`, and
+    what runs outside them); the busy intervals' union (`busy_ms_per_tick`)
+    for the idle share."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    from .models.cornell import make_cornell_box, make_cornell_camera
-    from .render.app import App
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            app.tick()
+        torch.cuda.synchronize()
+    events, kernels = _device_kernels(prof, APP_STAGES)
+    if not kernels:
+        return {"device": "not measured: the profiler traced no device "
+                          "kernel"}
+    total_us = sum(e.duration_ns() for e in kernels) / 1e3
+    busy_us = _union_us((e.start_ns() / 1e3, e.end_ns() / 1e3)
+                        for e in kernels)
+    stages, seen = {}, set()
+    for name in APP_STAGES:
+        ks = _range_kernels(events, kernels, name)
+        seen.update(e.correlation_id() for e in ks)
+        stages[name] = {
+            "launches_per_tick": len(ks) / ticks,
+            "device_ms_per_tick": sum(e.duration_ns() for e in ks)
+            / 1e6 / ticks}
+    rest = [e for e in kernels if e.correlation_id() not in seen]
+    stages["outside_ranges"] = {
+        "launches_per_tick": len(rest) / ticks,
+        "device_ms_per_tick": sum(e.duration_ns() for e in rest)
+        / 1e6 / ticks}
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        by_name.setdefault(e.name(), []).append(e.duration_ns() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
+    return {
+        "device_kernel_ms_per_tick": total_us / 1e3 / ticks,
+        "busy_ms_per_tick": busy_us / 1e3 / ticks,
+        "launches_per_tick": len(kernels) / ticks, "stages": stages,
+        "hand_written_ms_per_tick": {
+            n: sum(v) / 1e3 / ticks for n, v in by_name.items()
+            if any(h in n for h in HAND_WRITTEN)},
+        "top_kernels": [{"name": n[:120],
+                         "ms_per_tick": sum(v) / 1e3 / ticks,
+                         "launches_per_tick": len(v) / ticks}
+                        for n, v in top]}
 
-    app = App(make_cornell_box(), make_cornell_camera(WIDTH, HEIGHT),
-              app_settings(), device="cuda")
+
+def profile_app(path: str = "app") -> dict:
+    """An App path's tick breakdown: wall ms, host syncs, device time, idle
+    share and launches per tick, split by the App's profiler ranges."""
+    app = make_app(path, device="cuda")
     for _ in range(WARMUP):
         app.tick()
     torch.cuda.synchronize()
@@ -281,51 +372,14 @@ def profile_app() -> dict:
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = statistics.median(walls)
     sites = sync_sites(app.tick)
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED):
-            app.tick()
-        torch.cuda.synchronize()
-    events, kernels = _device_kernels(prof, APP_STAGES)
-    out = {"path": "app", "resolution": [app.out_w, app.out_h],
+    out = {"path": path, "resolution": [app.out_w, app.out_h],
            "render_resolution": [app.render_w, app.render_h],
            "folds": list(app.pt_settings.compaction_schedule),
            "wall_ms_per_tick": walls, "wall_ms_per_tick_median": wall_ms,
            "host_syncs_per_tick": len(sites), "host_sync_sites": sites}
-    if not kernels:
-        out["device"] = "not measured: the profiler traced no device kernel"
-        return out
-    total_us = sum(e.duration_ns() for e in kernels) / 1e3
-    busy_us = _union_us((e.start_ns() / 1e3, e.end_ns() / 1e3)
-                        for e in kernels)
-    stages, seen = {}, set()
-    for name in APP_STAGES:
-        ks = _range_kernels(events, kernels, name)
-        seen.update(e.correlation_id() for e in ks)
-        stages[name] = {
-            "launches_per_tick": len(ks) / PROFILED,
-            "device_ms_per_tick": sum(e.duration_ns() for e in ks)
-            / 1e6 / PROFILED}
-    rest = [e for e in kernels if e.correlation_id() not in seen]
-    stages["outside_ranges"] = {
-        "launches_per_tick": len(rest) / PROFILED,
-        "device_ms_per_tick": sum(e.duration_ns() for e in rest)
-        / 1e6 / PROFILED}
-    by_name: dict[str, list] = {}
-    for e in kernels:
-        by_name.setdefault(e.name(), []).append(e.duration_ns() / 1e3)
-    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
-    out.update(
-        device_kernel_ms_per_tick=total_us / 1e3 / PROFILED,
-        device_idle_share=1.0 - busy_us / 1e3 / PROFILED / wall_ms,
-        launches_per_tick=len(kernels) / PROFILED, stages=stages,
-        hand_written_ms_per_tick={
-            n: sum(v) / 1e3 / PROFILED for n, v in by_name.items()
-            if any(h in n for h in HAND_WRITTEN)},
-        top_kernels=[{"name": n[:120],
-                      "ms_per_tick": sum(v) / 1e3 / PROFILED,
-                      "launches_per_tick": len(v) / PROFILED}
-                     for n, v in top])
+    out.update(stage_breakdown(app))
+    if "busy_ms_per_tick" in out:
+        out["device_idle_share"] = 1.0 - out["busy_ms_per_tick"] / wall_ms
     return out
 
 
@@ -378,8 +432,8 @@ def main(argv: list[str]) -> int:
         return 0
     for name in argv or ["cornell", "cornell_fused", "helmet",
                          "helmet_textured"]:
-        print(json.dumps(profile_app() if name == "app" else profile(name)),
-              flush=True)
+        print(json.dumps(profile_app(name) if name in APP_PATHS
+                         else profile(name)), flush=True)
     return 0
 
 

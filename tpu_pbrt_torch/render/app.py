@@ -1,27 +1,33 @@
 """The application frame graph: every pass composed, history carried (port
-of `tpu_pbrt/render/app.py` without ReSTIR DI, ReGIR and SHARC).
+of `tpu_pbrt/render/app.py`).
 
 Per tick, on one device:
 
   1. jittered rays at the internal resolution (Halton jitter)
   2. G-buffer (primary visibility + motion): the closest-hit kernel and the
      64-column row fetch
-  3. path trace (the bounce loop's kernels; NEE on every vertex)
-  4. denoise: demodulate -> temporal accumulate -> à-trous -> remodulate
-  5. TAA resolve / upscale to the output resolution (+ sharpen)
-  6. chromatic aberration, bloom and the tonemap operator
+  3. ReGIR grid build (with more than `regir_min_lights` lights) and ReSTIR
+     DI -> (diffuse, specular) direct light                  [restir_di]
+  4. SHARC update at 1/downscale resolution + resolve         [sharc]
+  5. path trace (indirect; the external-DI demux; the SHARC query)
+  6. composite direct + indirect
+  7. denoise: demodulate -> temporal accumulate -> à-trous -> remodulate
+  8. TAA resolve / upscale to the output resolution (+ sharpen)
+  9. chromatic aberration, bloom and the tonemap operator
 
-The history (denoiser and TAA state) is carried from tick to tick and reset
-on a camera cut or a settings change. Settings that need a pass the port
-does not have yet (`restir_di`, `sharc`, a `debug_view`) raise
-`NotImplementedError` naming it; nothing is skipped silently. Each stage
-runs inside a `torch.profiler.record_function` range named as the
-reference's scope: gbuffer, pathtrace, denoise, taa, bloom_tonemap.
+The history (denoiser, TAA, ReSTIR and SHARC state; the last two only when
+their pass is on) is carried from tick to tick and reset on a camera cut or
+a settings change. A `debug_view` (M11d) raises `NotImplementedError`;
+nothing is skipped silently. Each stage runs inside a
+`torch.profiler.record_function` range named as the reference's scope:
+gbuffer, regir, restir, sharc_update, sharc_resolve, pathtrace, denoise,
+taa, bloom_tonemap. No stage reads the device from the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -38,15 +44,28 @@ from ..passes import denoise as denoise_mod
 from ..passes import gbuffer as gbuffer_mod
 from ..passes import pathtrace
 from ..passes import postfx
+from ..passes import regir as regir_mod
+from ..passes import restir as restir_mod
+from ..passes import sharc as sharc_mod
 from ..passes import taa as taa_mod
 from ..utils import config as config_mod
-from .camera import Camera, CameraData, generate_rays
+from .camera import Camera, CameraData, generate_rays, pixel_coords
+
+
+# the largest SHARC table (log2 entries); larger settings are clamped
+SHARC_CAPACITY_CAP = 22
+# the SHARC resolve: the sorted one (table and records sorted together)
+# up to this many entries, the pool one (sorts of the records only) above
+SHARC_SORTED_MAX = 1 << 20
 
 
 class FrameHistory(NamedTuple):
-    """Cross-frame state (the reference application's Previous* set)."""
+    """Cross-frame state (the reference application's Previous* set);
+    `restir` and `sharc` are None while their pass is off."""
     denoiser: denoise_mod.DenoiserState
     taa: taa_mod.TAAState
+    restir: restir_mod.ReSTIRState | None = None
+    sharc: sharc_mod.SHARCState | None = None
 
 
 @dataclasses.dataclass
@@ -82,14 +101,49 @@ class App:
             self.scene, tex, tex_srgb, device=self.device)
         self.env: EnvironmentTensors = environment_tensors(
             self.scene.environment, device=self.device)
-        self.light_count = int(np.asarray(self.scene.lights.count))
+        self.light_count = self.tracer.light_count
+        rt = s.raytracing
+        if rt.sharc_capacity_log2 > SHARC_CAPACITY_CAP:
+            warnings.warn(
+                f"sharc_capacity_log2={rt.sharc_capacity_log2} clamped to "
+                f"{SHARC_CAPACITY_CAP} (raise "
+                f"tpu_pbrt_torch.render.app.SHARC_CAPACITY_CAP to "
+                f"override)", stacklevel=2)
+        self.sharc_settings = sharc_mod.SHARCSettings(
+            capacity_log2=min(rt.sharc_capacity_log2, SHARC_CAPACITY_CAP),
+            scene_scale=rt.sharc_scene_scale,
+            downscale=rt.sharc_downscale,
+            roughness_threshold=rt.sharc_roughness_threshold)
+        self.restir_settings = restir_mod.ReSTIRSettings(
+            initial_light_samples=rt.restir_local_light_samples,
+            initial_brdf_samples=rt.restir_brdf_samples,
+            local_light_mode=rt.restir_local_light_mode,
+            temporal=rt.restir_temporal,
+            spatial=rt.restir_spatial,
+            temporal_bias_correction=rt.restir_temporal_bias_correction,
+            spatial_bias_correction=rt.restir_spatial_bias_correction)
+        # the ReGIR grid only pays with local lights to presample, and at
+        # least `regir_min_lights` of them (below, the power-CDF draw is
+        # already the distribution the grid approximates)
+        n_local = self.light_count
+        self.regir_settings = (regir_mod.ReGIRSettings(
+            cells_per_axis=rt.regir_cells_per_axis,
+            lights_per_cell=rt.regir_lights_per_cell,
+            build_candidates=rt.regir_build_candidates,
+            cell_size=rt.regir_cell_size,
+        ) if (rt.regir and n_local > 0 and n_local >= rt.regir_min_lights)
+            else None)
         self.pt_settings = pathtrace.PathTraceSettings(
-            bounces=s.raytracing.bounces,
-            samples_per_pixel=s.raytracing.samples_per_pixel,
-            russian_roulette=s.raytracing.russian_roulette,
+            bounces=rt.bounces,
+            samples_per_pixel=rt.samples_per_pixel,
+            russian_roulette=rt.russian_roulette,
+            # NEE stays on for the secondary vertices: external_di only
+            # routes the first vertex's direct light through ReSTIR
             next_event_estimation=True,
+            external_di=rt.restir_di,
+            sharc_mode="query" if rt.sharc else "off",
             compaction_schedule=self._valid_schedule(
-                s.raytracing.compaction_schedule),
+                rt.compaction_schedule),
             cone_spread=(self.camera.pixel_cone_spread(self.render_h)
                          if self.tracer.textured else 0.0),
         )
@@ -105,17 +159,13 @@ class App:
         self._settings_fp = repr(config_mod._to_dict(self.settings))
 
     def _check_ported(self):
-        """Raise on settings that need a module the port does not have
-        yet, naming it."""
-        rt = self.settings.raytracing
-        missing = [name for name, on in (
-            ("restir_di (passes/restir.py, ReSTIR DI)", rt.restir_di),
-            ("sharc (passes/sharc.py, SHARC radiance cache)", rt.sharc),
-            (f"debug_view={rt.debug_view!r} (App._debug_view)",
-             rt.debug_view != "none")) if on]
-        if missing:
+        """Raise on the one setting whose pass the port does not have yet,
+        naming it."""
+        view = self.settings.raytracing.debug_view
+        if view != "none":
             raise NotImplementedError(
-                "not ported yet: " + "; ".join(missing))
+                f"not ported yet: debug_view={view!r} (App._debug_view, "
+                f"M11d)")
 
     def _check_discontinuity(self) -> bool:
         """True when the camera jumped or the settings changed since the
@@ -147,11 +197,20 @@ class App:
 
     def reset_history(self) -> FrameHistory:
         """Empty temporal history (the state after a camera cut)."""
+        rt = self.settings.raytracing
         return FrameHistory(
             denoiser=denoise_mod.init_state(self.render_h, self.render_w,
                                             device=self.device),
             taa=taa_mod.init_state(self.out_h, self.out_w,
-                                   device=self.device))
+                                   device=self.device),
+            restir=(restir_mod.ReSTIRState.empty(
+                self.render_w * self.render_h,
+                pairwise=(self.restir_settings.temporal_bias_correction
+                          != "basic"), device=self.device)
+                if rt.restir_di else None),
+            sharc=(sharc_mod.init_state(self.sharc_settings,
+                                        device=self.device)
+                   if rt.sharc else None))
 
     def tick(self, dt: float = 1 / 60):
         """Render one frame; returns (display-linear image (out_h, out_w,
@@ -173,16 +232,31 @@ class App:
         out, _ = self.tick(dt)
         return tonemap.to_srgb8(out).cpu().numpy()
 
+    def sharc_update(self, cam: CameraData, frame: int):
+        """The SHARC update pass of one tick: a short path per pixel of the
+        internal resolution / `downscale` (at most 4 bounces). Returns
+        (keys, records, valid, rays traced)."""
+        ds = self.sharc_settings.downscale
+        uw, uh = max(self.render_w // ds, 2), max(self.render_h // ds, 2)
+        uo, ud, ut0, ut1 = generate_rays(cam, uw, uh)
+        upx, upy = pixel_coords(uw, uh, self.device)
+        upd = dataclasses.replace(
+            self.pt_settings, bounces=min(self.settings.raytracing.bounces, 4),
+            sharc_mode="off", external_di=False)
+        keys, records, valid = pathtrace.trace_sharc_update(
+            self.tracer, self.light_count, uo, ud, ut0, ut1, upx, upy,
+            int(frame) & 0xFFFFFFFF, upd, self.sharc_settings, cam.position)
+        return keys, records, valid, uw * uh * (upd.bounces + 1)
+
     def _frame(self, cam: CameraData, frame: int, history: FrameHistory):
         s = self.settings
+        rt = s.raytracing
         pp = s.post_processing
         rw, rh = self.render_w, self.render_h
-        dev = self.device
+        frame = int(frame) & 0xFFFFFFFF
 
         origin, direction, t_min, t_max = generate_rays(cam, rw, rh)
-        px = torch.arange(rw, dtype=torch.int64, device=dev).repeat(rh)
-        py = torch.arange(rh, dtype=torch.int64,
-                          device=dev).repeat_interleave(rw)
+        px, py = pixel_coords(rw, rh, self.device)
         pixel_u = (px.to(torch.float32) + 0.5 + cam.jitter[0]) / rw
         pixel_v = (py.to(torch.float32) + 0.5 + cam.jitter[1]) / rh
 
@@ -191,9 +265,49 @@ class App:
                 self.tracer, self.env, cam, origin, direction, t_min, t_max,
                 pixel_u, pixel_v, (rw, rh),
                 cone_spread=self.pt_settings.cone_spread)
+        rays_total = rw * rh                 # the G-buffer primary rays
+        view = -direction
 
-        # --- path trace (indirect + direct through NEE), reusing the
-        # G-buffer's primary hit
+        # --- ReSTIR DI (direct light of the first vertex)
+        restir_state, di, di_valid = history.restir, None, None
+        if rt.restir_di:
+            regir = None
+            if self.regir_settings is not None:
+                with record_function("regir"):
+                    regir = (regir_mod.build(self.tracer.lights,
+                                             cam.position, frame,
+                                             self.regir_settings),
+                             self.regir_settings)
+            with record_function("restir"):
+                ((di_diff, di_spec), restir_state,
+                 restir_rays) = restir_mod.render_direct_lighting(
+                    self.tracer, gb, view, history.restir, px, py, frame,
+                    rw, rh, self.restir_settings, regir=regir,
+                    cam_pos=cam.position, cam_prev=cam.prev_position)
+                di = di_diff + di_spec
+                di_valid = (di.x > 0.0) | (di.y > 0.0) | (di.z > 0.0)
+            rays_total = restir_rays + rays_total
+        elif self.pt_settings.external_di:     # switched off since __init__
+            di_valid = torch.zeros((rw * rh,), dtype=torch.bool,
+                                   device=self.device)
+
+        # --- SHARC update + resolve
+        sharc_state = history.sharc
+        if rt.sharc:
+            with record_function("sharc_update"):
+                keys, records, valid, update_rays = self.sharc_update(cam,
+                                                                      frame)
+            with record_function("sharc_resolve"):
+                resolve_fn = (sharc_mod.resolve_sorted
+                              if history.sharc.key_lo.shape[0]
+                              <= SHARC_SORTED_MAX else sharc_mod.resolve)
+                sharc_state = resolve_fn(history.sharc, keys, records, valid,
+                                         self.sharc_settings)
+            rays_total = rays_total + update_rays
+
+        # --- path trace (indirect + env; the first vertex's direct light
+        # from ReSTIR when it is on, else NEE), reusing the G-buffer's
+        # primary hit
         fwd = vec.normalize(vec.Vec3(cam.forward[0], cam.forward[1],
                                      cam.forward[2]))
         primary = Hit(
@@ -203,10 +317,14 @@ class App:
         with record_function("pathtrace"):
             radiance, rays = pathtrace.render_sample_radiance(
                 self.tracer, self.env, self.light_count, origin, direction,
-                t_min, t_max, px, py, int(frame) & 0xFFFFFFFF,
-                self.pt_settings, primary_hit=primary)
-        rays_total = rays + rw * rh          # the G-buffer primary rays
-        img = radiance.to_tensor().reshape(rh, rw, 3)
+                t_min, t_max, px, py, frame, self.pt_settings,
+                primary_hit=primary,
+                sharc_state=sharc_state if rt.sharc else None,
+                sharc_settings=self.sharc_settings if rt.sharc else None,
+                camera_pos=cam.position, di_valid=di_valid)
+        rays_total = rays + rays_total
+        signal = radiance if di is None else radiance + di
+        img = signal.to_tensor().reshape(rh, rw, 3)
         motion = torch.stack([gb.motion_x.reshape(rh, rw),
                               gb.motion_y.reshape(rh, rw)], -1)
 
@@ -248,5 +366,6 @@ class App:
                                 pp.hdr_paper_white_nits,
                                 pp.hdr_color_rotation)
 
-        return img, rays_total, FrameHistory(denoiser=denoiser_state,
-                                             taa=taa_state)
+        return img, rays_total, FrameHistory(
+            denoiser=denoiser_state, taa=taa_state, restir=restir_state,
+            sharc=sharc_state)

@@ -144,6 +144,15 @@ class Camera:
         self.rotation /= np.linalg.norm(self.rotation)
 
 
+def pixel_coords(width: int, height: int, device):
+    """Row-major pixel coordinates (px, py) as (W * H,) int64 lanes (the
+    RNG streams' keys)."""
+    px = torch.arange(width, dtype=torch.int64, device=device).repeat(height)
+    py = torch.arange(height, dtype=torch.int64,
+                      device=device).repeat_interleave(width)
+    return px, py
+
+
 def generate_rays(cam: CameraData, width: int, height: int,
                   aperture_u: torch.Tensor | None = None,
                   jitter: torch.Tensor | None = None,

@@ -5,10 +5,14 @@
 (whose buffers hold the scene tables, the texture atlas among them) and
 the environment's buffers.
 One frame is G-buffer (primary visibility) -> path trace reusing the
-primary hit, as in the reference's frame graph.
+primary hit, as in the reference's frame graph. `render_frame_sharc` is the
+SHARC frame: an update trace at 1/downscale resolution, the resolve, then
+the full-resolution trace querying the fresh cache.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -21,7 +25,8 @@ from ..ops.sampling import camera_jitter
 from ..ops.traverse import Hit
 from ..passes import gbuffer as gbuffer_mod
 from ..passes import pathtrace
-from .camera import Camera, CameraData, generate_rays
+from ..passes import sharc as sharc_mod
+from .camera import Camera, CameraData, generate_rays, pixel_coords
 
 
 class Renderer(nn.Module):
@@ -42,7 +47,6 @@ class Renderer(nn.Module):
         self.width = int(width)
         self.height = int(height)
         self.settings = settings or pathtrace.PathTraceSettings()
-        self.settings.check_ported()
         if tracer is None:
             tracer = tracer_mod.build_for_scene(
                 scene, textures, texture_srgb, device=self.device)
@@ -114,11 +118,7 @@ def _render_frame(tracer, env_color, light_count: int,
                   with_gbuffer: bool = False):
     """Frame graph: G-buffer -> path trace reusing the primary hit."""
     origin, direction, t_min, t_max = generate_rays(cam, width, height)
-    dev = origin.x.device
-    px = torch.arange(width, dtype=torch.int64, device=dev).repeat(height)
-    py = torch.arange(height, dtype=torch.int64,
-                      device=dev).repeat_interleave(width)
-
+    px, py = pixel_coords(width, height, origin.x.device)
     pixel_u = (px.to(torch.float32) + 0.5 + cam.jitter[0]) / width
     pixel_v = (py.to(torch.float32) + 0.5 + cam.jitter[1]) / height
     gb = gbuffer_mod.generate(tracer, env_color, cam, origin, direction,
@@ -139,3 +139,35 @@ def _render_frame(tracer, env_color, light_count: int,
     if with_gbuffer:
         return out, ray_count, gb
     return out, ray_count
+
+
+def render_frame_sharc(tracer, env_color, light_count: int,
+                       cam: CameraData, frame: int, sharc_state, *,
+                       width: int, height: int,
+                       settings: pathtrace.PathTraceSettings,
+                       sharc_settings=None):
+    """SHARC frame: a downscaled update trace fills the hash grid, the
+    (pool) resolve merges it, and the full-resolution trace queries the
+    fresh cache; the state carries across frames. Returns (radiance (H, W,
+    3), rays, new SHARC state)."""
+    s = sharc_settings or sharc_mod.SHARCSettings()
+    ds = s.downscale
+    uw, uh = max(width // ds, 1), max(height // ds, 1)
+    frame = int(frame) & 0xFFFFFFFF
+
+    uo, ud, utmin, utmax = generate_rays(cam, uw, uh)
+    upx, upy = pixel_coords(uw, uh, uo.x.device)
+    upd = dataclasses.replace(settings, bounces=min(settings.bounces, 4))
+    keys, records, valid = pathtrace.trace_sharc_update(
+        tracer, light_count, uo, ud, utmin, utmax, upx, upy, frame, upd, s,
+        cam.position)
+    new_state = sharc_mod.resolve(sharc_state, keys, records, valid, s)
+
+    origin, direction, t_min, t_max = generate_rays(cam, width, height)
+    px, py = pixel_coords(width, height, origin.x.device)
+    radiance, _, _, rays = pathtrace.trace(
+        tracer, env_color, light_count, origin, direction, t_min, t_max, px,
+        py, frame, dataclasses.replace(settings, sharc_mode="query"),
+        sharc_state=new_state, sharc_settings=s, camera_pos=cam.position)
+    img = radiance.to_tensor().reshape(height, width, 3)
+    return img, rays + uw * uh * (upd.bounces + 1), new_state
