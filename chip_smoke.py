@@ -85,9 +85,11 @@ rendered through the kernels against the same frames rendered by the
 plain versions on the CPU, and a 64x48 App of each App path (32x24
 internal, 3 bounces, one fold; SHARC at 2^12) ticked three times on the
 card against the same App on the CPU (after ACES: mean absolute difference
-<= 1e-3, >= 99% of pixels within 1e-2, every tick; the full App paths take
-the CPU run's G-buffer motion vectors, see `check_small_app`). It writes
-PNGs under `chiprun_out/` and prints one JSON line per result, then the
+<= 1e-3, >= 99% of pixels within 1e-2, every tick; the card runs on its
+own G-buffer motion vectors, which must agree with the CPU's within 1e-4
+pixels, and the full App paths' CPU run is fed them, see
+`check_small_app`). It writes PNGs under `chiprun_out/` and prints one
+JSON line per result, then the
 `{"kernels": [...]}` line and, last, the `{"ok": true, "device": ...}`
 summary. Any failure exits nonzero before it. It never falls back to the
 CPU: without a usable card it exits 2.
@@ -1534,7 +1536,11 @@ def check_sharc_resolve(app) -> dict:
     """One SHARC pool resolve on the card against the CPU on the same
     records (this tick's update pass, on the card) and the same table (the
     App's history): keys, counts and stale equal, radiance within 1e-6
-    relative."""
+    relative. Then the pool resolve and the sorted one timed on those
+    records, into the App's table and into a 2^20 table that holds them
+    once already."""
+    import dataclasses
+
     import torch
     from tpu_pbrt_torch.passes import sharc as sh
 
@@ -1558,9 +1564,18 @@ def check_sharc_resolve(app) -> dict:
     if rel > 1e-6:
         fail(f"SHARC resolve on the card: radiance {rel} relative off")
     live = int((want.key_lo != sh.EMPTY_KEY).sum())
+    small = dataclasses.replace(app.sharc_settings, capacity_log2=20)
+    tables = {int(state.key_lo.shape[0]): (state, app.sharc_settings),
+              1 << 20: (sh.resolve(sh.init_state(small, device=app.device),
+                                   keys, rec, valid, small), small)}
+    times = {str(c): {f.__name__ + "_ms": time_ms(
+        lambda f=f, t=t, st=st: f(t, keys, rec, valid, st), iters=10)
+        for f in (sh.resolve, sh.resolve_sorted)}
+        for c, (t, st) in sorted(tables.items())}
     return {"capacity": int(state.key_lo.shape[0]),
             "records": int(valid.shape[0]), "valid_records": int(valid.sum()),
-            "live_entries": live, "radiance_max_rel_err": rel}
+            "live_entries": live, "radiance_max_rel_err": rel,
+            "ms_by_capacity": times}
 
 
 def check_fused_sharc_update(app) -> dict:
@@ -1628,18 +1643,19 @@ def full_app_path(name: str, device) -> tuple[dict, np.ndarray, list]:
 
 
 @contextlib.contextmanager
-def _motions(record: list | None = None, replay: list | None = None):
-    """Record each G-buffer's motion vectors, or replace them by recorded
-    ones (in order, moved to the G-buffer's device)."""
+def _motions(record: list, replay: list | None = None):
+    """Record each G-buffer's own motion vectors (on the CPU) and, with
+    `replay`, replace them by the recorded ones (in order, moved to the
+    G-buffer's device)."""
     from tpu_pbrt_torch.passes import gbuffer as gbuffer_mod
 
     orig = gbuffer_mod.generate
-    it = iter(replay or ())
+    it = iter(replay) if replay is not None else None
 
     def wrapped(*args, **kwargs):
         gb = orig(*args, **kwargs)
-        if record is not None:
-            record.append((gb.motion_x.cpu(), gb.motion_y.cpu()))
+        record.append((gb.motion_x.cpu(), gb.motion_y.cpu()))
+        if it is None:
             return gb
         mx, my = next(it)
         return gb._replace(motion_x=mx.to(gb.depth.device),
@@ -1658,24 +1674,24 @@ def check_small_app(name: str) -> dict:
     kernels, and on the CPU, through the plain versions: after ACES the
     outputs agree on every tick within a mean absolute difference of 1e-3,
     with >= 99% of pixels within 1e-2 (an ulp can flip a path, and the
-    denoiser and TAA spread it). The full App paths (SHARC at 2^12) take
-    the CPU run's G-buffer motion vectors on the card, as the CPU tests
-    carry the reference's: their ~1e-5 pixels of float noise decide at the
-    image border whether ReSTIR's temporal tap and the denoiser's
-    reprojection keep their history."""
+    denoiser and TAA spread it). The card runs on its own G-buffer motion
+    vectors. Those of the full App paths (SHARC at 2^12) must agree with
+    the CPU's own within 1e-4 pixels, and the CPU run is then fed the
+    card's: their ~1e-5 pixels of float noise decide at the image border
+    whether ReSTIR's temporal tap and the denoiser's reprojection keep
+    their history, and ReSTIR's reuse spreads each such flip over the
+    image (tests/test_torch_app.py's docstring has the readings)."""
     from tpu_pbrt_torch.ops import cuda
     from tpu_pbrt_torch.profile_frame import make_app
 
     extra = {} if name == "app_nodi" else {"sharc_log2": 12}
-    imgs, launches, motions = {}, {}, []
-    for dev in ("cpu", "cuda"):
+    imgs, launches, motions = {}, {}, {"cuda": [], "cpu": []}
+    for dev in ("cuda", "cpu"):
         app = make_app(name, SMALL_W, SMALL_H, device=dev, bounces=3,
                        folds=(2,), **extra)
         cuda.reset_launches()
-        pin = (_motions(record=motions) if dev == "cpu"
-               else _motions(replay=motions)) if extra else \
-            contextlib.nullcontext()
-        with pin:
+        fed = motions["cuda"] if dev == "cpu" and extra else None
+        with _motions(motions[dev], replay=fed):
             imgs[dev] = [app.tick()[0].cpu().numpy()
                          for _ in range(SMALL_APP_TICKS)]
         launches[dev] = {k.name: k.launches for k in cuda.KERNELS.values()}
@@ -1684,6 +1700,12 @@ def check_small_app(name: str) -> dict:
     for k in PATH_KERNELS[name]:
         if launches["cuda"][k] <= 0:
             fail(f"small {name}: kernel {k} was not launched on the card")
+    motion_diff = max(float((g - c).abs().max())
+                      for gm, cm in zip(motions["cuda"], motions["cpu"])
+                      for g, c in zip(gm, cm))
+    if not motion_diff <= 1e-4:
+        fail(f"small {name}: the card's motion vectors differ from the "
+             f"CPU's by {motion_diff} pixels")
     ticks = []
     for g, c in zip(imgs["cuda"], imgs["cpu"]):
         if g.shape != (SMALL_H, SMALL_W, 3) or not np.isfinite(g).all():
@@ -1698,7 +1720,8 @@ def check_small_app(name: str) -> dict:
                 ticks[-1]["pixels_within_1e-2"] < 0.99:
             fail(f"small {name} disagrees with the CPU: {ticks}")
     return {"resolution": [SMALL_W, SMALL_H], "render_resolution":
-            [SMALL_W // 2, SMALL_H // 2], "motion_from_cpu": bool(extra),
+            [SMALL_W // 2, SMALL_H // 2], "cpu_fed_card_motion": bool(extra),
+            "motion_max_abs_diff_px": motion_diff,
             "ticks": ticks, "launches_cuda": launches["cuda"]}
 
 

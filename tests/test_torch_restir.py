@@ -9,8 +9,9 @@ Tolerances:
   * exact: `lights.sample`'s light, normal and radiance on given uniforms
     (its point v0 + e1 b0 + e2 b1, its pdf and `pdf_hit_area`'s within an
     ulp, 2.5e-7 relative: XLA may contract a multiply-add, and the total
-    power is a float32 sum whose order differs), the light table
-    fetches (`fetch_light_pdf_area`, `fetch_light_area`), ReGIR's
+    power is a float32 sum whose order differs), the light table's
+    pdf and area columns (`light_rows` against the reference's
+    `fetch_light_pdf_area`, `fetch_light_area`), ReGIR's
     `cell_of` and `sample_from_rows` on given rows;
   * ReGIR `build`: the same light in >= 99.9% of slots (a power-CDF draw
     or a RIS pick may flip on an ulp of the float chain), W within 1e-4
@@ -194,9 +195,10 @@ def test_light_table_fetches_exact(case):
     li = np.random.default_rng(12).integers(-1, nl, 2048).astype(np.int32)
     jt = case.jtrc.light_table
     tt = case.ttrc.light_table
-    for jf, tf in ((jshade.fetch_light_pdf_area, tshade.fetch_light_pdf_area),
-                   (jshade.fetch_light_area, tshade.fetch_light_area)):
-        np.testing.assert_array_equal(tf(tt, torch.as_tensor(li)).numpy(),
+    rows = tshade.light_rows(tt, torch.as_tensor(li))
+    for jf, col in ((jshade.fetch_light_pdf_area, tshade.LIGHT_PDF_AREA),
+                    (jshade.fetch_light_area, tshade.LIGHT_AREA)):
+        np.testing.assert_array_equal(rows[col].numpy(),
                                       np.asarray(jf(jt, jnp.asarray(li))))
 
 

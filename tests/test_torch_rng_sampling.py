@@ -63,14 +63,20 @@ def test_halton_and_camera_jitter_equal():
 
 
 def test_draw_cdf_equal():
+    """2, 7 and 128 entries (the 64-light room's CDF), zero-power entries
+    (repeated CDF values) included."""
     rng = np.random.default_rng(3)
-    cdf = np.cumsum(rng.uniform(size=7)).astype(np.float32)
-    cdf /= cdf[-1]
-    u = rng.uniform(size=3000).astype(np.float32)
-    u[:7] = cdf                                     # ties go left
-    np.testing.assert_array_equal(
-        np.asarray(jsampling.draw_cdf(jnp.asarray(cdf), jnp.asarray(u))),
-        tsampling.draw_cdf(torch.as_tensor(cdf), torch.as_tensor(u)).numpy())
+    for n in (2, 7, 128):
+        pdf = rng.uniform(size=n)
+        pdf[1::5] = 0.0
+        cdf = np.cumsum(pdf).astype(np.float32)
+        cdf /= cdf[-1]
+        u = rng.uniform(size=3000).astype(np.float32)
+        u[:n] = cdf                                 # ties go left
+        np.testing.assert_array_equal(
+            np.asarray(jsampling.draw_cdf(jnp.asarray(cdf), jnp.asarray(u))),
+            tsampling.draw_cdf(torch.as_tensor(cdf),
+                               torch.as_tensor(u)).numpy())
 
 
 def test_safe_spawn_offset_bit_exact():

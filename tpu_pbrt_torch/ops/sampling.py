@@ -59,15 +59,8 @@ def ggx_g1(roughness, cos_t):
     return torch.reciprocal(1.0 + ggx_smith_lambda(roughness, cos_t))
 
 
-# above this many entries the draw is a binary search instead of an
-# (L, R) compare (the 64-light room's 128-entry CDF at 518,400 lanes would
-# be 66 MB a draw)
-DRAW_CDF_COMPARE_MAX = 8
-
-
 def draw_cdf(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """CDF draw == searchsorted(cdf, u, side='left'): idx = #{i : cdf[i] <
-    u} (the CDF is non-decreasing, so both forms agree exactly)."""
-    if cdf.shape[0] > DRAW_CDF_COMPARE_MAX:
-        return torch.searchsorted(cdf, u.contiguous()).to(torch.int32)
-    return (cdf[:, None] < u[None, :]).sum(0).to(torch.int32)
+    """CDF draw: idx = #{i : cdf[i] < u}, a binary search (the reference
+    counts by compare; the CDF is non-decreasing, so both agree
+    exactly)."""
+    return torch.searchsorted(cdf, u.contiguous()).to(torch.int32)

@@ -660,16 +660,6 @@ def _light_rows(table: torch.Tensor, li: torch.Tensor):
     return fetch_rows(table, li.to(torch.int32))   # (COLS, R)
 
 
-def fetch_light_pdf_area(table: torch.Tensor, li: torch.Tensor):
-    """The area-measure selection pdf column for explicit light indices."""
-    return _light_rows(table, torch.clamp(li, min=0))[_LPDFA]
-
-
-def fetch_light_area(table: torch.Tensor, li: torch.Tensor):
-    """The triangle area column for explicit light indices."""
-    return _light_rows(table, torch.clamp(li, min=0))[_LAREA]
-
-
 def fetch_light_by_index(table: torch.Tensor, li: torch.Tensor, bary_u,
                          bary_v) -> LightFetch:
     """Row fetch of explicit light indices + sqrt-warped point."""

@@ -54,9 +54,6 @@ from .camera import Camera, CameraData, generate_rays, pixel_coords
 
 # the largest SHARC table (log2 entries); larger settings are clamped
 SHARC_CAPACITY_CAP = 22
-# the SHARC resolve: the sorted one (table and records sorted together)
-# up to this many entries, the pool one (sorts of the records only) above
-SHARC_SORTED_MAX = 1 << 20
 
 
 class FrameHistory(NamedTuple):
@@ -298,11 +295,8 @@ class App:
                 keys, records, valid, update_rays = self.sharc_update(cam,
                                                                       frame)
             with record_function("sharc_resolve"):
-                resolve_fn = (sharc_mod.resolve_sorted
-                              if history.sharc.key_lo.shape[0]
-                              <= SHARC_SORTED_MAX else sharc_mod.resolve)
-                sharc_state = resolve_fn(history.sharc, keys, records, valid,
-                                         self.sharc_settings)
+                sharc_state = sharc_mod.resolve(history.sharc, keys, records,
+                                                valid, self.sharc_settings)
             rays_total = rays_total + update_rays
 
         # --- path trace (indirect + env; the first vertex's direct light
