@@ -5,9 +5,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from `tpu_pbrt_torch/csrc/` and
-drives five paths through `Renderer` and three through the App at
-1920x1080, each with the kernels' launch counts set to 0 just before and
-read just after:
+drives five paths through `Renderer`, one through `AnimatedRenderer`, one
+through `DynamicRenderer` and four through the App (and the App's two
+debug views) at 1920x1080, each with the kernels' launch counts set to 0
+just before and read just after:
 
 * the main path: the Cornell box, 1 SPP, 8 bounces, NEE + MIS, Russian
   roulette, counted rays, pool folds at bounces 4-7 (kernels 1-4: dense
@@ -43,7 +44,37 @@ read just after:
   (136 triangles, 128 of them emissive) seen from (0, 3, 9) at yaw 180,
   pitch 15, the same App with ReGIR on (cell size 1.5): the row fetch also
   reads the 128 x 17 light table, the ReGIR build's 128 x 4 table and the
-  4,096 x 32 cell rows.
+  4,096 x 32 cell rows;
+* `animated`, bench.py's animated configuration: the 64 x 40 skinned tube
+  (5,120 triangles, `models/tube.py`) through `AnimatedRenderer`, 4
+  bounces, 1 SPP, counted rays, the Cornell camera; every frame skins
+  with both palettes, refreshes the shade table and refits the resident
+  walk's tables on the card, then renders through the resident walk on
+  the refit tables, kernel 3 and kernel 4;
+* `dynamic`: `DynamicRenderer` on the scene of `models/rigid.py` (a
+  sliding box, a sliding emissive lamp, a floor slab; the objects of the
+  reference's dynamic-scene tests), 4 bounces, counted rays, with the
+  G-buffer: the light table refreshed and kernels 1-4 on the refit rows
+  every frame;
+* `golden`: the App at `GraphicsSettings()` on the golden scene (2,056
+  triangles, 82 lights: ReGIR on; ReSTIR DI, SHARC at 2^22, denoise, TAA,
+  bloom, ACES), 960 x 540 internal, through the resident walk;
+* the App's two debug views (`sharc_voxels`, `regir_cells`) on the
+  Cornell box, one warm-up and three timed ticks each.
+For `animated` and `dynamic` the refit (and for `dynamic` the light
+refresh) of one frame's pose runs on the card and on the CPU from the same
+posed corners: tables and accel bit for bit, lights within 1e-6 relative.
+On `animated` the walk kernel runs on the refit tables at the camera rays,
+2^19 bounce rays from the posed mesh and 2^19 shadow segments around it,
+bit for bit against the plain walk with no skipped block that held a hit.
+Each of the two then runs like an App path: two warm-up frames, one
+frame with every kernel launch held (`checked_wrappers`: kernels 1-4 and
+the walk), one frame in sync-debug mode (at most 2 host syncs: the
+camera's and the palettes' uploads), 8 timed frames with the launch
+counts set to 0 just before and read just after, two profiled frames
+(device ms, idle share, the `skin_refit` range's device ms) and the skin
++ refresh + refit alone by CUDA events; `dynamic`'s sliding box must
+move right. The golden App runs as the App paths do.
 For each App path, after two warm-up ticks one tick holds every kernel
 launch it makes against the plain version on the same inputs, one counts
 the host syncs, and the timed ticks (8; 4 for `app_nodi`) carry the
@@ -88,7 +119,11 @@ card against the same App on the CPU (after ACES: mean absolute difference
 <= 1e-3, >= 99% of pixels within 1e-2, every tick; the card runs on its
 own G-buffer motion vectors, which must agree with the CPU's within 1e-4
 pixels, and the full App paths' CPU run is fed them, see
-`check_small_app`). It writes PNGs under `chiprun_out/` and prints one
+`check_small_app`; `golden` among them), and three 64x48 frames of
+`animated` (a camera that frames the tube) and `dynamic` on the card
+against the CPU (`check_small_scene`: G-buffer tri ids equal, mean
+within 1e-3 relative, >= 99% of pixels within 1e-3, motion vectors within
+1e-4). It writes PNGs under `chiprun_out/` and prints one
 JSON line per result, then the
 `{"kernels": [...]}` line and, last, the `{"ok": true, "device": ...}`
 summary. Any failure exits nonzero before it. It never falls back to the
@@ -193,7 +228,22 @@ PATH_KERNELS = {
     # (4096 x 32)
     "manylight": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
                   "fetch_rows"),
+    # the skinned tube, refit every frame: the resident walk on the refit
+    # tables (the scene has no emitter: every shadow lane is empty)
+    "animated": ("resident_closest_hit", "resident_any_hit", "fetch_bounce",
+                 "fetch_rows"),
+    # rigid instances and a moving lamp: kernels 1-4 on the refit rows and
+    # the refreshed sub-table
+    "dynamic": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
+                "fetch_rows"),
+    # the App at its defaults on the golden scene (2,056 triangles): the
+    # resident walk where the Cornell Apps sweep
+    "golden": ("resident_closest_hit", "resident_any_hit", "fetch_bounce",
+               "fetch_rows"),
 }
+# the animated and dynamic paths: warm-up frames, timed frames; the debug
+# views' timed ticks
+SCENE_WARMUP, SCENE_FRAMES, DEBUG_TICKS = 2, 8, 3
 # the App paths (`profile_frame.make_app`, folds 4,5,6): warm-up ticks,
 # timed ticks of the full App paths and of app_nodi
 APP_WARMUP, APP_TICKS, APP_NODI_TICKS = 2, 8, 4
@@ -1244,20 +1294,23 @@ def check_small_frame(name: str, scene, settings, camera, min_hits: float,
 
 @contextlib.contextmanager
 def checked_wrappers(record: dict, keep: dict | None = None):
-    """Inside, every launch of kernels 1-4 through its wrapper (as the
-    path's own code makes it) is held against the plain version on the same
-    inputs, by the rules of `check_closest`, `check_any`,
-    `check_bounce_block` and the row fetch's bit-exactness; `record` gets
-    {kernel: {rays: {"launches": n, "max_abs_err": e}}} (for the row fetch
-    keyed "<columns>x<slots>"). With `keep`, the first inputs of each
+    """Inside, every launch of kernels 1-4 and of the resident walk through
+    its wrapper (as the path's own code makes it) is held against the plain
+    version on the same inputs, by the rules of `check_closest`,
+    `check_any`, `check_bounce_block`, the row fetch's bit-exactness and
+    the walk's (keys or flags bit for bit, no skipped block that held a
+    hit); `record` gets {kernel: {rays: {"launches": n, "max_abs_err": e}}}
+    (for the row fetch keyed "<columns>x<slots>", for the walk by its
+    sorted, chunk-padded ray count). With `keep`, the first inputs of each
     (kernel, key) go to keep[(kernel, key)], for `shape_rows` to time. The
     plain versions launch no kernel."""
     import torch
     from tpu_pbrt_torch.ops import shade_table as st
     from tpu_pbrt_torch.ops import traverse_dense as td
+    from tpu_pbrt_torch.ops import traverse_resident as trs
 
     saved = (td.closest_hit_cuda, td.any_hit_cuda,
-             st.fetch_bounce_block_cuda, st.fetch_rows_cuda)
+             st.fetch_bounce_block_cuda, st.fetch_rows_cuda, trs.walk_cuda)
 
     def note(name, rays, err, args):
         entry = record.setdefault(name, {}).setdefault(
@@ -1303,13 +1356,27 @@ def checked_wrappers(record: dict, keep: dict | None = None):
              (table, slot))
         return got
 
+    def walk(tris, rays, octs, occlusion):
+        got = saved[4](tris, rays, octs, occlusion)
+        want, counts = trs.walk_plain(tris, rays, octs, occlusion)
+        kname = "resident_any_hit" if occlusion else "resident_closest_hit"
+        if not torch.equal(got, want):
+            fail(f"{kname} at {rays.shape[0]} sorted rays: "
+                 f"{int((got != want).sum())} walk results differ")
+        if counts.missed_hits != 0:
+            fail(f"{kname} at {rays.shape[0]} sorted rays: the cull skipped "
+                 f"{counts.missed_hits} (lane, block) pairs that held a hit")
+        note(kname, rays.shape[0], 0.0, (tris, rays, octs))
+        return got
+
     (td.closest_hit_cuda, td.any_hit_cuda, st.fetch_bounce_block_cuda,
-     st.fetch_rows_cuda) = closest, occluded, bounce, rows
+     st.fetch_rows_cuda, trs.walk_cuda) = (closest, occluded, bounce, rows,
+                                           walk)
     try:
         yield
     finally:
         (td.closest_hit_cuda, td.any_hit_cuda, st.fetch_bounce_block_cuda,
-         st.fetch_rows_cuda) = saved
+         st.fetch_rows_cuda, trs.walk_cuda) = saved
 
 
 def run_app(app, name: str, ticks: int, keep: dict | None = None,
@@ -1467,12 +1534,31 @@ def shape_rows(name: str, keep: dict, by_tag: dict, ticks: int) -> list:
     import torch
     from tpu_pbrt_torch.ops import shade_table as st
     from tpu_pbrt_torch.ops import traverse_dense as td
+    from tpu_pbrt_torch.ops import traverse_resident as trs
 
     rows = []
     for (kernel, shape), args in sorted(keep.items(),
                                         key=lambda kv: str(kv[0])):
         lib = None
-        if kernel == "dense_closest_hit":
+        if kernel.startswith("resident"):
+            res, srt, octs = args
+            occl = kernel == "resident_any_hit"
+            got = trs.walk_cuda(res, srt, octs, occl)
+            want, counts = trs.walk_plain(res, srt, octs, occl)
+            if not torch.equal(got, want) or counts.missed_hits:
+                fail(f"{kernel} {name} {shape}: walk differs or the cull "
+                     f"skipped {counts.missed_hits} hits")
+            ms = time_ms(lambda: trs.walk_cuda(res, srt, octs, occl))
+            pl = plain_ms(lambda: trs.walk_plain(res, srt, octs, occl))
+            err = 0.0
+            rp, nb = srt.shape[0], res.tris.shape[0]
+            table_bytes = (res.tris.numel() + res.boxes.numel()
+                           + 2 * 8 * nb) * 4
+            bd = bound(rp * 32 + rp * 4 + (rp // trs.CHUNK) * 4
+                       + table_bytes, resident_needed_tests(
+                           res, srt, got, occl) * FLOPS_TEST_SCALED)
+            tag = str(shape)
+        elif kernel == "dense_closest_hit":
             tris, *rays = args
             ms = time_ms(lambda: td.closest_hit_cuda(tris, *rays))
             pl = plain_ms(lambda: td.closest_hit_plain(tris, *rays))
@@ -1525,6 +1611,8 @@ def shape_rows(name: str, keep: dict, by_tag: dict, ticks: int) -> list:
                      "path": name, "shape": str(shape),
                      "table": (list(args[0].shape) if kernel == "fetch_rows"
                                else None),
+                     "triangles": (args[0].num
+                                   if kernel.startswith("resident") else None),
                      "launches": n, "launches_per_tick": n / ticks,
                      "max_abs_err": err, "ms": ms, "plain_ms": pl,
                      "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
@@ -1723,6 +1811,481 @@ def check_small_app(name: str) -> dict:
             [SMALL_W // 2, SMALL_H // 2], "cpu_fed_card_motion": bool(extra),
             "motion_max_abs_diff_px": motion_diff,
             "ticks": ticks, "launches_cuda": launches["cuda"]}
+
+
+# --- animated and dynamic scenes, the golden App, the debug views --------
+
+def _on_cpu(accel):
+    """A NamedTuple of tables with every tensor moved to the CPU."""
+    import torch
+
+    return type(accel)(*(x.cpu() if isinstance(x, torch.Tensor) else x
+                         for x in accel))
+
+
+def _fields_equal(got, want, what: str) -> None:
+    """Every tensor field of two NamedTuples of tables equal bit for bit."""
+    import torch
+
+    for f in type(want)._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if not isinstance(b, torch.Tensor):
+            if a != b:
+                fail(f"{what}: {f} {a} != {b}")
+            continue
+        a = a.cpu()
+        same = (torch.equal(a.view(torch.int32), b.view(torch.int32))
+                if b.dtype == torch.float32 else torch.equal(a, b))
+        if not same:
+            fail(f"{what}: field {f} differs from the CPU's")
+
+
+def check_refit_on_card(renderer, lights: bool):
+    """One frame's pose (the renderer's next palettes) skinned on the card,
+    then the geometry refresh, the light refresh (`lights`) and the refit
+    on the card against the same on the CPU from the same posed corners:
+    the shade table and the accel bit for bit, the light table and CDF
+    within 1e-6 relative. Returns the posed corners (host arrays) and the
+    card's refit accel."""
+    import torch
+    from tpu_pbrt_torch.ops import shade_table as st
+    from tpu_pbrt_torch.render.animated import posed_table
+
+    trc = renderer.tracer
+    mod = _accel_module(trc.kind)
+    pal = renderer.upload(renderer.palettes(1 / 60))
+    corners, normals, prev = renderer.skin.pose(pal[0], pal[1])
+    got_table = posed_table(trc.shade_table, corners, normals, prev)
+    got = mod.refit(trc.accel, *corners)
+
+    def cpu(ts):
+        return tuple(t.cpu() for t in ts)
+
+    want_table = posed_table(trc.shade_table.cpu(), cpu(corners),
+                             cpu(normals), cpu(prev))
+    want = mod.refit(_on_cpu(trc.accel), *cpu(corners))
+    if not torch.equal(got_table.cpu().view(torch.int32),
+                       want_table.view(torch.int32)):
+        fail(f"{trc.kind} refit: the posed shade table differs from the "
+             f"CPU's")
+    _fields_equal(got, want, f"{trc.kind} refit on the card")
+    out = {"kind": trc.kind, "triangles": trc.num_tris,
+           "accel_fields_bit_equal": list(type(want)._fields[:-1]),
+           "shade_table_bit_equal": True}
+    if lights:
+        glt = st.refresh_light_table(trc.light_table, renderer.light_tri,
+                                     *corners, num_tris=got_table.shape[0])
+        wlt = st.refresh_light_table(trc.light_table.cpu(),
+                                     renderer.light_tri.cpu(), *cpu(corners),
+                                     num_tris=got_table.shape[0])
+        rel = max(float(((g.cpu().double() - w.double()).abs()
+                         / w.double().abs().clamp(min=1e-30)).max())
+                  for g, w in zip(glt, wlt))
+        if rel > 1e-6:
+            fail(f"light refresh on the card: {rel} relative off the CPU's")
+        out["light_refresh_max_rel_err"] = rel
+    return out, [c.cpu().numpy() for c in corners], got
+
+
+def _accel_module(kind: str):
+    from tpu_pbrt_torch.ops import traverse_dense, traverse_resident
+
+    return traverse_resident if kind == "resident" else traverse_dense
+
+
+def run_scene_path(name: str, renderer, camera, keep: dict
+                   ) -> tuple[dict, np.ndarray, dict]:
+    """An animated or dynamic path at 1080p, the animation advancing 1/60
+    s a frame: SCENE_WARMUP frames, one frame with every kernel launch held
+    against its plain version (`checked_wrappers`, its first inputs at each
+    shape kept in `keep`), one frame in sync-debug mode (at most two host
+    syncs: the camera's upload and the palettes'), SCENE_FRAMES timed
+    frames with the launch counts set to 0 just before and read just after,
+    PROFILED frames under `torch.profiler` (device ms, idle share, the
+    `skin_refit` range's device ms: skinning, table refresh and refit),
+    and one skin + refresh + refit timed alone by CUDA events. Returns
+    (result, last frame, the checked frame's record)."""
+    import types
+
+    import torch
+    from tpu_pbrt_torch.ops import cuda
+    from tpu_pbrt_torch.profile_frame import (PROFILED, stage_breakdown,
+                                              sync_sites)
+
+    count = [0]
+
+    def frame():
+        count[0] += 1
+        img, rays, _ = renderer.render(camera, count[0], with_gbuffer=True)
+        return img, rays
+
+    for _ in range(SCENE_WARMUP):
+        frame()
+    checked = {}
+    with checked_wrappers(checked, keep):
+        frame()
+    syncs = sync_sites(frame)
+    if len(syncs) > 2:
+        fail(f"{name}: {len(syncs)} host syncs a frame ({syncs}), more than "
+             f"the camera's and the palettes' uploads")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rays = torch.zeros((), dtype=torch.float64, device=renderer.device)
+    times = []
+    cuda.reset_launches()
+    for _ in range(SCENE_FRAMES):
+        t0 = time.perf_counter()
+        img, rc = frame()
+        rays += rc
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.name: k.launches for k in cuda.KERNELS.values()}
+    by_tag = {k.name: {str(t): n for t, n in k.launches_by_tag.items()}
+              for k in cuda.KERNELS.values()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for k in PATH_KERNELS[name]:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched by the {name} path")
+    out = img.cpu().numpy()
+    if out.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(out).all():
+        fail(f"{name}: frame shape {out.shape} or non-finite pixels")
+    if out.mean() <= 0.01:
+        fail(f"{name}: frame is black (mean {out.mean()})")
+    median = float(np.median(times))
+    br = stage_breakdown(types.SimpleNamespace(tick=frame), PROFILED)
+    pal = renderer.upload(renderer.palettes(1 / 60))
+    total_rays = float(rays.item())
+    s = renderer.settings
+    result = {
+        "resolution": [WIDTH, HEIGHT], "triangles": renderer.tracer.num_tris,
+        "tracer": renderer.tracer.kind, "lights": renderer.light_count,
+        "bounces": s.bounces, "spp": s.samples_per_pixel,
+        "frames": SCENE_FRAMES, "warmup_frames": SCENE_WARMUP,
+        "ms_per_frame": times, "ms_per_frame_median": median,
+        "ms_per_frame_spread": [min(times), max(times)],
+        "rays_per_frame": total_rays / SCENE_FRAMES,
+        "mrays_per_s": total_rays / (sum(times) / 1e3) / 1e6,
+        "host_syncs_per_frame": len(syncs), "host_sync_sites": syncs,
+        "peak_mem_gb": peak, "image_mean": float(out.mean()),
+        "launches_per_frame": {k: n / SCENE_FRAMES
+                               for k, n in launches.items()},
+        "launches": launches, "launches_by_rays": by_tag,
+        "device": br,
+        "skin_refit_event_ms": time_ms(
+            lambda: renderer.posed_tracer(pal[0], pal[1]), iters=10),
+    }
+    if "busy_ms_per_tick" in br:
+        result["device_idle_share"] = 1.0 - br["busy_ms_per_tick"] / median
+        result["skin_refit_device_ms"] = br["stages"]["skin_refit"][
+            "device_ms_per_tick"]
+    return result, out, checked
+
+
+def tube_camera(width: int, height: int):
+    """A camera that frames the skinned tube (the bench's Cornell camera
+    sees it at the frame's left edge)."""
+    from tpu_pbrt_torch.render.camera import Camera
+
+    cam = Camera()
+    cam.position = np.asarray([0.3, 1.6, -7.0], np.float32)
+    cam.aspect = width / height
+    return cam
+
+
+def animated_renderer(width: int, height: int, device):
+    """bench.py's animated configuration: the 64 x 40 skinned tube (5,120
+    triangles), 4 bounces, 1 SPP, counted rays."""
+    from tpu_pbrt_torch.models import tube
+    from tpu_pbrt_torch.passes.pathtrace import PathTraceSettings
+    from tpu_pbrt_torch.render.animated import (AnimatedRenderer,
+                                                prepare_skinned)
+
+    model, scene = tube.make_skinned_tube(64, 41)
+    return AnimatedRenderer(
+        scene, prepare_skinned(model), width, height,
+        PathTraceSettings(bounces=4, samples_per_pixel=1, count_rays=True),
+        device=device)
+
+
+def dynamic_renderer(width: int, height: int, device):
+    """The dynamic scene (`models/rigid.py`): 4 bounces, counted rays."""
+    from tpu_pbrt_torch.models import rigid
+    from tpu_pbrt_torch.passes.pathtrace import PathTraceSettings
+    from tpu_pbrt_torch.render.dynamic import DynamicRenderer
+
+    return DynamicRenderer(
+        rigid.make_objects(), width, height,
+        PathTraceSettings(bounces=4, samples_per_pixel=1, count_rays=True),
+        device=device)
+
+
+def animated_path(device) -> tuple[dict, np.ndarray, list, list]:
+    """The skinned tube at 1080p through the bench's Cornell camera: the
+    refit on the card against the CPU's, the resident walk on the refit
+    tables (camera rays, 2^19 bounce rays from the posed mesh, 2^19 shadow
+    segments around it; kernel vs plain walk bit for bit, `missed_hits` 0),
+    then `run_scene_path`. Returns (result, frame, walk rows, shape
+    rows)."""
+    import types
+
+    from tpu_pbrt_torch.models.cornell import make_cornell_camera
+    from tpu_pbrt_torch.render.camera import generate_rays
+
+    renderer = animated_renderer(WIDTH, HEIGHT, device)
+    if renderer.tracer.kind != "resident" or renderer.tracer.num_tris != 5120:
+        fail(f"animated: tracer {renderer.tracer.kind} with "
+             f"{renderer.tracer.num_tris} triangles")
+    refit, posed, res = check_refit_on_card(renderer, lights=False)
+    camera = make_cornell_camera(WIDTH, HEIGHT)
+    cam_rays = generate_rays(camera.data(device=device), WIDTH, HEIGHT)
+    mesh = types.SimpleNamespace(positions=np.concatenate(posed),
+                                 indices=np.arange(3 * len(posed[0])).reshape(
+                                     3, -1).T)
+    lo = np.min([p.min(0) for p in posed], 0) - 0.2
+    hi = np.max([p.max(0) for p in posed], 0) + 0.2
+    walks = {
+        "camera": walk_check(res, cam_rays, False, "animated camera"),
+        "bounce_subset": walk_check(res, mesh_rays(mesh, SUBSET, device,
+                                                   SEED + 7), False,
+                                    "animated bounce subset"),
+        "shadow_subset": walk_check(res, segment_rays(
+            SUBSET, device, SEED + 8, lo, hi), True, "animated shadow subset"),
+    }
+    del cam_rays
+    keep = {}
+    result, img, checked = run_scene_path("animated", renderer, camera, keep)
+    result["refit_vs_cpu"] = refit
+    result["walk_on_refit_tables"] = walks
+    result["kernel_checks"] = kernel_checks("animated", checked)
+    rows = shape_rows("animated", keep, result["launches_by_rays"],
+                      SCENE_FRAMES)
+    tags = result["launches_by_rays"]
+    walk_rows = []
+    for shape, w in walks.items():
+        kernel = ("resident_any_hit" if shape == "shadow_subset"
+                  else "resident_closest_hit")
+        rp = -(-w["rays"] // 256) * 256
+        walk_rows.append({
+            "name": f"{kernel}/animated_refit_{shape}", "kernel": kernel,
+            "path": "animated",
+            "launches": (tags[kernel].get(str(rp)) if shape == "camera"
+                         else None),
+            # walk_check holds keys and flags bit for bit
+            "max_abs_err": 0.0,
+            **{k: w[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None})
+    return result, img, walk_rows, rows
+
+
+def dynamic_path(device) -> tuple[dict, np.ndarray, list]:
+    """The dynamic scene at 1080p: the refit and light refresh on the card
+    against the CPU's, then `run_scene_path`; the sliding box must move
+    right across the frame (its G-buffer pixels' mean column). Returns
+    (result, frame, shape rows)."""
+    from tpu_pbrt_torch.models import rigid
+
+    renderer = dynamic_renderer(WIDTH, HEIGHT, device)
+    if renderer.tracer.kind != "dense" or renderer.light_count != 12:
+        fail(f"dynamic: tracer {renderer.tracer.kind}, "
+             f"{renderer.light_count} lights")
+    refit, _, _ = check_refit_on_card(renderer, lights=True)
+    camera = rigid.make_camera(WIDTH, HEIGHT)
+    tri_obj = renderer.scene.geometry.tri_object
+
+    def mover_column(f):
+        _, _, gb = renderer.render(camera, f, dt=0.0, with_gbuffer=True)
+        tri = gb.tri.cpu().numpy().reshape(HEIGHT, WIDTH)
+        mask = (tri >= 0) & (tri_obj[np.maximum(tri, 0)] == 0)
+        if not mask.any():
+            fail("dynamic: the sliding box is not in the frame")
+        return float(np.nonzero(mask)[1].mean())
+
+    first = mover_column(0)
+    keep = {}
+    result, img, checked = run_scene_path("dynamic", renderer, camera, keep)
+    last = mover_column(10 ** 6)
+    if not last > first + WIDTH / 100:
+        fail(f"dynamic: the box's mean column went {first} -> {last}")
+    result["refit_vs_cpu"] = refit
+    result["mover_mean_column"] = [first, last]
+    result["kernel_checks"] = kernel_checks("dynamic", checked)
+    rows = shape_rows("dynamic", keep, result["launches_by_rays"],
+                      SCENE_FRAMES)
+    return result, img, rows
+
+
+def check_golden_image(img: np.ndarray) -> None:
+    """The golden frame's layout: black bars at both sides (the camera
+    sits behind the opening at 4:3), the red wall left of centre, the green
+    wall right of it."""
+    w = img.shape[1]
+
+    def band(a, b):
+        return img[:, int(a * w):int(b * w)].reshape(-1, 3).mean(0)
+
+    left, right = band(0.15, 0.3), band(0.7, 0.85)
+    bars = max(band(0.0, 0.08).mean(), band(0.92, 1.0).mean())
+    if not (left[0] > 2 * left[1] and right[1] > 1.5 * right[0]
+            and bars < 0.05):
+        fail(f"golden: bands {left.tolist()}, {right.tolist()}, bars {bars}:"
+             f" not the golden layout")
+
+
+def golden_path(device) -> tuple[dict, np.ndarray, list]:
+    """The App at `GraphicsSettings()` on the golden scene at 1080p (960 x
+    540 internal): `run_app` with kernel inputs kept and stages profiled,
+    the frame's layout, every (kernel, shape) of the checked tick timed
+    (`shape_rows`). Returns (result, image, rows)."""
+    from tpu_pbrt_torch.profile_frame import make_app
+
+    app = make_app("golden", WIDTH, HEIGHT, device=device)
+    rt = app.settings.raytracing
+    if ((app.render_w, app.render_h) != (WIDTH // 2, HEIGHT // 2)
+            or app.pt_settings.compaction_schedule
+            or app.tracer.kind != "resident" or app.tracer.num_tris != 2056
+            or not (rt.restir_di and rt.sharc) or app.light_count != 82
+            or app.regir_settings is None
+            or app.sharc_settings.capacity_log2 != 22):
+        fail(f"golden: internal {app.render_w}x{app.render_h}, folds "
+             f"{app.pt_settings.compaction_schedule}, tracer "
+             f"{app.tracer.kind}, {app.light_count} lights, regir "
+             f"{app.regir_settings}")
+    keep = {}
+    result, img, checked = run_app(app, "golden", APP_TICKS, keep,
+                                   stages=True)
+    check_golden_image(img)
+    result["kernel_checks"] = kernel_checks("golden", checked)
+    rows = shape_rows("golden", keep, result["launches_by_rays"], APP_TICKS)
+    del keep, app
+    return result, img, rows
+
+
+def debug_view_path(view: str, device) -> tuple[dict, np.ndarray]:
+    """One 1080p App on the Cornell box with `debug_view` set: a warm-up
+    tick, DEBUG_TICKS timed ticks; the view must be finite and show many
+    hashed colours, and leave the history as it was."""
+    import torch
+    from tpu_pbrt_torch.ops import cuda
+    from tpu_pbrt_torch.profile_frame import make_app
+
+    app = make_app("app", WIDTH, HEIGHT, device=device)
+    app.settings.raytracing.debug_view = view
+    app.tick()
+    history = app.history
+    cuda.reset_launches()
+    times = []
+    for _ in range(DEBUG_TICKS):
+        t0 = time.perf_counter()
+        img, rays = app.tick()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = img.cpu().numpy()
+    lit = out.reshape(-1, 3)[(out.reshape(-1, 3) > 0).any(-1)]
+    colours = len(np.unique((lit * 255).astype(np.uint8), axis=0))
+    if (out.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(out).all()
+            or colours <= 8 or app.history is not history):
+        fail(f"debug view {view}: shape {out.shape}, {colours} colours")
+    return {"view": view, "ticks": DEBUG_TICKS, "ms_per_tick": times,
+            "ms_per_tick_median": float(np.median(times)),
+            "rays_per_tick": float(rays), "distinct_colours": colours,
+            "launches": {k.name: k.launches for k in cuda.KERNELS.values()
+                         if k.launches}}, out
+
+
+@contextlib.contextmanager
+def _camera_rays(record: list, replay: list | None = None):
+    """Record each frame's camera rays (on the CPU) and, with `replay`,
+    replace them by the recorded ones (in order, moved to the frame's
+    device)."""
+    from tpu_pbrt_torch.ops.vec import Vec3
+    from tpu_pbrt_torch.render import renderer as renderer_mod
+
+    orig = renderer_mod.generate_rays
+    it = iter(replay) if replay is not None else None
+
+    def flat(rays):
+        o, d, t0, t1 = rays
+        return [c.cpu() for c in (o.x, o.y, o.z, d.x, d.y, d.z, t0, t1)]
+
+    def wrapped(cam, width, height, *args, **kwargs):
+        rays = orig(cam, width, height, *args, **kwargs)
+        record.append(flat(rays))
+        if it is None:
+            return rays
+        c = [t.to(cam.position.device) for t in next(it)]
+        return Vec3(*c[0:3]), Vec3(*c[3:6]), c[6], c[7]
+
+    renderer_mod.generate_rays = wrapped
+    try:
+        yield
+    finally:
+        renderer_mod.generate_rays = orig
+
+
+def check_small_scene(name: str, make, camera, dt: float,
+                      min_hits: float) -> dict:
+    """Three 64x48 frames of an animated or dynamic renderer (`make(width,
+    height, device)`) on the card, through the kernels, and on the CPU,
+    through the plain versions, the animation advancing dt a frame: each
+    frame's G-buffer tri ids equal, mean within 1e-3 relative, >= 99% of
+    pixels within 1e-3 relative, motion vectors within 1e-4, and at least
+    `min_hits` of the frame hit. The card's camera rays must agree with
+    the CPU's own within 1e-6, and the CPU run is fed them: the card's
+    `rsqrt` (the rays' normalize) differs from the CPU's by an ulp, which
+    can move a ray through a shared edge onto the other triangle (one
+    pixel of the dynamic scene did, before the feed)."""
+    import torch
+    from tpu_pbrt_torch.ops import cuda
+
+    frames, launches, rays_in = {}, {}, {"cuda": [], "cpu": []}
+    for dev in ("cuda", "cpu"):
+        r = make(SMALL_W, SMALL_H, dev)
+        cam = camera(SMALL_W, SMALL_H)
+        cuda.reset_launches()
+        frames[dev] = []
+        fed = rays_in["cuda"] if dev == "cpu" else None
+        with _camera_rays(rays_in[dev], replay=fed):
+            for f in range(1, 4):
+                img, rays, gb = r.render(cam, f, dt=dt, with_gbuffer=True)
+                frames[dev].append((img.cpu().numpy(), gb.tri.cpu().numpy(),
+                                    float(rays), gb.motion_x.cpu().numpy(),
+                                    gb.motion_y.cpu().numpy()))
+        launches[dev] = {k.name: k.launches for k in cuda.KERNELS.values()}
+    ray_diff = max(float((g - c).abs().max()) for gr_, cr_ in zip(
+        rays_in["cuda"], rays_in["cpu"]) for g, c in zip(gr_, cr_)
+        if torch.isfinite(c).all())
+    if not ray_diff <= 1e-6:
+        fail(f"small {name}: the card's camera rays differ from the CPU's "
+             f"by {ray_diff}")
+    if any(launches["cpu"].values()):
+        fail(f"small {name}: the CPU run launched kernels {launches['cpu']}")
+    for k in PATH_KERNELS[name]:
+        if launches["cuda"][k] <= 0:
+            fail(f"small {name}: kernel {k} was not launched on the card")
+    out = []
+    for (gi, gt, gr, gmx, gmy), (ci, ct, cr, cmx, cmy) in zip(
+            frames["cuda"], frames["cpu"]):
+        if not np.isfinite(gi).all():
+            fail(f"small {name}: non-finite pixels")
+        if not np.array_equal(gt, ct):
+            fail(f"small {name}: {int((gt != ct).sum())} G-buffer tri ids "
+                 f"differ from the CPU's")
+        rel = abs(gi.mean() - ci.mean()) / max(abs(ci.mean()), 1e-12)
+        d = np.abs(gi - ci).max(-1)
+        within = float((d <= 1e-3 * np.maximum(1.0, np.abs(ci).max(-1)))
+                       .mean())
+        motion = float(max(np.abs(gmx - cmx).max(), np.abs(gmy - cmy).max()))
+        # the ray counts are recorded, not held: an ulp can flip a
+        # Russian-roulette decision (as in `check_small_frame`)
+        out.append({"mean_rel_diff": float(rel), "pixel_agreement": within,
+                    "hit_share": float((ct >= 0).mean()),
+                    "motion_max_abs_diff": motion, "rays_cuda": gr,
+                    "rays_cpu": cr})
+        if (rel > 1e-3 or within < 0.99 or motion > 1e-4
+                or out[-1]["hit_share"] < min_hits):
+            fail(f"small {name} disagrees with the CPU: {out}")
+    return {"resolution": [SMALL_W, SMALL_H], "frames": out,
+            "launches_cuda": launches["cuda"]}
 
 
 def ptxas_usage(log: str, *kernels: str) -> dict:
@@ -2108,6 +2671,37 @@ def main() -> int:
         write_png(pngs[name], to_srgb8(torch.as_tensor(img)).numpy())
         torch.cuda.empty_cache()
 
+    # --- animated and dynamic scenes at 1080p ------------------------------
+    paths["animated"], img, walk_rows, rows = animated_path(device)
+    app_rows += walk_rows + rows
+    print(json.dumps({"animated": paths["animated"]}), flush=True)
+    pngs["animated"] = save_png("animated_1080p.png", img)
+    torch.cuda.empty_cache()
+    paths["dynamic"], img, rows = dynamic_path(device)
+    app_rows += rows
+    print(json.dumps({"dynamic": paths["dynamic"]}), flush=True)
+    pngs["dynamic"] = save_png("dynamic_1080p.png", img)
+    torch.cuda.empty_cache()
+
+    # --- the App at its defaults on the golden scene (resident walk) ------
+    paths["golden"], img, rows = golden_path(device)
+    app_rows += rows
+    print(json.dumps({"golden": paths["golden"]}), flush=True)
+    pngs["golden"] = os.path.join(out_dir, "golden_1080p.png")
+    write_png(pngs["golden"], to_srgb8(torch.as_tensor(img)).numpy())
+    torch.cuda.empty_cache()
+
+    # --- the App's debug views --------------------------------------------
+    for view in ("sharc_voxels", "regir_cells"):
+        paths[f"debug_{view}"], img = debug_view_path(view, device)
+        print(json.dumps({f"debug_{view}": paths[f"debug_{view}"]}),
+              flush=True)
+        pngs[f"debug_{view}"] = os.path.join(out_dir,
+                                             f"debug_{view}_1080p.png")
+        write_png(pngs[f"debug_{view}"], to_srgb8(torch.as_tensor(img))
+                  .numpy())
+    torch.cuda.empty_cache()
+
     # --- helmet-100k: the walk alone at 101,760 triangles -----------------
     print(json.dumps({"helmet_100k": check_helmet_100k(device)}), flush=True)
     torch.cuda.empty_cache()
@@ -2144,8 +2738,13 @@ def main() -> int:
         if got != want:
             fail(f"small frame {name}: (tracer, textured, alpha_test) = "
                  f"{got}, expected {want}")
-    for name in ("app_nodi", "app", "manylight"):
+    for name in ("app_nodi", "app", "manylight", "golden"):
         small[name] = check_small_app(name)
+    small["animated"] = check_small_scene("animated", animated_renderer,
+                                          tube_camera, 1 / 60, 0.1)
+    from tpu_pbrt_torch.models import rigid
+    small["dynamic"] = check_small_scene("dynamic", dynamic_renderer,
+                                         rigid.make_camera, 0.25, 0.2)
     print(json.dumps({"small_frames_vs_cpu": small}), flush=True)
     print(json.dumps({"png": pngs, "seconds": time.perf_counter() - t_start}),
           flush=True)

@@ -722,3 +722,136 @@ def test_app_on_card_matches_cpu(dev):
         d = np.abs(g - c)
         assert d.mean() <= 1e-3
         assert (d.max(-1) <= 1e-2).mean() >= 0.99
+
+
+# --- refit on the card (animated and dynamic scenes) ---------------------
+
+def _posed_tube(nu: int = 32):
+    """The skinned tube's bind-pose corners and its corners posed by the
+    bend at frame 7 (host arrays)."""
+    from tpu_pbrt_torch.models import tube
+    from tpu_pbrt_torch.passes import skinning
+
+    model, scene = tube.make_skinned_tube(nu, 41)
+    prim = model.meshes[0].primitives[0]
+    w = skinning.build_weight_matrix(prim.joints, prim.weights, 2)
+    th = float(tube.bend_angle(7))
+    c, s = np.cos(th), np.sin(th)
+    pal = np.asarray([[1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0],
+                      [c, -s, 0, 0, s, c, 0, 0, 0, 0, 1, 0]], np.float32)
+    posed, _, _ = skinning.skin_vertices(
+        torch.as_tensor(w), torch.as_tensor(pal),
+        torch.as_tensor(prim.positions), torch.as_tensor(prim.normals),
+        torch.as_tensor(prim.tangents))
+    ind = prim.indices
+    corners = [prim.positions[ind[:, k]] for k in range(3)]
+    return scene, corners, [posed.numpy()[ind[:, k]] for k in range(3)]
+
+
+@pytest.mark.parametrize("kind,nu", [("dense", 8), ("resident", 32),
+                                     ("resident", 31)])
+def test_refit_on_card_equals_cpu(dev, kind, nu):
+    """Both refits on the card equal the CPU's on the same posed corners,
+    field by field and bit for bit (gathers, subtractions, min / max and a
+    stable sort); 31 segments leave pad slots in the last block."""
+    mod = td if kind == "dense" else trs
+    _, bind, posed = _posed_tube(nu)
+    got = mod.refit(mod.prepare(*bind, device=dev),
+                    *(torch.as_tensor(p, device=dev) for p in posed))
+    want = mod.refit(mod.prepare(*bind, device="cpu"),
+                     *(torch.as_tensor(p) for p in posed))
+    for f in type(want)._fields[:-1]:
+        a, b = getattr(got, f).cpu(), getattr(want, f)
+        assert a.dtype == b.dtype and torch.equal(
+            a.view(torch.int32) if a.dtype == torch.float32 else a,
+            b.view(torch.int32) if b.dtype == torch.float32 else b), f
+
+
+def test_resident_kernel_on_refit_tables(dev):
+    """The walk kernel on refit tables equals the plain walk, and the cull
+    skips no block that held a hit, for camera rays at the posed tube and
+    segments around it."""
+    _, bind, posed = _posed_tube()
+    res = trs.refit(trs.prepare(*bind, device=dev),
+                    *(torch.as_tensor(p, device=dev) for p in posed))
+    rng = np.random.default_rng(17)
+    lo, hi = posed[0].min(0) - 0.3, posed[0].max(0) + 0.3
+    n = 8192
+    org = np.concatenate([
+        np.tile(np.asarray([[0.3, 1.6, -7.0]], np.float32), (n // 2, 1)),
+        rng.uniform(lo, hi, (n // 2, 3)).astype(np.float32)])
+    target = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = target - org
+    t_max = np.where(np.arange(n) < n // 2, np.inf,
+                     np.linalg.norm(d, axis=1)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+
+    def v3(a):
+        return Vec3(*(torch.as_tensor(a[:, k].copy(), device=dev)
+                      for k in range(3)))
+
+    rays_in = (v3(org), v3(d), torch.full((n,), 1e-4, device=dev),
+               torch.as_tensor(t_max, device=dev))
+    rays, _, octs = trs.sort_rays(res, *rays_in)
+    for occlusion in (False, True):
+        got = trs.walk_cuda(res, rays, octs, occlusion)
+        want, counts = trs.walk_plain(res, rays, octs, occlusion)
+        assert torch.equal(got, want), occlusion
+        assert counts.missed_hits == 0, occlusion
+    hit = trs.closest_hit_cuda(res, *rays_in)
+    assert 0.05 < float(hit.mask.float().mean()) < 0.95
+
+
+@pytest.mark.parametrize("which", ["animated", "dynamic"])
+def test_kernels_read_the_refreshed_tables(dev, which):
+    """A posed frame's tracer: kernel 1 sweeps the refit rows and kernel 3
+    reads the refreshed bounce sub-table (each equal to its plain version
+    on them), and neither matches the bind pose's where the pose moved the
+    hit."""
+    from tpu_pbrt_torch.ops import tracer as tracer_mod
+    from tpu_pbrt_torch.render import animated
+    from tpu_pbrt_torch.render.camera import generate_rays
+
+    scene, bind, posed = _posed_tube(8)
+    trc = tracer_mod.build_for_scene(scene, device=dev)
+    assert trc.kind == "dense"
+    corners = [torch.as_tensor(p, device=dev) for p in posed]
+    zeros = [torch.zeros_like(c) for c in corners]
+    table = animated.posed_table(trc.shade_table, corners, zeros, corners)
+    if which == "animated":
+        new = tracer_mod.refit(trc, *corners, shade_table=table)
+    else:
+        lt, cdf, _ = st.refresh_light_table(
+            trc.light_table, torch.zeros(1, dtype=torch.long, device=dev),
+            *corners, num_tris=table.shape[0])
+        new = tracer_mod.refit(trc, *corners, shade_table=table,
+                               light_table=lt, light_cdf=cdf)
+    assert torch.equal(new.bounce_sub, st.bounce_subtable(table))
+    assert torch.equal(new.accel.rows, td.pack_rows(
+        new.accel.v0, new.accel.e1, new.accel.e2, new.accel.opacity))
+    cam = generate_rays(
+        _tube_camera().data(device=dev), 64, 48)
+    hit = td.closest_hit_cuda(new.accel, *cam)
+    want = td.closest_hit_plain(new.accel, *cam)
+    assert torch.equal(hit.tri, want.tri)
+    old = td.closest_hit_cuda(trc.accel, *cam)
+    assert not torch.equal(hit.tri, old.tri)
+    slot = torch.clamp(hit.tri, min=0).to(torch.int32)
+    got = st.fetch_bounce_block_cuda(new.bounce_sub, slot, cam[0], cam[1])
+    plain = st.fetch_bounce_block_plain(new.bounce_sub, slot, cam[0], cam[1])
+    exact = [r for r in range(st.FB_OUT)
+             if r not in range(st._FB_SHAD, st._FB_SHAD + 3)
+             and r != st._FB_LCOS]
+    assert torch.equal(got[exact], plain[exact])
+    stale = st.fetch_bounce_block_cuda(trc.bounce_sub, slot, cam[0], cam[1])
+    assert not torch.equal(got[st._FB_POS:st._FB_POS + 3],
+                           stale[st._FB_POS:st._FB_POS + 3])
+
+
+def _tube_camera():
+    from tpu_pbrt_torch.render.camera import Camera
+
+    cam = Camera()
+    cam.position = np.asarray([0.3, 1.6, -7.0], np.float32)
+    cam.aspect = 64 / 48
+    return cam

@@ -52,6 +52,32 @@ def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
     def t(a, dtype):
         return torch.as_tensor(np.array(a, dtype=dtype), device=device)
 
+    light_cols = None if lights is None else {
+        k: torch.as_tensor(v, device=device)
+        for k, v in light_arrays(lights).items()}
+    return Tracer(accel_from_numpy(accel, device=device),
+                  t(shade_table, np.float32), t(light_table, np.float32),
+                  t(light_cdf, np.float32),
+                  None if atlas is None else texture.atlas_from_numpy(
+                      atlas["texels"], atlas["desc"], atlas["levels"],
+                      device=device),
+                  alpha_test, light_cols,
+                  None if lights is None else int(np.asarray(
+                      lights["count"])))
+
+
+def accel_from_numpy(accel: dict, *, device: str | torch.device):
+    """Port `DenseTris` or `ResidentTris` from a reference accel's fields
+    as arrays (and `num` as an int): a `traverse_dense.prepare` result, or a
+    `traverse_resident.prepare` or `refit` one. The port's own tables are
+    derived from them as `prepare` and `refit` derive them: the dense packed
+    rows (`traverse_dense.pack_rows`), the resident block boxes from the
+    packed rows and `scene_diag` (`traverse_resident.block_boxes`) and the
+    sort's pad rows (`traverse_resident.sort_pad`)."""
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
     resident = "tris" in accel
     cls = (traverse_resident.ResidentTris if resident
            else traverse_dense.DenseTris)
@@ -65,18 +91,7 @@ def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
     else:
         fields["rows"] = traverse_dense.pack_rows(
             fields["v0"], fields["e1"], fields["e2"], fields["opacity"])
-    light_cols = None if lights is None else {
-        k: torch.as_tensor(v, device=device)
-        for k, v in light_arrays(lights).items()}
-    return Tracer(cls(**fields, num=int(accel["num"])),
-                  t(shade_table, np.float32), t(light_table, np.float32),
-                  t(light_cdf, np.float32),
-                  None if atlas is None else texture.atlas_from_numpy(
-                      atlas["texels"], atlas["desc"], atlas["levels"],
-                      device=device),
-                  alpha_test, light_cols,
-                  None if lights is None else int(np.asarray(
-                      lights["count"])))
+    return cls(**fields, num=int(accel["num"]))
 
 
 def scene_from_numpy(geometry: dict, materials: dict, environment: dict,

@@ -16,7 +16,11 @@ Textured scenes fetch the 50-column sub-table through kernel 4 and unpack
 in PyTorch, then `apply_textures` modulates the material by its maps
 (`ops/texture.py`); `hit_transparent` is the alpha-cutout test on the
 19-column sub-table. The sub-tables (`bounce_subtable`, `alpha_subtable`)
-are built once, with the `Tracer`.
+are built with the `Tracer`, and again when a refit gives it a new table.
+
+`update_geometry` and `refresh_light_table` refresh the shade and light
+tables of deforming or moving geometry on the device, every frame of an
+animated or dynamic scene.
 """
 
 from __future__ import annotations
@@ -350,20 +354,32 @@ _FB_TRI = 22      # f32-carried triangle id
 FB_OUT = 23
 
 
+def _column_runs(cols) -> list[tuple[int, int]]:
+    """The listed columns as runs [start, stop) of consecutive columns."""
+    runs = []
+    for c in cols:
+        if runs and runs[-1][1] == c:
+            runs[-1][1] = c + 1
+        else:
+            runs.append([c, c + 1])
+    return [tuple(r) for r in runs]
+
+
 def _column_subtable(table: torch.Tensor, cols, stride: int) -> torch.Tensor:
-    """(T, stride) contiguous copy of the listed columns, zero-padded."""
-    idx = torch.as_tensor(cols, dtype=torch.long, device=table.device)
-    sub = torch.zeros((table.shape[0], stride), dtype=table.dtype,
-                      device=table.device)
-    sub[:, :len(cols)] = table.index_select(1, idx)
-    return sub
+    """(T, stride) contiguous copy of the listed columns, zero-padded: one
+    concatenation of column slices, so no index crosses from the host (a
+    refit rebuilds the sub-tables every frame)."""
+    parts = [table[:, a:b] for a, b in _column_runs(cols)]
+    if stride > len(cols):
+        parts.append(table.new_zeros((table.shape[0], stride - len(cols))))
+    return torch.cat(parts, 1)
 
 
 def bounce_subtable(table: torch.Tensor,
                     textured: bool = False) -> torch.Tensor:
     """The bounce loop's sub-table: untextured (T, SUB_STRIDE), the 30
-    bounce columns and two zero columns; textured (T, 50). Built once per
-    scene (a `Tracer` buffer): the column index is a host-to-device copy."""
+    bounce columns and two zero columns; textured (T, 50). A `Tracer`
+    buffer, built with the tracer and again at each refit."""
     if textured:
         return _column_subtable(table, _BOUNCE_COLS_TEX,
                                 len(_BOUNCE_COLS_TEX))
@@ -693,3 +709,62 @@ def fetch_light(table: torch.Tensor, cdf: torch.Tensor, u0, bary_u,
     nl = table.shape[0]
     li = torch.clamp(sampling.draw_cdf(cdf, u0), 0, nl - 1)
     return fetch_light_by_index(table, li, bary_u, bary_v)
+
+
+# ---------------------------------------------------------------------------
+# per-frame refresh of deforming and moving geometry (on the device)
+# ---------------------------------------------------------------------------
+
+# luminance weights of the light power, as in `collect_emissive_lights`
+_LUM = (0.2126, 0.7152, 0.0722)
+
+
+def refresh_light_table(light_table: torch.Tensor, light_tri: torch.Tensor,
+                        v0, v1, v2, num_tris: int):
+    """The emissive-light table of posed triangles, on the device with no
+    host read: gather the light triangles from the posed (T, 3) corners,
+    recompute normal, area, power, the power CDF and the area pdf (moving
+    and scaling emitters both), keep the radiance. `light_tri` (L,) holds
+    each light's triangle (the scene's `lights.tri_index`). Returns
+    (light table (L, 17), cdf (L,), tri_lpdf (num_tris,): each padded
+    triangle's NEE area pdf, 0 off the lights, for the shade table's
+    `_LPDF` column)."""
+    li = torch.clamp(light_tri, min=0).long()
+    lv0 = v0.index_select(0, li)
+    le1 = v1.index_select(0, li) - lv0
+    le2 = v2.index_select(0, li) - lv0
+    cr = torch.linalg.cross(le1, le2)
+    crlen = torch.clamp(torch.linalg.vector_norm(cr, dim=-1, keepdim=True),
+                        min=1e-20)
+    normal = cr / crlen
+    area = 0.5 * crlen[:, 0]
+    rad = light_table[:, _LRAD:_LRAD + 3]
+    power = light_power(rad, area)
+    total = torch.clamp(power.sum(), min=1e-20)
+    cdf = torch.cumsum(power, 0) / total
+    pdfa = power / total / torch.clamp(area, min=1e-20)
+    table = torch.cat([lv0, le1, le2, normal, rad, pdfa[:, None],
+                       area[:, None]], 1)
+    tri_lpdf = torch.zeros((num_tris,), dtype=torch.float32,
+                           device=v0.device).scatter_(
+        0, li, torch.where(light_tri >= 0, pdfa, 0.0))
+    return table, cdf, tri_lpdf
+
+
+def light_power(radiance: torch.Tensor, area: torch.Tensor) -> torch.Tensor:
+    """(L,) light power luminance(radiance) * area * pi."""
+    lum = (radiance[:, 0] * _LUM[0] + radiance[:, 1] * _LUM[1]
+           + radiance[:, 2] * _LUM[2])
+    return lum * area * np.pi
+
+
+def update_geometry(table: torch.Tensor, p0, e1, e2, normals0, normals1,
+                    normals2, prev_p0, prev_e1, prev_e2) -> torch.Tensor:
+    """The shade table with new triangle geometry, on the device: each
+    argument (Tp, 3) in the table's (padded) row order sets its columns
+    (base vertex, edges, vertex normals, and the previous frame's base
+    vertex and edges, which the G-buffer's motion vectors read); the other
+    columns are kept."""
+    return torch.cat([p0, e1, e2, normals0, normals1, normals2,
+                      table[:, _T0:_PP0], prev_p0, prev_e1, prev_e2,
+                      table[:, _PE2 + 3:]], 1)

@@ -1,7 +1,7 @@
 """Tracer: the acceleration structure plus the packed shade/light tables,
 as one `nn.Module` (port of `tpu_pbrt/ops/tracer.py`).
 
-Two kinds, chosen by triangle count in `build_for_scene`:
+Two kinds, chosen by triangle count in `build_for_scene` and `build`:
   * 'dense' (up to DENSE_MAX_TRIS): every ray tests every triangle
     (`ops/traverse_dense`, kernels 1 and 2);
   * 'resident' (above): the sorted-chunk walk of `ops/traverse_resident`
@@ -22,6 +22,9 @@ bounce loop's and the alpha test's column subsets, built once here), the
 light table, the light CDF, the light table's columns (`light_*`, which
 ReSTIR and ReGIR read through `Tracer.lights`; the light count is a Python
 int) and the texture atlas (`atlas_*`).
+
+`refit` moves a tracer onto deformed or moved triangles on the device (the
+accel, and with new shade and light tables every buffer derived from them).
 
 A scene with textures carries the atlas (`textured`); one whose ALPHA_MASK
 materials have a base-color texture also sets `alpha_test`, which turns on
@@ -60,11 +63,14 @@ class Tracer(nn.Module):
     """Answers closest-hit and any-hit queries for one scene; the kind
     follows the accel's type (`DenseTris` or `ResidentTris`)."""
 
-    def __init__(self, accel, shade_table: torch.Tensor,
-                 light_table: torch.Tensor, light_cdf: torch.Tensor,
+    def __init__(self, accel, shade_table: torch.Tensor | None = None,
+                 light_table: torch.Tensor | None = None,
+                 light_cdf: torch.Tensor | None = None,
                  atlas: TextureAtlas | None = None,
                  alpha_test: bool = False, lights: dict | None = None,
                  light_count: int | None = None):
+        """Without `shade_table` (`build`) the tracer answers hit queries
+        only: it has no sub-tables and cannot shade."""
         super().__init__()
         self.kind = next(k for k, (cls, _) in _ACCEL.items()
                          if isinstance(accel, cls))
@@ -88,8 +94,9 @@ class Tracer(nn.Module):
                 self.register_buffer("light_" + f, lights[f])
         # the bounce loop's sub-table: the 30 untextured columns padded to
         # 32, or the 50 textured columns
-        self.register_buffer("bounce_sub", shade_mod.bounce_subtable(
-            shade_table, self.textured))
+        self.register_buffer("bounce_sub", None if shade_table is None
+                             else shade_mod.bounce_subtable(shade_table,
+                                                            self.textured))
         if self.textured:
             for f in TextureAtlas._fields:
                 self.register_buffer("atlas_" + f, getattr(atlas, f))
@@ -233,3 +240,65 @@ def build_for_scene(scene, textures=None, texture_srgb=None, *,
     return Tracer(accel, dev(table), dev(light_table),
                   dev(scene.lights.cdf), atlas, alpha_test, lights,
                   int(np.asarray(scene.lights.count)))
+
+
+def build(v0, v1, v2, kind: str | None = None, *,
+          device: str | torch.device) -> Tracer:
+    """The acceleration structure alone, without shade or light tables (hit
+    queries and refits), from host (T, 3) corner arrays on `device`. `kind`
+    'dense' or 'resident', or None to choose by triangle count (dense up to
+    DENSE_MAX_TRIS). The reference's third kind, the 'bvh' LBVH walk, has
+    no counterpart in the port (ROADMAP M10 remainder): the port's big
+    scenes take the resident walk."""
+    t = np.asarray(v0).shape[0]
+    if kind is None:
+        kind = "dense" if t <= DENSE_MAX_TRIS else "resident"
+    if kind not in _ACCEL:
+        raise ValueError(f"unknown tracer kind {kind!r}")
+    return Tracer(_ACCEL[kind][1].prepare(v0, v1, v2, device=device))
+
+
+def light_columns(light_table: torch.Tensor,
+                  tri_to_light: torch.Tensor) -> dict:
+    """The `LIGHT_FIELDS` columns of a packed light table (power from its
+    radiance and area, as `shade_table.refresh_light_table` computes it),
+    with the scene's `tri_to_light`."""
+    rad = light_table[:, shade_mod._LRAD:shade_mod._LRAD + 3].contiguous()
+    area = light_table[:, shade_mod.LIGHT_AREA].contiguous()
+
+    def cols(c):
+        return light_table[:, c:c + 3].contiguous()
+
+    return {"v0": cols(shade_mod._LV0), "e1": cols(shade_mod._LE1),
+            "e2": cols(shade_mod._LE2), "normal": cols(shade_mod._LN),
+            "radiance": rad, "area": area,
+            "power": shade_mod.light_power(rad, area),
+            "tri_to_light": tri_to_light}
+
+
+def refit(tracer: Tracer, v0, v1, v2, *,
+          shade_table: torch.Tensor | None = None,
+          light_table: torch.Tensor | None = None,
+          light_cdf: torch.Tensor | None = None) -> Tracer:
+    """A tracer for deformed or moved triangles (the skinned-BLAS update):
+    (T, 3) posed corner tensors on the tracer's device refit its accel
+    (`traverse_dense.refit` or `traverse_resident.refit`), on the device
+    with no host read. `shade_table` (`shade_table.update_geometry`),
+    `light_table` and `light_cdf` (`shade_table.refresh_light_table`)
+    replace the tracer's tables; every buffer derived from them is built
+    again from the new ones (the bounce and alpha sub-tables, and with a
+    new light table the light columns), so no query reads the bind pose.
+    Opacity, the atlas and the alpha-test flag are kept."""
+    accel = _ACCEL[tracer.kind][1].refit(tracer.accel, v0, v1, v2)
+    lights = None
+    if tracer.has_lights:
+        lights = ({f: getattr(tracer, "light_" + f) for f in LIGHT_FIELDS}
+                  if light_table is None
+                  else light_columns(light_table, tracer.light_tri_to_light))
+    return Tracer(
+        accel,
+        tracer.shade_table if shade_table is None else shade_table,
+        tracer.light_table if light_table is None else light_table,
+        tracer.light_cdf if light_cdf is None else light_cdf,
+        tracer.atlas, tracer.alpha_test, lights,
+        tracer.light_count if tracer.has_lights else None)

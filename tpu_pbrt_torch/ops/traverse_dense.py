@@ -89,6 +89,22 @@ def prepare(v0, v1, v2, opacity=None, *,
                      num=t)
 
 
+def refit(tris: DenseTris, v0, v1, v2) -> DenseTris:
+    """The table of deformed triangles, on the device with no host read:
+    (T, 3) corner tensors on the table's device replace v0 / e1 / e2 and
+    the packed rows; the padding, `tri_id` and `opacity` are kept. Equal to
+    `prepare` of the same corners with the table's opacity."""
+    if v0.shape[0] != tris.num:
+        raise ValueError(f"refit: {v0.shape[0]} triangles, the table has "
+                         f"{tris.num}")
+    z = v0.new_zeros((tris.v0.shape[0] - tris.num, 3))
+    pv0 = torch.cat([v0, z])
+    e1 = torch.cat([v1 - v0, z])
+    e2 = torch.cat([v2 - v0, z])
+    return tris._replace(v0=pv0, e1=e1, e2=e2,
+                         rows=pack_rows(pv0, e1, e2, tris.opacity))
+
+
 def _lane(x, r: int, like: torch.Tensor) -> torch.Tensor:
     """A scalar or (R,) interval bound as a contiguous (R,) f32 tensor."""
     if isinstance(x, torch.Tensor):

@@ -26,6 +26,10 @@ widened), so a skipped block could not have changed the lane's key or
 flag: the walk's function is unchanged. `walk_plain` still sweeps every
 block, evaluates the test beside each sweep and counts the pairs it skips
 whose sweep found a hit (`missed_hits`, 0 when the test holds).
+
+`prepare` builds the tables on the host; `refit` moves them onto deformed
+triangles on the device (the stored Morton slots kept; the keys, orders,
+bounds and boxes recomputed), bit-equal to the reference's refit.
 """
 
 from __future__ import annotations
@@ -157,6 +161,72 @@ def prepare(v0, v1, v2, opacity=None, *,
         boxes=block_boxes(tris, tri_id, scene_diag),
         lo=dev(vlo.astype(np.float32)), hi=dev(vhi.astype(np.float32)),
         scene_diag=scene_diag, pad_rows=pad_rows, pad_keys=pad_keys, num=t)
+
+
+def refit(tris: ResidentTris, v0, v1, v2) -> ResidentTris:
+    """The tables of deformed triangles, on the device with no host read
+    (after the reference's `traverse_resident.refit`): (T, 3) corner
+    tensors gathered into the stored Morton slots, rows 0-8 of `tris`
+    repacked (opacity and the pad rows kept), the 8 octant entry keys and
+    walk orders recomputed from the new block bounds, and `lo`, `hi`,
+    `scene_diag` and the block boxes from the refit rows.
+
+    The sort is stable (`torch.argsort(stable=True)`, as `jnp.argsort`):
+    the all-pad blocks tie at 3e38 and keep their order, so `orders` is
+    bit-equal to the reference's. `lo` / `hi` mirror the reference's
+    refit, which takes them over every slot, the zero pad slots included
+    (ROADMAP F5); `prepare` takes them over the true vertices. They only
+    steer the ray Morton sort and the far-bound clamp, both loosely. The
+    block boxes are re-derived with the new `scene_diag`: a box left from
+    the bind pose would let the cull skip a block that now holds the
+    hit."""
+    if v0.shape[0] != tris.num:
+        raise ValueError(f"refit: {v0.shape[0]} triangles, the tables hold "
+                         f"{tris.num}")
+    tid = torch.clamp(tris.tri_id, min=0).long()
+    valid = (tris.tri_id >= 0)[:, None]
+    sv0 = torch.where(valid, v0.index_select(0, tid), 0.0)
+    sv1 = torch.where(valid, v1.index_select(0, tid), 0.0)
+    sv2 = torch.where(valid, v2.index_select(0, tid), 0.0)
+    nb = tris.tris.shape[0]
+
+    def rows(a):
+        return a.view(nb, BLOCK, 3).transpose(1, 2)
+
+    packed = torch.cat([rows(sv0), rows(sv1 - sv0), rows(sv2 - sv0),
+                        tris.tris[:, 9:]], 1)
+    tri_min = torch.minimum(torch.minimum(sv0, sv1), sv2)
+    tri_max = torch.maximum(torch.maximum(sv0, sv1), sv2)
+    vm = valid.view(nb, BLOCK, 1)
+    bmin = torch.where(vm, tri_min.view(nb, BLOCK, 3), INF).amin(1)
+    bmax = torch.where(vm, tri_max.view(nb, BLOCK, 3), -INF).amax(1)
+    keys = []
+    for oct_ in range(8):
+        key = None
+        for a in range(3):
+            # min over the block AABB of sigma.x: the entry key along the
+            # octant's sweep direction
+            term = bmin[:, a] if oct_ >> a & 1 else -bmax[:, a]
+            key = term if key is None else key + term
+        keys.append(key)
+    keys = torch.stack(keys)                                  # (8, NB)
+    keys = torch.where(torch.isfinite(keys), keys, 3e38)
+    orders = torch.argsort(keys, dim=1, stable=True)
+    keys = torch.gather(keys, 1, orders)
+    lo = tri_min.amin(0)
+    hi = tri_max.amax(0)
+    # |hi - lo| as the reference's norm rounds it (XLA contracts each
+    # square into a fused multiply-add): each square exact in float64, one
+    # rounding to float32 per step; the same on either device
+    d = (hi - lo).double()
+    ss = (d[0] * d[0]).float()
+    for a in (1, 2):
+        ss = (d[a] * d[a] + ss.double()).float()
+    diag = torch.sqrt(ss) + 1e-3
+    return tris._replace(tris=packed, orders=orders.to(torch.int32),
+                         keys=keys, boxes=block_boxes(packed, tris.tri_id,
+                                                      diag),
+                         lo=lo, hi=hi, scene_diag=diag)
 
 
 def sort_pad(device: str | torch.device):
@@ -429,7 +499,7 @@ def walk_cuda(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
     out = torch.empty((rp,), dtype=torch.int32, device=dev)
     kernel = ANY_HIT_KERNEL if occlusion else CLOSEST_HIT_KERNEL
     kernel.launch(rays, tris.tris, tris.boxes, tris.orders, tris.keys, octs,
-                  nch, nb, idx_bits(nb), out)
+                  nch, nb, idx_bits(nb), out, tag=rp)
     return out
 
 

@@ -61,10 +61,11 @@ WIDTH, HEIGHT = 1920, 1080
 WARMUP, TIMED, PROFILED = 2, 4, 2
 APP_FOLDS = (4, 5, 6)
 APP_STAGES = ("gbuffer", "regir", "restir", "sharc_update", "sharc_resolve",
-              "pathtrace", "denoise", "taa", "bloom_tonemap")
-# the App paths: the full frame graph on the Cornell box and on the 64-light
-# room, and the Cornell App without ReSTIR DI and SHARC
-APP_PATHS = ("app", "manylight", "app_nodi")
+              "pathtrace", "denoise", "taa", "bloom_tonemap", "skin_refit")
+# the App paths: the full frame graph on the Cornell box, on the 64-light
+# room and on the golden scene, and the Cornell App without ReSTIR DI and
+# SHARC
+APP_PATHS = ("app", "manylight", "golden", "app_nodi")
 
 # substrings of the hand-written kernels' symbol names (csrc/*.cu)
 HAND_WRITTEN = ("dense_closest_hit_kernel", "dense_closest_hit_shade_kernel",
@@ -73,12 +74,13 @@ HAND_WRITTEN = ("dense_closest_hit_kernel", "dense_closest_hit_shade_kernel",
 
 
 def app_settings(width: int = WIDTH, height: int = HEIGHT,
-                 bounces: int | None = None, folds=APP_FOLDS,
+                 bounces: int | None = None, folds=None,
                  path: str = "app_nodi", sharc_log2: int | None = None):
-    """An App path's settings: the given folds, the defaults otherwise (8
-    bounces, scale 0.5, ReSTIR DI, SHARC at 2^22, denoiser 4 iterations,
-    TAA, bloom 0.05, ACES); `app_nodi` turns ReSTIR DI and SHARC off,
-    `manylight` sets bench.py's ReGIR cell size (1.5)."""
+    """An App path's settings: the given folds (by default APP_FOLDS, and
+    none for `golden`, which runs `GraphicsSettings()` as it is), the
+    defaults otherwise (8 bounces, scale 0.5, ReSTIR DI, SHARC at 2^22,
+    denoiser 4 iterations, TAA, bloom 0.05, ACES); `app_nodi` turns ReSTIR
+    DI and SHARC off, `manylight` sets bench.py's ReGIR cell size (1.5)."""
     from .utils import config
 
     if path not in APP_PATHS:
@@ -90,6 +92,8 @@ def app_settings(width: int = WIDTH, height: int = HEIGHT,
     if path == "manylight":
         s.raytracing.regir = True
         s.raytracing.regir_cell_size = 1.5
+    if folds is None:
+        folds = () if path == "golden" else APP_FOLDS
     s.raytracing.compaction_schedule = tuple(folds)
     if bounces is not None:
         s.raytracing.bounces = bounces
@@ -99,15 +103,19 @@ def app_settings(width: int = WIDTH, height: int = HEIGHT,
 
 
 def app_scene(path: str, width: int = WIDTH, height: int = HEIGHT):
-    """(scene, camera) of an App path: the Cornell box and its camera, or
-    for `manylight` the 64-light room seen from (0, 3, 9) at yaw 180,
-    pitch 15 (bench.py's manylight camera)."""
+    """(scene, camera) of an App path: the Cornell box and its camera, for
+    `manylight` the 64-light room seen from (0, 3, 9) at yaw 180, pitch 15
+    (bench.py's manylight camera), for `golden` the golden scene and its
+    camera (`models/golden.py`)."""
     import numpy as np
 
     from .models.cornell import make_cornell_box, make_cornell_camera
+    from .models.golden import make_golden_camera, make_golden_scene
     from .models.manylight import make_many_light_room
     from .render.camera import Camera
 
+    if path == "golden":
+        return make_golden_scene(), make_golden_camera(width, height)
     if path != "manylight":
         return make_cornell_box(), make_cornell_camera(width, height)
     cam = Camera(position=np.asarray([0.0, 3.0, 9.0], np.float32))

@@ -17,11 +17,15 @@ Per tick, on one device:
 
 The history (denoiser, TAA, ReSTIR and SHARC state; the last two only when
 their pass is on) is carried from tick to tick and reset on a camera cut or
-a settings change. A `debug_view` (M11d) raises `NotImplementedError`;
-nothing is skipped silently. Each stage runs inside a
+a settings change. A `debug_view` ("sharc_voxels" or "regir_cells")
+replaces the shaded output after the G-buffer: each pixel's SHARC voxel or
+ReGIR cell as a hashed colour over a simple n.v shade, the history left as
+it was. Each stage runs inside a
 `torch.profiler.record_function` range named as the reference's scope:
 gbuffer, regir, restir, sharc_update, sharc_resolve, pathtrace, denoise,
-taa, bloom_tonemap. No stage reads the device from the host.
+taa, bloom_tonemap. No stage reads the device from the host, unless the
+NaN check of `utils/debug.py` is on: then each stage's output is checked
+for non-finite values, a sync a stage.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from torch.profiler import record_function
 
 from ..device import resolve
 from ..models.scene import EnvironmentTensors, Scene, environment_tensors
+from ..ops import rng as rng_mod
 from ..ops import tonemap, tracer as tracer_mod, vec
 from ..ops.sampling import camera_jitter
 from ..ops.traverse import Hit
@@ -49,6 +54,7 @@ from ..passes import restir as restir_mod
 from ..passes import sharc as sharc_mod
 from ..passes import taa as taa_mod
 from ..utils import config as config_mod
+from ..utils import debug
 from .camera import Camera, CameraData, generate_rays, pixel_coords
 
 
@@ -83,7 +89,7 @@ class App:
 
     def __post_init__(self):
         self.device = resolve(self.device)
-        self._check_ported()
+        debug.maybe_enable_from_env()
         s = self.settings
         self.out_w, self.out_h = s.width, s.height
         scale = s.post_processing.super_resolution_scale
@@ -155,15 +161,6 @@ class App:
         self._last_pose = None
         self._settings_fp = repr(config_mod._to_dict(self.settings))
 
-    def _check_ported(self):
-        """Raise on the one setting whose pass the port does not have yet,
-        naming it."""
-        view = self.settings.raytracing.debug_view
-        if view != "none":
-            raise NotImplementedError(
-                f"not ported yet: debug_view={view!r} (App._debug_view, "
-                f"M11d)")
-
     def _check_discontinuity(self) -> bool:
         """True when the camera jumped or the settings changed since the
         last tick: the temporal history is then invalid and must reset."""
@@ -212,7 +209,6 @@ class App:
     def tick(self, dt: float = 1 / 60):
         """Render one frame; returns (display-linear image (out_h, out_w,
         3), rays traced as a 0-dim float64 tensor), both on the device."""
-        self._check_ported()
         if self._check_discontinuity():
             self.history = self.reset_history()
         jit = (camera_jitter(self.frame_index, 64)
@@ -245,6 +241,41 @@ class App:
             int(frame) & 0xFFFFFFFF, upd, self.sharc_settings, cam.position)
         return keys, records, valid, uw * uh * (upd.bounces + 1)
 
+    def _debug_view(self, which: str, gb, cam: CameraData, rw: int,
+                    rh: int) -> torch.Tensor:
+        """(out_h, out_w, 3) hashed-id colouring of the SHARC voxel or the
+        ReGIR cell at the primary hit, dimmed by a simple n.v shade so the
+        geometry stays readable. The reference hashes uint32 words: a cell
+        index here is carried as its u32 bits in int64 (a -1 cell reads
+        0xFFFFFFFF), so the shifts are logical shifts of the low 32 bits
+        and the colour is h * (1 / 0xFFFFFFFF) in float32."""
+        if which == "sharc_voxels":
+            key = sharc_mod.voxel_key(gb.position, gb.geometric_normal,
+                                      cam.position, self.sharc_settings).lo
+        else:  # regir_cells
+            rs = self.regir_settings or regir_mod.ReGIRSettings()
+            grid = regir_mod.ReGIRGrid(
+                light=torch.zeros((1,), dtype=torch.int32,
+                                  device=self.device),
+                w=torch.zeros((1,), device=self.device), center=cam.position)
+            cell, inside = regir_mod.cell_of(grid, rs, gb.position)
+            key = cell.to(torch.int64) & 0xFFFFFFFF
+        h1, h2, h3, _ = rng_mod.pcg4d(key, key >> 8, key >> 16,
+                                      torch.zeros_like(key))
+        scale = float(np.float32(1.0 / 0xFFFFFFFF))
+        fwd = vec.normalize(vec.Vec3(cam.forward[0], cam.forward[1],
+                                     cam.forward[2]))
+        ndotv = torch.abs(vec.dot(gb.shading_normal, fwd))
+        shade = torch.where(gb.valid, 0.35 + 0.65 * ndotv, 0.0)
+        rgb = [h.to(torch.float32) * scale for h in (h1, h2, h3)]
+        if which == "regir_cells":
+            # out-of-grid surfaces (the power-CDF fallback zone) are grey
+            rgb = [torch.where(inside, c, 0.4) for c in rgb]
+        img = torch.stack([c * shade for c in rgb], -1).reshape(rh, rw, 3)
+        if (rw, rh) != (self.out_w, self.out_h):
+            img = taa_mod._upscale_bilinear(img, self.out_h, self.out_w)
+        return img
+
     def _frame(self, cam: CameraData, frame: int, history: FrameHistory):
         s = self.settings
         rt = s.raytracing
@@ -262,7 +293,15 @@ class App:
                 self.tracer, self.env, cam, origin, direction, t_min, t_max,
                 pixel_u, pixel_v, (rw, rh),
                 cone_spread=self.pt_settings.cone_spread)
+            debug.check_finite("gbuffer", gb.shading_normal, gb.base_color,
+                               gb.motion_x, gb.motion_y)
         rays_total = rw * rh                 # the G-buffer primary rays
+
+        # --- a debug view replaces the shaded output
+        if rt.debug_view != "none":
+            img = self._debug_view(rt.debug_view, gb, cam, rw, rh)
+            return img, torch.full((), rays_total, dtype=torch.float64,
+                                   device=self.device), history
         view = -direction
 
         # --- ReSTIR DI (direct light of the first vertex)
@@ -283,6 +322,7 @@ class App:
                     cam_pos=cam.position, cam_prev=cam.prev_position)
                 di = di_diff + di_spec
                 di_valid = (di.x > 0.0) | (di.y > 0.0) | (di.z > 0.0)
+                debug.check_finite("restir", di)
             rays_total = restir_rays + rays_total
         elif self.pt_settings.external_di:     # switched off since __init__
             di_valid = torch.zeros((rw * rh,), dtype=torch.bool,
@@ -316,6 +356,7 @@ class App:
                 sharc_state=sharc_state if rt.sharc else None,
                 sharc_settings=self.sharc_settings if rt.sharc else None,
                 camera_pos=cam.position, di_valid=di_valid)
+            debug.check_finite("pathtrace", radiance)
         rays_total = rays + rays_total
         signal = radiance if di is None else radiance + di
         img = signal.to_tensor().reshape(rh, rw, 3)
@@ -336,6 +377,7 @@ class App:
                     history.denoiser, img, albedo, gb.depth.reshape(rh, rw),
                     gb.shading_normal.to_tensor().reshape(rh, rw, 3), motion,
                     iterations=pp.denoiser_iterations)
+                debug.check_finite("denoise", img)
 
         # --- TAA upscale to the output resolution
         taa_state = history.taa
@@ -345,6 +387,7 @@ class App:
                     history.taa, img, motion, self.out_h, self.out_w)
                 if pp.sharpness > 0:
                     img = taa_mod.sharpen(img, pp.sharpness)
+                debug.check_finite("taa", img)
         elif (rw, rh) != (self.out_w, self.out_h):
             img = taa_mod._upscale_bilinear(img, self.out_h, self.out_w)
 
@@ -359,6 +402,7 @@ class App:
             img = tonemap.apply(img, pp.tonemap_operator, pp.exposure,
                                 pp.hdr_paper_white_nits,
                                 pp.hdr_color_rotation)
+            debug.check_finite("bloom_tonemap", img)
 
         return img, rays_total, FrameHistory(
             denoiser=denoiser_state, taa=taa_state, restir=restir_state,

@@ -1,6 +1,9 @@
 """Renderer: scene -> Tracer -> per-frame render graph (port of
 `tpu_pbrt/render/renderer.py`).
 
+With the NaN check of `utils/debug.py` on, a frame checks the G-buffer's
+and the path trace's outputs for non-finite values (a sync each).
+
 `Renderer` is an `nn.Module` on an explicit device: it owns the `Tracer`
 (whose buffers hold the scene tables, the texture atlas among them) and
 the environment's buffers.
@@ -26,6 +29,7 @@ from ..ops.traverse import Hit
 from ..passes import gbuffer as gbuffer_mod
 from ..passes import pathtrace
 from ..passes import sharc as sharc_mod
+from ..utils import debug
 from .camera import Camera, CameraData, generate_rays, pixel_coords
 
 
@@ -43,6 +47,7 @@ class Renderer(nn.Module):
         `device`."""
         super().__init__()
         self.device = resolve(device)
+        debug.maybe_enable_from_env()
         self.scene = scene
         self.width = int(width)
         self.height = int(height)
@@ -125,6 +130,8 @@ def _render_frame(tracer, env_color, light_count: int,
                               t_min, t_max, pixel_u, pixel_v,
                               (width, height),
                               cone_spread=settings.cone_spread)
+    debug.check_finite("gbuffer", gb.shading_normal, gb.base_color,
+                       gb.motion_x, gb.motion_y)
     fwd = vec.normalize(vec.Vec3(cam.forward[0], cam.forward[1],
                                  cam.forward[2]))
     primary = Hit(
@@ -134,6 +141,7 @@ def _render_frame(tracer, env_color, light_count: int,
     radiance, ray_count = pathtrace.render_sample_radiance(
         tracer, env_color, light_count, origin, direction, t_min, t_max,
         px, py, int(frame) & 0xFFFFFFFF, settings, primary_hit=primary)
+    debug.check_finite("pathtrace", radiance)
     ray_count = ray_count + origin.x.shape[0]   # the G-buffer primary rays
     out = radiance.to_tensor().reshape(height, width, 3)
     if with_gbuffer:
