@@ -6,9 +6,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the hand-written CUDA kernels from `tpu_pbrt_torch/csrc/` and
 drives five paths through `Renderer`, one through `AnimatedRenderer`, one
-through `DynamicRenderer` and four through the App (and the App's two
-debug views) at 1920x1080, each with the kernels' launch counts set to 0
-just before and read just after:
+through `DynamicRenderer`, four through the App (and the App's two
+debug views), the main path's frame and the App sharded over four bands
+of the card (`tpu_pbrt_torch/parallel/`), and the CLI, at 1920x1080, each
+with the kernels' launch counts set to 0 just before and read just after:
 
 * the main path: the Cornell box, 1 SPP, 8 bounces, NEE + MIS, Russian
   roulette, counted rays, pool folds at bounces 4-7 (kernels 1-4: dense
@@ -60,7 +61,28 @@ just before and read just after:
   triangles, 82 lights: ReGIR on; ReSTIR DI, SHARC at 2^22, denoise, TAA,
   bloom, ACES), 960 x 540 internal, through the resident walk;
 * the App's two debug views (`sharc_voxels`, `regir_cells`) on the
-  Cornell box, one warm-up and three timed ticks each.
+  Cornell box, one warm-up and three timed ticks each;
+* `cornell_sharded`: the main path's frame through
+  `parallel.mesh.render_sharded` over four bands of `cuda:0` (each band
+  traces a quarter of the pixels, dealt round robin, so every fold pairs
+  the pixels it pairs unsharded): every kernel launch of one frame held
+  against its plain version from the shard threads, the frame against
+  the unsharded frame of the same index (rtol 2e-4, atol 2e-5; rays
+  within 1e-6 relative), 4 timed frames;
+* `app_sharded`: the `app` path through `parallel.app_mesh.app_sharded`
+  over four bands of 135 rows (ReSTIR and denoiser halos, the SHARC
+  records all-gathered): run as an App path is (8 timed ticks, 2
+  profiled, device ms by stage from every shard thread), its difference
+  from the unsharded App printed and not gated (the reference's
+  band-local boiling tiles and halo-limited spatial taps), and the 64x48
+  App sharded over 2 and 4 bands of the card against the same on the CPU
+  (the App gate below, the CPU fed each band's motion vectors). Four
+  bands of one card are a rig for the seams, not a speed configuration;
+* `cli`: `python -m tpu_pbrt_torch` in a subprocess at its defaults
+  (the Cornell box at 1920x1080, 4 frames), then on the scene JSON of
+  `write_cli_scene` (an `MSFT_texture_dds` BC1 base colour, an .exr
+  lat-long sky; 2 frames, --accumulate): each must exit 0 and write a
+  1920x1080 PNG that is not black.
 For `animated` and `dynamic` the refit (and for `dynamic` the light
 refresh) of one frame's pose runs on the card and on the CPU from the same
 posed corners: tables and accel bit for bit, lights within 1e-6 relative.
@@ -167,6 +189,7 @@ import functools
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -240,7 +263,18 @@ PATH_KERNELS = {
     # resident walk where the Cornell Apps sweep
     "golden": ("resident_closest_hit", "resident_any_hit", "fetch_bounce",
                "fetch_rows"),
+    # the main path's frame over MESH_BANDS bands of the card: no G-buffer
+    # (each band traces its own primaries), so no row fetch
+    "cornell_sharded": ("dense_closest_hit", "dense_any_hit",
+                        "fetch_bounce"),
+    # the `app` path through app_mesh.app_sharded: kernels 1-4 at each
+    # band's pools
+    "app_sharded": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
+                    "fetch_rows"),
 }
+# the sharded phases' mesh: bands of one card (a rig for the seams, not a
+# speed configuration)
+MESH_BANDS = 4
 # the animated and dynamic paths: warm-up frames, timed frames; the debug
 # views' timed ticks
 SCENE_WARMUP, SCENE_FRAMES, DEBUG_TICKS = 2, 8, 3
@@ -1186,6 +1220,8 @@ def run_path(name: str, renderer, camera) -> tuple[dict, np.ndarray]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in cuda.KERNELS.values()}
+    by_tag = {k.name: {str(t): n for t, n in k.launches_by_tag.items()}
+              for k in cuda.KERNELS.values()}
     fetch_shapes = dict(cuda.KERNELS["fetch_rows"].launches_by_tag)
     for k in PATH_KERNELS[name]:
         if launches[k] <= 0:
@@ -1206,6 +1242,7 @@ def run_path(name: str, renderer, camera) -> tuple[dict, np.ndarray]:
         "mrays_per_s": total_rays / wall / 1e6,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "image_mean": float(img.mean()), "launches": launches,
+        "launches_by_rays": by_tag,
         # the row fetch's launches by (table columns, slots)
         "fetch_rows_launches": {f"{c}x{r}": n
                                 for (c, r), n in sorted(fetch_shapes.items())},
@@ -1303,7 +1340,11 @@ def checked_wrappers(record: dict, keep: dict | None = None):
     (for the row fetch keyed "<columns>x<slots>", for the walk by its
     sorted, chunk-padded ray count). With `keep`, the first inputs of each
     (kernel, key) go to keep[(kernel, key)], for `shape_rows` to time. The
-    plain versions launch no kernel."""
+    plain versions launch no kernel. The shard threads of the sharded
+    phases go through it too: a lock guards the record, and a failed check
+    raises in the thread, which `run_sharded` raises again here."""
+    import threading
+
     import torch
     from tpu_pbrt_torch.ops import shade_table as st
     from tpu_pbrt_torch.ops import traverse_dense as td
@@ -1312,13 +1353,16 @@ def checked_wrappers(record: dict, keep: dict | None = None):
     saved = (td.closest_hit_cuda, td.any_hit_cuda,
              st.fetch_bounce_block_cuda, st.fetch_rows_cuda, trs.walk_cuda)
 
+    lock = threading.Lock()
+
     def note(name, rays, err, args):
-        entry = record.setdefault(name, {}).setdefault(
-            rays, {"launches": 0, "max_abs_err": 0.0})
-        entry["launches"] += 1
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        if keep is not None:
-            keep.setdefault((name, rays), args)
+        with lock:
+            entry = record.setdefault(name, {}).setdefault(
+                rays, {"launches": 0, "max_abs_err": 0.0})
+            entry["launches"] += 1
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            if keep is not None:
+                keep.setdefault((name, rays), args)
 
     def closest(tris, o, d, t_min, t_max):
         got = saved[0](tris, o, d, t_min, t_max)
@@ -1731,21 +1775,26 @@ def full_app_path(name: str, device) -> tuple[dict, np.ndarray, list]:
 
 
 @contextlib.contextmanager
-def _motions(record: list, replay: list | None = None):
-    """Record each G-buffer's own motion vectors (on the CPU) and, with
-    `replay`, replace them by the recorded ones (in order, moved to the
-    G-buffer's device)."""
+def _motions(record: dict, replay: dict | None = None):
+    """Record each G-buffer's own motion vectors (on the CPU) in tick
+    order under its thread's name (a shard's, in a sharded App) and, with
+    `replay`, replace them by the ones recorded under the same name (moved
+    to the G-buffer's device)."""
+    import threading
+
     from tpu_pbrt_torch.passes import gbuffer as gbuffer_mod
 
     orig = gbuffer_mod.generate
-    it = iter(replay) if replay is not None else None
+    its = {k: iter(v) for k, v in (replay or {}).items()}
 
     def wrapped(*args, **kwargs):
         gb = orig(*args, **kwargs)
-        record.append((gb.motion_x.cpu(), gb.motion_y.cpu()))
-        if it is None:
+        who = threading.current_thread().name
+        record.setdefault(who, []).append((gb.motion_x.cpu(),
+                                           gb.motion_y.cpu()))
+        if replay is None:
             return gb
-        mx, my = next(it)
+        mx, my = next(its[who])
         return gb._replace(motion_x=mx.to(gb.depth.device),
                            motion_y=my.to(gb.depth.device))
 
@@ -1756,8 +1805,9 @@ def _motions(record: list, replay: list | None = None):
         gbuffer_mod.generate = orig
 
 
-def check_small_app(name: str) -> dict:
+def check_small_app(name: str, bands: int | None = None) -> dict:
     """A 64x48 App (32x24 internal, 3 bounces, one fold) of the path `name`
+    (with `bands`, sharded over that many bands: of the card, of the CPU)
     ticked three times with history carried on the card, through the
     kernels, and on the CPU, through the plain versions: after ACES the
     outputs agree on every tick within a mean absolute difference of 1e-3,
@@ -1769,14 +1819,19 @@ def check_small_app(name: str) -> dict:
     whether ReSTIR's temporal tap and the denoiser's reprojection keep
     their history, and ReSTIR's reuse spreads each such flip over the
     image (tests/test_torch_app.py's docstring has the readings)."""
+    import torch
     from tpu_pbrt_torch.ops import cuda
+    from tpu_pbrt_torch.parallel.mesh import make_mesh
     from tpu_pbrt_torch.profile_frame import make_app
 
     extra = {} if name == "app_nodi" else {"sharc_log2": 12}
-    imgs, launches, motions = {}, {}, {"cuda": [], "cpu": []}
+    imgs, launches, motions = {}, {}, {"cuda": {}, "cpu": {}}
     for dev in ("cuda", "cpu"):
         app = make_app(name, SMALL_W, SMALL_H, device=dev, bounces=3,
                        folds=(2,), **extra)
+        if bands is not None:
+            app = ShardedTicks(app, card_mesh(bands) if dev == "cuda"
+                               else make_mesh([torch.device(dev)] * bands))
         cuda.reset_launches()
         fed = motions["cuda"] if dev == "cpu" and extra else None
         with _motions(motions[dev], replay=fed):
@@ -1788,9 +1843,13 @@ def check_small_app(name: str) -> dict:
     for k in PATH_KERNELS[name]:
         if launches["cuda"][k] <= 0:
             fail(f"small {name}: kernel {k} was not launched on the card")
+    if sorted(motions["cuda"]) != sorted(motions["cpu"]):
+        fail(f"small {name}: G-buffers in threads {sorted(motions['cuda'])}"
+             f" on the card, {sorted(motions['cpu'])} on the CPU")
     motion_diff = max(float((g - c).abs().max())
-                      for gm, cm in zip(motions["cuda"], motions["cpu"])
-                      for g, c in zip(gm, cm))
+                      for who, gm in motions["cuda"].items()
+                      for gt, ct in zip(gm, motions["cpu"][who])
+                      for g, c in zip(gt, ct))
     if not motion_diff <= 1e-4:
         fail(f"small {name}: the card's motion vectors differ from the "
              f"CPU's by {motion_diff} pixels")
@@ -1808,9 +1867,367 @@ def check_small_app(name: str) -> dict:
                 ticks[-1]["pixels_within_1e-2"] < 0.99:
             fail(f"small {name} disagrees with the CPU: {ticks}")
     return {"resolution": [SMALL_W, SMALL_H], "render_resolution":
-            [SMALL_W // 2, SMALL_H // 2], "cpu_fed_card_motion": bool(extra),
+            [SMALL_W // 2, SMALL_H // 2], "bands": bands,
+            "cpu_fed_card_motion": bool(extra),
             "motion_max_abs_diff_px": motion_diff,
             "ticks": ticks, "launches_cuda": launches["cuda"]}
+
+
+# --- the mesh: the sharded frame, the sharded App, the CLI ---------------
+
+def card_mesh(bands: int):
+    import torch
+    from tpu_pbrt_torch.parallel.mesh import make_mesh
+
+    return make_mesh([torch.device("cuda", 0)] * bands)
+
+
+class ShardedFrames:
+    """`Renderer.render_with_stats` through `mesh.render_sharded` over
+    `mesh`: the renderer's tracer, environment, size and settings, the
+    frame sharded (for `run_path`)."""
+
+    def __init__(self, renderer, mesh):
+        self.renderer = renderer
+        self.mesh = mesh
+
+    def __getattr__(self, name):          # the renderer's tracer, settings
+        return getattr(self.renderer, name)
+
+    def render_with_stats(self, camera, frame_index: int = 0):
+        from tpu_pbrt_torch.parallel.mesh import render_sharded
+
+        r = self.renderer
+        return render_sharded(r.tracer, r.env, r.light_count,
+                              camera.data(device=r.device), frame_index,
+                              width=r.width, height=r.height,
+                              settings=r.settings, mesh=self.mesh)
+
+    def render(self, camera, frame_index: int = 0):
+        return self.render_with_stats(camera, frame_index)[0]
+
+
+def cornell_sharded_path(cornell, settings, camera, device):
+    """`render_sharded` on the Cornell main path (1080p, 8 bounces, folds
+    4-7, counted rays) over MESH_BANDS bands of the card: one frame with
+    every kernel launch held against its plain version (`checked_wrappers`,
+    which the shard threads go through), that frame against the unsharded
+    frame of the same index on the card (rtol 2e-4, atol 2e-5; rays within
+    1e-6 relative), then `run_path`'s timed frames. Returns (result, image,
+    `kernels` rows)."""
+    import torch
+    from tpu_pbrt_torch.render.renderer import Renderer
+
+    name = "cornell_sharded"
+    frames = ShardedFrames(Renderer(cornell, WIDTH, HEIGHT, settings,
+                                    device=device), card_mesh(MESH_BANDS))
+    checked, keep = {}, {}
+    with checked_wrappers(checked, keep):
+        img, rays = frames.render_with_stats(camera, 1)
+    want, want_rays = frames.renderer.render_with_stats(camera, 1)
+    diff = float((img - want).abs().max())
+    if not torch.allclose(img, want, rtol=2e-4, atol=2e-5):
+        fail(f"{name}: the sharded frame differs from the unsharded one by "
+             f"{diff}")
+    rel = abs(float(rays) - float(want_rays)) / float(want_rays)
+    if rel > 1e-6:
+        fail(f"{name}: rays {float(rays)} vs {float(want_rays)} unsharded")
+    del img, want
+    result, out = run_path(name, frames, camera)
+    check_cornell_image(name, out)
+    result.update(bands=MESH_BANDS,
+                  mesh=[str(d) for d in frames.mesh.devices],
+                  vs_unsharded_max_abs_diff=diff,
+                  vs_unsharded_rays_rel_diff=rel,
+                  kernel_checks=kernel_checks(name, checked))
+    rows = shape_rows(name, keep, result["launches_by_rays"], FRAMES)
+    return result, out, rows
+
+
+class ShardedTicks:
+    """`App.tick` for the sharded step of `app_mesh.app_sharded`: the
+    App's camera, jitter and frame index, the history carried in its
+    sharded form; the App's settings, tracer and sizes otherwise (for
+    `run_app`)."""
+
+    def __init__(self, app, mesh):
+        from tpu_pbrt_torch.parallel.app_mesh import app_sharded
+        from tpu_pbrt_torch.parallel.mesh import split_rows
+
+        self.app = app
+        self.step = app_sharded(app, mesh)
+        self.history = split_rows(app.history, mesh)
+
+    def __getattr__(self, name):          # the App's settings, tracer, ...
+        return getattr(self.app, name)
+
+    def tick(self):
+        from tpu_pbrt_torch.ops.sampling import camera_jitter
+
+        app = self.app
+        cam = app.camera.data(jitter=camera_jitter(app.frame_index, 64),
+                              device=app.device)
+        app.camera.snapshot_previous()
+        img, rays, self.history = self.step(cam, app.frame_index,
+                                            self.history)
+        app.frame_index += 1
+        return img, rays
+
+
+def app_sharded_path(device) -> tuple[dict, np.ndarray, list]:
+    """The App at the `GraphicsSettings()` defaults on the Cornell box
+    (`app`: 1920x1080 output, 960x540 internal, ReSTIR DI, SHARC at 2^22,
+    folds 4,5,6) through `app_sharded` over MESH_BANDS bands of 135 rows,
+    run by `run_app` as the App paths are (every kernel launch of one tick
+    held against its plain version, host syncs, APP_TICKS timed ticks,
+    PROFILED ticks under `torch.profiler`: device ms by stage from every
+    shard thread); the output's layout; its difference from the unsharded
+    App's, printed and not gated (ROADMAP F6); the 64x48 App sharded over
+    2 and 4 bands against the CPU (`check_small_app`). Returns (result,
+    image, `kernels` rows)."""
+    import torch
+    from tpu_pbrt_torch.profile_frame import APP_FOLDS, make_app
+
+    name = "app_sharded"
+    app = make_app("app", WIDTH, HEIGHT, device=device)
+    if ((app.render_w, app.render_h) != (WIDTH // 2, HEIGHT // 2)
+            or tuple(app.pt_settings.compaction_schedule) != APP_FOLDS
+            or app.sharc_settings.capacity_log2 != 22):
+        fail(f"{name}: internal {app.render_w}x{app.render_h}, folds "
+             f"{app.pt_settings.compaction_schedule}")
+    clock, seconds = [time.perf_counter()], {}
+
+    def lap(what):
+        now = time.perf_counter()
+        seconds[what] = now - clock[0]
+        clock[0] = now
+
+    keep = {}
+    result, out, checked = run_app(ShardedTicks(app, card_mesh(MESH_BANDS)),
+                                   name, APP_TICKS, keep, stages=True)
+    check_cornell_image(name, out)
+    result.update(bands=MESH_BANDS, rows_per_band=app.render_h // MESH_BANDS,
+                  kernel_checks=kernel_checks(name, checked))
+    lap("run")
+    rows = shape_rows(name, keep, result["launches_by_rays"], APP_TICKS)
+    del keep, app
+    torch.cuda.empty_cache()
+    lap("kernel_rows")
+
+    # the sharded App against the unsharded one, from empty histories
+    sharded = ShardedTicks(make_app("app", WIDTH, HEIGHT, device=device),
+                           card_mesh(MESH_BANDS))
+    single = make_app("app", WIDTH, HEIGHT, device=device)
+    diffs = []
+    for _ in range(3):
+        d = (sharded.tick()[0] - single.tick()[0]).abs()
+        diffs.append({"mean_abs_diff": float(d.mean()),
+                      "pixels_within_1e-2": float(
+                          (d.amax(-1) <= 1e-2).float().mean())})
+    result["vs_unsharded_not_gated"] = diffs
+    del sharded, single
+    torch.cuda.empty_cache()
+    lap("vs_unsharded")
+    result["small_vs_cpu"] = [check_small_app("app", b) for b in (2, 4)]
+    lap("small_vs_cpu")
+    result["seconds"] = seconds
+    return result, out, rows
+
+
+def cli_path() -> dict:
+    """`python -m tpu_pbrt_torch` as a user runs it, in subprocesses on the
+    card: the defaults (the Cornell box at 1920x1080) for 4 frames, then
+    the scene JSON of `write_cli_scene` (an MSFT_texture_dds BC1 map, an
+    .exr sky) for 2 frames with --accumulate. Each must exit 0 and write a
+    PNG of 1920x1080 that is not black; returns their printed lines."""
+    import tempfile
+
+    from tpu_pbrt_torch.utils.image import read_png
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = write_cli_scene(tmp)
+        runs = {"cornell_default": ["--frames", "4"],
+                "scene_json_dds_exr": [scene, "--frames", "2",
+                                       "--accumulate"]}
+        for name, args in runs.items():
+            png = os.path.join(tmp, f"{name}.png")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "tpu_pbrt_torch", *args, "-o", png],
+                cwd=root, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"cli {name}: exit {proc.returncode}\n{proc.stdout}"
+                     f"{proc.stderr[-4000:]}")
+            with open(png, "rb") as f:
+                img = read_png(f.read())[..., :3]
+            if img.shape != (HEIGHT, WIDTH, 3) or img.mean() <= 5:
+                fail(f"cli {name}: PNG {img.shape}, mean {img.mean()}")
+            out[name] = {"args": args, "stdout": proc.stdout.splitlines(),
+                         "process_seconds": wall,
+                         "png_mean_8bit": float(img.mean())}
+    return out
+
+
+# --- the CLI's scene: a glTF with an MSFT_texture_dds map, an .exr sky ---
+
+def _dds_bc1(width: int, height: int, seed: int) -> bytes:
+    """A DDS file (FourCC DXT1) of BC1 blocks, each one solid colour (its
+    two 565 endpoints c0 > c1, every index 0): a checker of 8-texel squares
+    in two hues over a gradient, each block's colour nudged by a seeded
+    amount (a smooth map: a noisy one would turn the last ulp of a mip
+    level's selection into visible differences between two renderers)."""
+    rng = np.random.default_rng(seed)
+    bh, bw = height // 4, width // 4
+    by, bx = np.mgrid[0:bh, 0:bw]
+    checker = ((by // 2 + bx // 2) % 2).astype(np.float32)
+    t = (by + bx) / max(bh + bw - 2, 1)
+    rgb = np.stack([0.35 + 0.45 * checker, 0.55 - 0.25 * t,
+                    0.3 + 0.3 * (1 - checker)], -1)
+    rgb = np.clip(rgb + 0.03 * rng.standard_normal(rgb.shape), 0, 1)
+    r, g, b = (np.round(rgb[..., i] * m).astype(np.uint16)
+               for i, m in ((0, 31), (1, 63), (2, 31)))
+    c0 = ((r << 11) | (g << 5) | b).reshape(-1)
+    c0 = np.maximum(c0, 1)
+    ends = np.stack([c0, c0 - 1], -1).astype("<u2")
+    blocks = np.concatenate([ends.view(np.uint8).reshape(-1, 4),
+                             np.zeros((c0.shape[0], 4), np.uint8)], 1)
+    header = struct.pack("<4I", 0x20534444, 124, 0x1007, height)
+    header += struct.pack("<I", width) + struct.pack("<3I", 0, 0, 0)
+    header += b"\0" * 44 + struct.pack("<2I", 32, 0x4) + b"DXT1"
+    header += struct.pack("<5I", 0, 0, 0, 0, 0)
+    header += struct.pack("<5I", 0x1000, 0, 0, 0, 0)
+    return header + blocks.tobytes()
+
+
+def _exr_float(img: np.ndarray) -> bytes:
+    """A scanline OpenEXR file, no compression, FLOAT B, G, R channels."""
+    h, w, _ = img.shape
+
+    def attr(name, atype, payload):
+        return (name.encode() + b"\0" + atype.encode() + b"\0"
+                + struct.pack("<i", len(payload)) + payload)
+
+    chlist = b"".join(c.encode() + b"\0" + struct.pack("<i", 2) + b"\0" * 4
+                      + struct.pack("<ii", 1, 1) for c in "BGR") + b"\0"
+    box = struct.pack("<4i", 0, 0, w - 1, h - 1)
+    header = (attr("channels", "chlist", chlist)
+              + attr("compression", "compression", b"\0")
+              + attr("dataWindow", "box2i", box)
+              + attr("displayWindow", "box2i", box)
+              + attr("lineOrder", "lineOrder", b"\0")
+              + attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+              + attr("screenWindowCenter", "v2f", struct.pack("<ff", 0, 0))
+              + attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
+              + b"\0")
+    rows = [struct.pack("<ii", y, w * 12) + b"".join(
+        img[y, :, c].astype("<f4").tobytes() for c in (2, 1, 0))
+        for y in range(h)]
+    offsets, off = [], 8 + len(header) + 8 * h
+    for r in rows:
+        offsets.append(off)
+        off += len(r)
+    return (b"\x76\x2f\x31\x01" + struct.pack("<I", 2) + header
+            + struct.pack(f"<{h}Q", *offsets) + b"".join(rows))
+
+
+def write_cli_scene(root: str, seed: int = SEED) -> str:
+    """A scene JSON in the reference's schema under `root`, for the CLI: a
+    glTF room (floor, three walls, 16 triangles in all) whose base colour
+    is a 64x64 BC1 map given only through `MSFT_texture_dds`
+    (albedo.dds), a small emissive ceiling quad, and a 32x64 lat-long .exr
+    sky (sky.exr, seeded around a vertical gradient). Returns the JSON's
+    path."""
+    import base64
+
+    def quad(corners, normal):
+        return (np.asarray(corners, np.float32),
+                np.tile(np.asarray(normal, np.float32), (4, 1)))
+
+    room = [quad([[-2, 0, -1], [2, 0, -1], [2, 0, 3], [-2, 0, 3]],
+                 [0, 1, 0]),
+            quad([[-2, 0, 3], [2, 0, 3], [2, 2.5, 3], [-2, 2.5, 3]],
+                 [0, 0, -1]),
+            quad([[-2, 0, -1], [-2, 0, 3], [-2, 2.5, 3], [-2, 2.5, -1]],
+                 [1, 0, 0]),
+            quad([[2, 0, 3], [2, 0, -1], [2, 2.5, -1], [2, 2.5, 3]],
+                 [-1, 0, 0])]
+    light = [quad([[-0.5, 2.4, 0.5], [-0.5, 2.4, 1.5], [0.5, 2.4, 1.5],
+                   [0.5, 2.4, 0.5]], [0, -1, 0])]
+    blob, views, accessors, prims = b"", [], [], []
+
+    def add(arr):
+        nonlocal blob
+        views.append({"buffer": 0, "byteOffset": len(blob),
+                      "byteLength": arr.nbytes})
+        blob += arr.tobytes()
+        return len(views) - 1
+
+    for mat, quads in enumerate((room, light)):
+        pos = np.concatenate([q[0] for q in quads])
+        nrm = np.concatenate([q[1] for q in quads])
+        uv = np.tile(np.float32([[0, 0], [2, 0], [2, 2], [0, 2]]),
+                     (len(quads), 1))
+        idx = np.concatenate([np.uint16([0, 1, 2, 0, 2, 3]) + 4 * k
+                              for k in range(len(quads))])
+        first = len(accessors)
+        accessors += [
+            {"bufferView": add(pos), "componentType": 5126,
+             "count": len(pos), "type": "VEC3",
+             "min": pos.min(0).tolist(), "max": pos.max(0).tolist()},
+            {"bufferView": add(nrm), "componentType": 5126,
+             "count": len(nrm), "type": "VEC3"},
+            {"bufferView": add(uv), "componentType": 5126,
+             "count": len(uv), "type": "VEC2"},
+            {"bufferView": add(idx), "componentType": 5123,
+             "count": len(idx), "type": "SCALAR"}]
+        prims.append({"attributes": {"POSITION": first, "NORMAL": first + 1,
+                                     "TEXCOORD_0": first + 2},
+                      "indices": first + 3, "material": mat})
+    doc = {
+        "asset": {"version": "2.0"}, "scene": 0,
+        "scenes": [{"nodes": [0]}], "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": prims}],
+        "materials": [
+            {"pbrMetallicRoughness": {"baseColorTexture": {"index": 0},
+                                      "metallicFactor": 0.0,
+                                      "roughnessFactor": 0.6}},
+            {"pbrMetallicRoughness": {"baseColorFactor": [1, 1, 1, 1],
+                                      "metallicFactor": 0.0},
+             "emissiveFactor": [1.0, 0.9, 0.8],
+             "extensions": {"KHR_materials_emissive_strength": {
+                 "emissiveStrength": 8.0}}}],
+        "textures": [{"extensions": {"MSFT_texture_dds": {"source": 0}}}],
+        "images": [{"uri": "albedo.dds", "mimeType": "image/vnd-ms.dds"}],
+        "extensionsUsed": ["MSFT_texture_dds"],
+        "buffers": [{"byteLength": len(blob), "uri":
+                     "data:application/octet-stream;base64,"
+                     + base64.b64encode(blob).decode()}],
+        "bufferViews": views, "accessors": accessors,
+    }
+    rng = np.random.default_rng(seed)
+    v = np.linspace(1.0, 0.0, 32, dtype=np.float32)[:, None, None]
+    sky = (0.15 + 1.2 * v * np.float32([0.6, 0.8, 1.0])
+           + 0.05 * rng.random((32, 64, 3))).astype(np.float32)
+    with open(os.path.join(root, "albedo.dds"), "wb") as f:
+        f.write(_dds_bc1(64, 64, seed))
+    with open(os.path.join(root, "sky.exr"), "wb") as f:
+        f.write(_exr_float(sky))
+    with open(os.path.join(root, "room.gltf"), "w") as f:
+        json.dump(doc, f)
+    scene = {
+        "Camera": {"Position": {"X": 0.0, "Y": 1.2, "Z": -0.8}},
+        "EnvironmentLight": {"Color": {"R": 1, "G": 1, "B": 1, "A": 1},
+                             "Texture": "sky.exr"},
+        "Models": {"Room": "room.gltf"},
+        "RenderObjects": [{"Name": "room", "Model": "Room"}],
+    }
+    path = os.path.join(root, "scene.json")
+    with open(path, "w") as f:
+        json.dump(scene, f)
+    return path
 
 
 # --- animated and dynamic scenes, the golden App, the debug views --------
@@ -2701,6 +3118,24 @@ def main() -> int:
         write_png(pngs[f"debug_{view}"], to_srgb8(torch.as_tensor(img))
                   .numpy())
     torch.cuda.empty_cache()
+
+    # --- the mesh: the main path's frame and the App over 4 bands --------
+    paths["cornell_sharded"], img, rows = cornell_sharded_path(
+        cornell, settings, camera, device)
+    app_rows += rows
+    print(json.dumps({"cornell_sharded": paths["cornell_sharded"]}),
+          flush=True)
+    pngs["cornell_sharded"] = save_png("cornell_sharded_1080p.png", img)
+    torch.cuda.empty_cache()
+    paths["app_sharded"], img, rows = app_sharded_path(device)
+    app_rows += rows
+    print(json.dumps({"app_sharded": paths["app_sharded"]}), flush=True)
+    pngs["app_sharded"] = os.path.join(out_dir, "app_sharded_1080p.png")
+    write_png(pngs["app_sharded"], to_srgb8(torch.as_tensor(img)).numpy())
+    torch.cuda.empty_cache()
+
+    # --- the CLI, as a user runs it ---------------------------------------
+    print(json.dumps({"cli": cli_path()}), flush=True)
 
     # --- helmet-100k: the walk alone at 101,760 triangles -----------------
     print(json.dumps({"helmet_100k": check_helmet_100k(device)}), flush=True)

@@ -169,12 +169,15 @@ def test_authored_glb_matches_reference(shape, tmp_path):
 
 
 def test_unported_gltf_texture_raises(tmp_path):
-    """The image formats still to port raise, by mime type, file name or
-    magic bytes: a material whose texture is a DDS image (the
-    `MSFT_texture_dds` payload)."""
+    """A DDS image (the `MSFT_texture_dds` payload, told by mime type, file
+    name or magic bytes) goes to the DDS decoder, ported since: a
+    malformed one (header size 0) or a missing file raises what the
+    reference raises. Valid ones load bit-equal to the reference's
+    (`tests/test_torch_dds_exr.py`)."""
     import base64
     import json
 
+    from tpu_pbrt.models import gltf as jgltf
     from tpu_pbrt_torch.models import gltf as tgltf
 
     dds = base64.b64encode(b"DDS " + bytes(124)).decode()
@@ -188,8 +191,13 @@ def test_unported_gltf_texture_raises(tmp_path):
                    "baseColorTexture": {"index": 0}}}]}
         path = tmp_path / "dds.gltf"
         path.write_text(json.dumps(doc))
-        with pytest.raises(NotImplementedError, match="DDS"):
+        with pytest.raises((FileNotFoundError, ValueError)) as got:
             tgltf.load(str(path))
+        with pytest.raises(type(got.value)) as want:
+            jgltf.load(str(path))
+        if isinstance(got.value, ValueError):
+            assert "bad DDS header size 0" in str(got.value)
+            assert "bad DDS header size 0" in str(want.value)
 
 
 def test_textured_glb_loads_like_reference(tmp_path):

@@ -15,7 +15,9 @@ and the alpha re-trace loop's all-empty and mostly-empty pools
 through kernel 1 and the resident walk. For the App: the edge-replicate
 shift and the float16 patch taps on the card equal the CPU's, and a 64x48
 App ticked three times on the card agrees with the CPU's (the tolerance of
-`tests/test_torch_app.py`).
+`tests/test_torch_app.py`). For the mesh (`parallel/`): the collectives
+across four bands of the card, the sharded frame on the card against the
+CPU, and a kernel launched from a shard thread on its tensors' stream.
 
 These need an NVIDIA GPU and nvcc; elsewhere they skip. On the card (no
 JAX there, so without the JAX-pinning conftest):
@@ -855,3 +857,78 @@ def _tube_camera():
     cam.position = np.asarray([0.3, 1.6, -7.0], np.float32)
     cam.aspect = 64 / 48
     return cam
+
+
+# --- the mesh on the card: four bands of cuda:0 ----------------------------
+
+def test_collectives_on_a_card_mesh(dev):
+    """ppermute both ways, all_gather and psum across four bands of one
+    card, from the shard threads."""
+    from tpu_pbrt_torch.parallel import mesh
+
+    m = mesh.make_mesh([torch.device("cuda", 0)] * 4)
+
+    def fn(ctx, x):
+        return (ctx.ppermute_down(x), ctx.ppermute_up(x),
+                ctx.all_gather(x, tiled=True), ctx.psum(x))
+
+    xs = [torch.full((3, 2), float(k + 1), device=dev) for k in range(4)]
+    out = mesh.run_sharded(m, fn, xs)
+    for k, (down, up, tiled, s) in enumerate(out):
+        assert down.device.type == "cuda"
+        assert torch.equal(down, xs[k - 1] if k else torch.zeros_like(xs[0]))
+        assert torch.equal(up, xs[k + 1] if k < 3 else torch.zeros_like(xs[0]))
+        assert torch.equal(tiled, torch.cat(xs))
+        assert torch.equal(s, sum(xs))
+
+
+def test_render_sharded_on_card_matches_cpu(dev):
+    """The 64x48 Cornell frame (3 bounces, counted rays) sharded over four
+    bands of the card, through the kernels, against the same on the CPU
+    through the plain versions: rtol 2e-4 / atol 2e-5 (the sharded frame's
+    bound), rays within 1e-6 relative; kernels 1-3 launched."""
+    from tpu_pbrt_torch.models.cornell import (make_cornell_box,
+                                               make_cornell_camera)
+    from tpu_pbrt_torch.parallel import mesh
+    from tpu_pbrt_torch.passes.pathtrace import PathTraceSettings
+    from tpu_pbrt_torch.render.renderer import Renderer
+
+    st_ = PathTraceSettings(bounces=3, count_rays=True)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        r = Renderer(make_cornell_box(), 64, 48, st_, device=d)
+        cam = make_cornell_camera(64, 48).data(device=d)
+        cuda.reset_launches()
+        out[d.type] = mesh.render_sharded(
+            r.tracer, r.env, r.light_count, cam, 2, width=64, height=48,
+            settings=st_, mesh=mesh.make_mesh([d] * 4))
+        if d.type == "cuda":
+            for k in ("dense_closest_hit", "dense_any_hit", "fetch_bounce"):
+                assert cuda.KERNELS[k].launches > 0, k
+    (g, g_rays), (c, c_rays) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=2e-4,
+                               atol=2e-5)
+    assert float(g_rays) == pytest.approx(float(c_rays), rel=1e-6)
+
+
+def test_kernel_from_a_shard_thread_uses_its_tensors_stream(dev):
+    """A row fetch launched from a shard thread whose current stream is a
+    side stream: the launch goes on that stream of the tensors' device
+    (the result is ready once the side stream is), and equals the plain
+    version."""
+    from tpu_pbrt_torch.parallel import mesh
+
+    table = torch.randn(64, 12, device=dev)
+    slot = torch.randint(0, 64, (5000,), device=dev, dtype=torch.int32)
+    side = torch.cuda.Stream(device=dev)
+
+    def fn(ctx):
+        with torch.cuda.stream(side):
+            before = cuda.KERNELS["fetch_rows"].launches
+            got = st.fetch_rows_cuda(table, slot)
+            return got, cuda.KERNELS["fetch_rows"].launches - before
+
+    (got, n), = mesh.run_sharded(mesh.make_mesh([dev]), fn)
+    side.synchronize()
+    assert n == 1
+    assert torch.equal(got, st.fetch_rows_plain(table, slot))

@@ -128,15 +128,25 @@ def test_read_png_rejects_what_it_does_not_decode(case):
 
 
 def test_other_formats_raise_and_jpeg_goes_through_pil(tmp_path):
-    """DDS and EXR raise until they are ported; a JPEG decodes through PIL
-    (installed here) to what the reference loads."""
+    """DDS and EXR load since they were ported (`tests/test_torch_dds_exr.py`
+    holds them bit-equal to the reference); here a malformed DDS header, a
+    missing file and a file that is not an EXR raise as they do in the
+    reference. A JPEG decodes through PIL (installed here) to what the
+    reference loads."""
     from PIL import Image
 
-    with pytest.raises(NotImplementedError, match="DDS"):
-        tio.decode_image_rgba8(b"DDS " + bytes(124))
-    for name in ("a.exr", "a.dds"):
-        with pytest.raises(NotImplementedError):
-            tio.load_image_rgba(str(tmp_path / name))
+    bad = b"DDS " + bytes(124)              # header size 0, not 124
+    with pytest.raises(ValueError, match="bad DDS header size 0"):
+        tio.decode_image_rgba8(bad)
+    (tmp_path / "bad.dds").write_bytes(bad)
+    (tmp_path / "bad.exr").write_bytes(bad)
+    for name in ("a.exr", "a.dds", "bad.dds", "bad.exr"):
+        p = str(tmp_path / name)
+        with pytest.raises((FileNotFoundError, ValueError)) as got:
+            tio.load_image_rgba(p)
+        with pytest.raises(type(got.value)) as want:
+            jio.load_image_rgba(p)
+        assert str(got.value) == str(want.value)
     path = str(tmp_path / "a.jpg")
     Image.fromarray(_rgba(np.random.default_rng(2), 16, 16, 3)).save(path)
     np.testing.assert_array_equal(jio.load_image_rgba(path),

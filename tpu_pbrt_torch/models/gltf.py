@@ -6,9 +6,10 @@ WEIGHTS_0, indices), same extension set (KHR_materials_emissive_strength /
 _ior / _transmission), tangent generation when absent, skin inverse-bind
 matrices and linear T/R/S animation channels. Images (GLB buffer views,
 data URIs, files beside the .gltf) are decoded to (H, W, 4) uint8 and
-deduplicated by (image, sRGB flag): PNG by the port's own decoder, other
-formats through PIL where it is installed; `MSFT_texture_dds` payloads
-raise until the DDS decoder is ported.
+deduplicated by (image, sRGB flag): PNG by the port's own decoder, DDS
+(an `MSFT_texture_dds` source, which overrides the texture's standard
+one) by `utils/dds.py` as its stored values rounded to 8 bits, other
+formats through PIL where it is installed.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..utils.texture_io import decode_image_rgba8
+from ..utils.texture_io import decode_dds_rgba8, decode_image_rgba8
 
 _COMPONENT_DTYPES = {
     5120: np.int8, 5121: np.uint8, 5122: np.int16, 5123: np.uint16,
@@ -279,10 +280,6 @@ def load(path: str) -> Model:
         if idx in images:
             return images[idx]
         img = doc["images"][idx]
-        if (img.get("mimeType") == "image/vnd-ms.dds"
-                or img.get("uri", "").lower().endswith(".dds")):
-            raise NotImplementedError(
-                f"{path}: image {idx} is a DDS texture (not ported)")
         if "uri" in img and not img["uri"].startswith("data:"):
             with open(os.path.join(base_dir, img["uri"]), "rb") as f:
                 raw = f.read()
@@ -292,7 +289,12 @@ def load(path: str) -> Model:
             bv = doc["bufferViews"][img["bufferView"]]
             start = bv.get("byteOffset", 0)
             raw = buffers[bv["buffer"]][start:start + bv["byteLength"]]
-        images[idx] = decode_image_rgba8(bytes(raw), f"{path}: image {idx}")
+        what = f"{path}: image {idx}"
+        if (img.get("mimeType") == "image/vnd-ms.dds"
+                or img.get("uri", "").lower().endswith(".dds")):
+            images[idx] = decode_dds_rgba8(raw, what)
+        else:
+            images[idx] = decode_image_rgba8(bytes(raw), what)
         return images[idx]
 
     textures: list[np.ndarray] = []

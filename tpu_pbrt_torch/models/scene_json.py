@@ -1,6 +1,7 @@
 """JSON scene description (port of `tpu_pbrt/models/scene_json.py`): the
 reference's scene schema, parsed identically. glTF models load through the
-port's `models/gltf.py` (a DDS texture still raises: ROADMAP M9b).
+port's `models/gltf.py` (PNG, DDS, and other formats through PIL); an
+environment texture may be .exr, .hdr, .dds or an LDR image.
 
 Schema (reference: Source/MyScene.ixx:33-37, Source/Scene.ixx:43-73,
 Source/JSONConverters.ixx:12-33):

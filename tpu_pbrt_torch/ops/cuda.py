@@ -20,6 +20,11 @@ its wrapper launches it, and the same count split by the wrapper's `tag`
 (the row fetch tags a launch with its table width and slot count, the
 dense sweeps, the bounce fetch and the fused kernel with their ray
 count).
+
+Shard threads (`parallel/mesh.run_sharded`) may launch at once: the first
+use builds and loads the library under a lock, and a launch goes to its
+tensors' device and that device's current stream, whichever device is the
+thread's current one.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -45,6 +51,7 @@ NVCC_FLAGS = (
 )
 
 _lib: ctypes.CDLL | None = None
+_lib_lock = threading.Lock()         # one build and load per process
 build_seconds: float | None = None   # wall time of this process's build
 build_log: str = ""                  # nvcc's output (ptxas register report)
 
@@ -116,19 +123,33 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use; threads that ask at
+    once wait for the one build)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.tpb_error_string.argtypes = [ctypes.c_int]
-        lib.tpb_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.tpb_error_string.argtypes = [ctypes.c_int]
+            lib.tpb_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def launch_device(tensors) -> torch.device:
+    """The one device of a launch's tensor arguments (a thread's current
+    device may be another); raises if they span devices."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError("kernel arguments span devices "
+                         f"{sorted(map(str, devices))}")
+    return devices.pop()
 
 
 class Kernel:
     """One hand-written kernel: its C entry point `tpb_<name>`, where its
-    source lives, which TPU kernel it replaces, and its launch count."""
+    source lives, which TPU kernel it replaces, and its launch count.
+    `launches` and `launches_by_tag` are plain counters bumped under the
+    interpreter lock: they count the launches of every shard thread."""
 
     def __init__(self, name: str, source: str, replaces: str):
         self.name = name
@@ -138,10 +159,11 @@ class Kernel:
         self.launches_by_tag: dict = {}
 
     def launch(self, *args, tag=None) -> None:
-        """Launch on the current stream. Tensors pass as device pointers,
-        ints as C ints (the C signature lists them in this order, then the
-        stream); raises on a nonzero cudaGetLastError(). `tag` (hashable)
-        files the launch under `launches_by_tag` as well."""
+        """Launch on the tensor arguments' device (`launch_device`), made
+        current for the call, on its current stream. Tensors pass as device
+        pointers, ints as C ints (the C signature lists them in this order,
+        then the stream); raises on a nonzero cudaGetLastError(). `tag`
+        (hashable) files the launch under `launches_by_tag` as well."""
         c_types = [ctypes.c_void_p if isinstance(a, torch.Tensor)
                    else ctypes.c_int for a in args]
         fn = getattr(library(), "tpb_" + self.name)
@@ -149,7 +171,9 @@ class Kernel:
         fn.restype = ctypes.c_int
         c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
                   for a in args]
-        err = fn(*c_args, torch.cuda.current_stream().cuda_stream)
+        dev = launch_device([a for a in args if isinstance(a, torch.Tensor)])
+        with torch.cuda.device(dev):
+            err = fn(*c_args, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             msg = library().tpb_error_string(err).decode()
             raise RuntimeError(f"kernel {self.name} launch failed: {msg}")

@@ -1,5 +1,5 @@
 """Temporal accumulation + edge-aware à-trous denoiser (SVGF-class; port of
-`tpu_pbrt/passes/denoise.py`, single-device form).
+`tpu_pbrt/passes/denoise.py`).
 
 Stand-in for the reference application's NRD denoisers and its albedo
 (de)modulation pass. Per frame:
@@ -13,6 +13,16 @@ Stand-in for the reference application's NRD denoisers and its albedo
 Images are (H, W, C) float32 tensors on one device. The history taps are
 float16, as in the reference (its patch rows are cast before the gather):
 the cast is part of the result, and every tick reads it back.
+
+Under a row-sharded frame (`parallel/app_mesh.py`) every pass takes a
+`halo` ({"extend2d": fn(x, pad) -> the band with `pad` rows of its
+neighbours above and below (the frame's edge rows replicated at its top
+and bottom), "pad": the temporal pass's halo rows, "row0": the band's
+first global row, "total_h": the frame's rows}) and the images are the
+band's rows. History taps land in global rows; a reprojection beyond the
+halo counts as a disocclusion; each à-trous iteration exchanges its own
+2*step rows. Accepted taps are then bit-identical to the single-device
+passes'.
 """
 
 from __future__ import annotations
@@ -87,21 +97,33 @@ def _bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _patch_sample(img: torch.Tensor, xy: torch.Tensor):
+def _patch_sample(img: torch.Tensor, xy: torch.Tensor, clip_h=None,
+                  y_offset: int = 0):
     """(bilinear blend, nearest tap) of `img` at `xy` from one patch-row
     gather. Each texel's 2x2 patch (itself, right, below, below-right) is
     cast to float16 before the gather; `nearest` is the patch tap with the
-    largest bilinear weight."""
+    largest bilinear weight.
+
+    Sharded use: `img` may be a halo-extended band taller than the output.
+    `clip_h` is the clamp height in xy's rows (the frame's, so the edge
+    arithmetic is the single-device path's) and the integer `y_offset`
+    turns a global row into a row of `img` (halo pad - band row0). The
+    offset goes on the row index, not on y, so the blend weights are the
+    single-device ones bit for bit; rows off the band index-clamp, and the
+    caller's validity mask discards them."""
     h, w, c = img.shape
     oh, ow = xy.shape[:2]
     patch = torch.cat(
         [img, _shift2d(img, 0, 1), _shift2d(img, 1, 0), _shift2d(img, 1, 1)],
         -1).to(torch.float16).reshape(h * w, 4 * c)
     x = torch.clamp(xy[..., 0], 0.0, w - 1.001)
-    y = torch.clamp(xy[..., 1], 0.0, h - 1.001)
+    y = torch.clamp(xy[..., 1], 0.0, (h if clip_h is None else clip_h) - 1.001)
     x0 = torch.floor(x)
     y0 = torch.floor(y)
-    idx = (y0.to(torch.int64) * w + x0.to(torch.int64)).reshape(-1)
+    yi = y0.to(torch.int64)
+    if clip_h is not None:
+        yi = torch.clamp(yi + y_offset, 0, h - 1)
+    idx = (yi * w + x0.to(torch.int64)).reshape(-1)
     rows = patch.index_select(0, idx).to(torch.float32)
     fx = (x - x0).reshape(-1, 1)
     fy = (y - y0).reshape(-1, 1)
@@ -140,12 +162,19 @@ def temporal_accumulate(
     max_history: float = 32.0,
     depth_tolerance: float = 0.05,
     normal_tolerance: float = 0.9,
+    halo=None,
 ):
     """Reproject history via motion vectors, validate with depth/normal
-    tests (disocclusion), accumulate. Returns (accumulated color, variance,
-    new state)."""
+    tests (disocclusion), accumulate. With `halo` the arrays are a band
+    (module docstring): history taps ride an exchange of `halo["pad"]`
+    rows, and a reprojection beyond them is rejected like a disocclusion.
+    Returns (accumulated color, variance, new state)."""
     h, w = color.shape[:2]
     gy, gx = _pixel_grid(h, w, color.device)
+    total_h = h
+    if halo is not None:
+        gy = gy + halo["row0"]            # global rows
+        total_h = halo["total_h"]
     prev_xy = torch.stack([gx + motion[..., 0], gy + motion[..., 1]], -1)
 
     # every history field rides one patch-row gather: the bilinear blend
@@ -157,7 +186,12 @@ def temporal_accumulate(
          torch.clamp(state.depth, max=6e4)[..., None], state.normal,
          state.history_len[..., None]], -1)
     packed = torch.clamp(packed, -6e4, 6e4)
-    smp_b, smp_n = _patch_sample(packed, prev_xy)
+    if halo is not None:
+        pad, row0 = halo["pad"], halo["row0"]
+        smp_b, smp_n = _patch_sample(halo["extend2d"](packed, pad), prev_xy,
+                                     clip_h=total_h, y_offset=pad - row0)
+    else:
+        smp_b, smp_n = _patch_sample(packed, prev_xy)
     prev_color = smp_b[..., 0:3]
     prev_moments = smp_b[..., 3:5]
     prev_depth = smp_n[..., 5]
@@ -165,7 +199,13 @@ def temporal_accumulate(
     prev_len = smp_n[..., 9]
 
     in_bounds = ((prev_xy[..., 0] >= 0) & (prev_xy[..., 0] <= w - 1)
-                 & (prev_xy[..., 1] >= 0) & (prev_xy[..., 1] <= h - 1))
+                 & (prev_xy[..., 1] >= 0) & (prev_xy[..., 1] <= total_h - 1))
+    if halo is not None:
+        # beyond the halo = disocclusion; the upper bound's - 1 keeps the
+        # whole 2x2 patch (rows y0, y0 + 1) inside the exchanged rows
+        in_bounds = in_bounds & (
+            (prev_xy[..., 1] >= row0 - pad)
+            & (prev_xy[..., 1] <= row0 + h - 1 + pad - 1))
     finite = torch.isfinite(depth) & torch.isfinite(prev_depth)
     depth_ok = torch.abs(prev_depth - depth) <= depth_tolerance * torch.clamp(
         torch.abs(depth), min=1e-3)
@@ -205,9 +245,12 @@ def atrous_filter(
     sigma_z: float = 1.0,
     sigma_n: float = 128.0,
     sigma_l: float = 4.0,
+    halo=None,
 ):
     """Edge-stopping à-trous wavelet filter (SVGF): a 5x5 pattern per
-    iteration with stride 2^i."""
+    iteration with stride 2^i. With `halo` the arrays are a band: each
+    iteration exchanges its own 2*step rows, and every row shift reads the
+    extended array (true neighbour rows; columns edge-clamp as before)."""
     # miss pixels carry +inf depth; |inf - inf| = NaN would poison the
     # depth weight, so they take a large finite sentinel (still an edge
     # against every finite depth). Every depth is then finite, so the
@@ -215,20 +258,32 @@ def atrous_filter(
     # is infinite (a hit beside a miss) never fires and is left out.
     depth = torch.where(torch.isfinite(depth), depth, 1e10)
     depth_scale = sigma_z * torch.clamp(torch.abs(depth), min=1e-3)
+    h = depth.shape[0]
 
     for it in range(iterations):
         step = 1 << it
         # the four fields shift together: one concatenation a tap
         fields = torch.cat([color, variance[..., None], depth[..., None],
                             normal], -1)
+        if halo is None:
+            def shifted(cols, dy, dx):
+                return _shift2d(fields[..., cols], dy, dx)
+        else:
+            # a band's row shift reads the rows of the fields extended by
+            # this iteration's 2 * step neighbour rows
+            p = 2 * step
+            ext = halo["extend2d"](fields, p)
+
+            def shifted(cols, dy, dx, ext=ext, p=p):
+                return _shift2d(ext[p + dy:p + dy + h, :, cols], 0, dx)
         lum_c = pmath.luminance(color)
         # local variance smoothing for the luminance weight (3x3 gaussian)
         vsum = torch.zeros_like(variance)
         wsum_g = 0.0
         for dy, wy in ((-1, 0.25), (0, 0.5), (1, 0.25)):
             for dx, wx in ((-1, 0.25), (0, 0.5), (1, 0.25)):
-                vsum = vsum + _shift2d(variance[..., None], dy,
-                                       dx)[..., 0] * (wy * wx)
+                vsum = vsum + shifted(slice(3, 4), dy,
+                                      dx)[..., 0] * (wy * wx)
                 wsum_g += wy * wx
         sigma_lum = sigma_l * torch.sqrt(torch.clamp(vsum / wsum_g,
                                                      min=1e-10))
@@ -242,7 +297,7 @@ def atrous_filter(
             for ix, wx in enumerate(_B3):
                 dx = (ix - 2) * step
                 kw = wy * wx
-                s = _shift2d(fields, dy, dx)
+                s = shifted(slice(None), dy, dx)
                 c_s = s[..., 0:3]
                 v_s = s[..., 3]
                 d_s = s[..., 4]
@@ -288,11 +343,14 @@ def denoise_frame(
     normal: torch.Tensor,
     motion: torch.Tensor,
     iterations: int = 4,
+    halo=None,
 ):
     """Full denoiser: demodulate -> temporal -> à-trous -> remodulate.
-    Returns (image, new state)."""
+    `halo` runs it on a band of a row-sharded frame. Returns (image, new
+    state)."""
     demod = radiance / albedo
     acc, variance, new_state = temporal_accumulate(state, demod, depth,
-                                                   normal, motion)
-    filtered = atrous_filter(acc, variance, depth, normal, iterations)
+                                                   normal, motion, halo=halo)
+    filtered = atrous_filter(acc, variance, depth, normal, iterations,
+                             halo=halo)
     return filtered * albedo, new_state

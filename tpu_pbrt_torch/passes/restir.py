@@ -350,17 +350,40 @@ def _tap_index(x, n: int, reflect: bool):
     return torch.clamp(xr, 0, n - 1)
 
 
-def _tap_rows(packed, x, y, width, height, reflect_edges=False):
+def _tap_rows(packed, x, y, width, height, reflect_edges=False, halo=None):
     """Read packed rows at the nearest pixels; returns (fields, in-bounds
     mask). `reflect_edges` mirrors out-of-view taps across the screen edges
-    instead of rejecting them (spatial reuse)."""
+    instead of rejecting them (spatial reuse).
+
+    `halo` (a band of a row-sharded frame: {"pad": int, "row0": the band's
+    first global row, "total_h": the frame's rows, "extend"}): `packed` is
+    then the band extended by `pad` exchanged rows on each side
+    (`parallel/app_mesh.py`), `y` is band-local, and validity is checked
+    in global rows. Under `reflect_edges` rows reflect in global
+    coordinates; a tap beyond the halo is rejected."""
     xi = _tap_index(x, width, reflect_edges)
-    yi = _tap_index(y, height, reflect_edges)
-    rows = packed[(yi.long() * width + xi.long())]
-    if reflect_edges:
-        in_b = torch.ones_like(x, dtype=torch.bool)
+    if halo is None:
+        yi = _tap_index(y, height, reflect_edges)
+        if reflect_edges:
+            in_b = torch.ones_like(x, dtype=torch.bool)
+        else:
+            in_b = (x >= 0) & (x <= width - 1) & (y >= 0) & (y <= height - 1)
     else:
-        in_b = (x >= 0) & (x <= width - 1) & (y >= 0) & (y <= height - 1)
+        pad, total_h, row0 = halo["pad"], halo["total_h"], halo["row0"]
+        yr = torch.round(y).to(torch.int32)
+        if reflect_edges:
+            gy = torch.abs(yr + row0)
+            gy = torch.where(gy >= total_h, 2 * total_h - gy - 1, gy)
+            yr = gy - row0
+            in_b = ((yr >= -pad) & (yr <= height - 1 + pad)
+                    & (gy >= 0) & (gy <= total_h - 1))
+        else:
+            gy = y + row0
+            in_b = ((y >= -pad) & (y <= height - 1 + pad)
+                    & (gy >= 0) & (gy <= total_h - 1)
+                    & (x >= 0) & (x <= width - 1))
+        yi = torch.clamp(yr + pad, 0, height + 2 * pad - 1)
+    rows = packed[(yi.long() * width + xi.long())]
     return {
         "light": rows[:, 0].to(torch.int32),
         "u": rows[:, 1], "v": rows[:, 2], "w": rows[:, 3], "m": rows[:, 4],
@@ -469,24 +492,32 @@ def _boiling_filter(res: Reservoir, width, height, strength,
 
 def temporal_resampling(tracer, gb: GBuffer, view: Vec3, state: ReSTIRState,
                         cur: Reservoir, px, py, frame, width, height,
-                        settings: ReSTIRSettings, cam_prev=None):
+                        settings: ReSTIRSettings, cam_prev=None,
+                        py_grid=None, halo=None):
     """Motion-guided temporal reuse. Returns (reservoir, bias-correction
     rays traced). `cam_prev`: the previous frame's camera position (the
-    pairwise modes evaluate the history surface's view vector with it)."""
+    pairwise modes evaluate the history surface's view vector with it).
+    `py_grid`: the row that addresses the reservoir grid (under a
+    row-sharded frame the band-local row, while `py` stays the global row
+    that keys the RNG streams; `py` by default). `halo`: see `_tap_rows`."""
     ltable = tracer.light_table
     dev = gb.depth.device
     if cam_prev is None:
         cam_prev = torch.zeros((3,), device=dev)
+    if py_grid is None:
+        py_grid = py
     b, sv = _surface_from_gbuffer(gb)
     prev_x = px.to(torch.float32) + gb.motion_x
-    prev_y = py.to(torch.float32) + gb.motion_y
+    prev_y = py_grid.to(torch.float32) + gb.motion_y
 
     mode = settings.temporal_bias_correction
     prev = state.reservoir
     packed = _pack_taps(prev, state.depth, state.normal)
     if mode != "basic":
         packed = torch.cat([packed, state.surface], dim=-1)
-    tap, in_b = _tap_rows(packed, prev_x, prev_y, width, height)
+    if halo is not None:
+        packed = halo["extend"](packed)
+    tap, in_b = _tap_rows(packed, prev_x, prev_y, width, height, halo=halo)
     p_light, p_u, p_v = tap["light"], tap["u"], tap["v"]
     p_w, p_m, pd, pn = tap["w"], tap["m"], tap["depth"], tap["normal"]
     valid_hist = (in_b & _geometry_similar(gb, pd, pn) & (p_light >= 0)
@@ -557,18 +588,24 @@ def temporal_resampling(tracer, gb: GBuffer, view: Vec3, state: ReSTIRState,
 
 def spatial_resampling(tracer, gb: GBuffer, view: Vec3, cur: Reservoir,
                        px, py, frame, width, height,
-                       settings: ReSTIRSettings, cam_pos=None):
+                       settings: ReSTIRSettings, cam_pos=None, py_grid=None,
+                       halo=None):
     """Neighbour-disc spatial reuse with one disc offset per (frame, tap)
-    shared by every pixel. Returns (reservoir, bias-correction rays)."""
+    shared by every pixel. Returns (reservoir, bias-correction rays).
+    `py_grid` and `halo`: see `temporal_resampling`."""
     ltable = tracer.light_table
     dev = gb.depth.device
     if cam_pos is None:
         cam_pos = torch.zeros((3,), device=dev)
+    if py_grid is None:
+        py_grid = py
     mode = settings.spatial_bias_correction
     b, sv = _surface_from_gbuffer(gb)
     packed = _pack_taps(cur, gb.depth, gb.shading_normal)
     if mode != "basic":
         packed = torch.cat([packed, _pack_surface(gb)], dim=-1)
+    if halo is not None:
+        packed = halo["extend"](packed)
 
     # every tap first (pairwise needs the accepted count k_eff)
     taps = []
@@ -580,9 +617,9 @@ def spatial_resampling(tracer, gb: GBuffer, view: Vec3, cur: Reservoir,
         ang = 2.0 * math.pi * us[0]
         rad = settings.spatial_radius * torch.sqrt(us[1])
         nx = px.to(torch.float32) + torch.cos(ang) * rad
-        ny = py.to(torch.float32) + torch.sin(ang) * rad
+        ny = py_grid.to(torch.float32) + torch.sin(ang) * rad
         tap, in_b = _tap_rows(packed, nx, ny, width, height,
-                              reflect_edges=True)
+                              reflect_edges=True, halo=halo)
         ok = (in_b & _geometry_similar(gb, tap["depth"], tap["normal"])
               & (tap["light"] >= 0) & gb.valid)
         taps.append((tap, ok, u4))
@@ -679,23 +716,28 @@ def final_shading(tracer, gb: GBuffer, view: Vec3, res: Reservoir):
 def render_direct_lighting(tracer, gb: GBuffer, view: Vec3,
                            state: ReSTIRState, px, py, frame, width, height,
                            settings: ReSTIRSettings = ReSTIRSettings(),
-                           regir=None, cam_pos=None, cam_prev=None):
+                           regir=None, cam_pos=None, cam_prev=None,
+                           py_grid=None, halo=None):
     """The whole per-frame ReSTIR DI pipeline: initial sampling, temporal
     reuse, spatial reuse, final shading. Returns ((diffuse, specular), new
     state, rays traced). `regir`: optional (ReGIRGrid, ReGIRSettings).
     `cam_pos` / `cam_prev`: this and the previous frame's camera positions
-    (the pairwise and raytraced modes need them)."""
+    (the pairwise and raytraced modes need them). `py_grid` / `halo`: a
+    band of a row-sharded frame (`temporal_resampling`); `height` is then
+    the band's rows, and the boiling filter's 16x16 tiles are the band's."""
     res, rays = initial_sampling(tracer, gb, view, px, py, frame, settings,
                                  regir=regir)
     if settings.temporal:
         res, r_t = temporal_resampling(tracer, gb, view, state, res, px, py,
                                        frame, width, height, settings,
-                                       cam_prev=cam_prev)
+                                       cam_prev=cam_prev, py_grid=py_grid,
+                                       halo=halo)
         rays = rays + r_t
     if settings.spatial:
         res, r_s = spatial_resampling(tracer, gb, view, res, px, py, frame,
                                       width, height, settings,
-                                      cam_pos=cam_pos)
+                                      cam_pos=cam_pos, py_grid=py_grid,
+                                      halo=halo)
         rays = rays + r_s
     diffuse, specular, shade_rays = final_shading(tracer, gb, view, res)
     pairwise_t = settings.temporal_bias_correction != "basic"

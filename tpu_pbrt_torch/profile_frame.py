@@ -180,24 +180,56 @@ def _union_us(intervals) -> float:
 TEXTURE_RANGE = "apply_textures"
 
 
-def _range_kernels(events, kernels, name: str) -> list:
-    """The device kernels launched inside the host ranges called `name`:
-    the host-side launch calls whose start lies in a range share a
-    correlation id with their kernel."""
-    ranges = sorted((e.start_ns(), e.end_ns()) for e in events
-                    if e.name() == name
-                    and e.device_type() == torch.autograd.DeviceType.CPU)
-    if not ranges:
-        return []
-    starts = [r[0] for r in ranges]
-    ids = set()
+def _host_index(events, names) -> tuple[list, dict]:
+    """One pass over the profiler's host events: each CUDA launch call as
+    (correlation id, start ns, host thread), and for each range name in
+    `names` its (start, end) ns by host thread. A launch call's thread is
+    that of the latest torch op that began at or before it: a launch
+    through a ctypes wrapper has no op around it, but its wrapper
+    allocates the output just before, and the sharded App runs one shard
+    thread at a time (`parallel/mesh.run_sharded`), so the latest op is
+    the launching thread's."""
+    cpu = torch.autograd.DeviceType.CPU
+    ops, calls = [], []
+    spans: dict = {n: {} for n in names}
     for e in events:
-        if (e.device_type() != torch.autograd.DeviceType.CPU
-                or not e.name().startswith("cudaLaunchKernel")):
+        if e.device_type() != cpu:
             continue
-        k = bisect.bisect_right(starts, e.start_ns()) - 1
-        if k >= 0 and e.start_ns() <= ranges[k][1]:
-            ids.add(e.correlation_id())
+        name = e.name()
+        if name.startswith("aten::"):
+            ops.append((e.start_ns(), e.start_thread_id()))
+        elif name.startswith("cudaLaunchKernel"):
+            calls.append((e.correlation_id(), e.start_ns()))
+        elif name in spans:
+            spans[name].setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.end_ns()))
+    ops.sort()
+    starts = [s for s, _ in ops]
+    launches = []
+    for corr, t in calls:
+        k = bisect.bisect_right(starts, t) - 1
+        launches.append((corr, t, ops[k][1] if k >= 0 else None))
+    return launches, spans
+
+
+def _range_kernels(kernels, launches, spans: dict) -> list:
+    """The device kernels launched inside the host ranges `spans` (one
+    name's entry of `_host_index`): a kernel shares a correlation id with
+    its launch call, which counts when it starts inside a range of its own
+    thread (the ranges of a shard waiting at a collective stay open while
+    the other shards run)."""
+    ranges = {}
+    for tid, r in spans.items():
+        r = sorted(r)
+        ranges[tid] = ([s for s, _ in r], r)
+    ids = set()
+    for corr, t, tid in launches:
+        if tid not in ranges:
+            continue
+        starts, r = ranges[tid]
+        k = bisect.bisect_right(starts, t) - 1
+        if k >= 0 and t <= r[k][1]:
+            ids.add(corr)
     return [e for e in kernels if e.correlation_id() in ids]
 
 
@@ -265,7 +297,8 @@ def profile(name: str) -> dict:
                       "launches_per_frame": len(v) / PROFILED}
                      for n, v in top])
     if renderer.tracer.textured:
-        taps = _range_kernels(events, kernels, TEXTURE_RANGE)
+        launches, spans = _host_index(events, (TEXTURE_RANGE,))
+        taps = _range_kernels(kernels, launches, spans[TEXTURE_RANGE])
         if not taps:
             out["texture_taps"] = ("not measured: no kernel matched the "
                                    "texture ranges")
@@ -316,15 +349,18 @@ def _device_kernels(prof, ranges=()) -> tuple[list, list]:
 
 
 def stage_breakdown(app, ticks: int = PROFILED) -> dict:
-    """`ticks` ticks of `app` under `torch.profiler`: device kernel ms,
-    launches a tick, and both split by the App's ranges (`APP_STAGES`, and
-    what runs outside them); the busy intervals' union (`busy_ms_per_tick`)
-    for the idle share."""
+    """`ticks` ticks of `app` (anything with a `tick()`) under
+    `torch.profiler`: device kernel ms, launches a tick, and both split by
+    the App's ranges (`APP_STAGES`, and what runs outside them), from
+    every thread (the sharded App's shard threads too); the busy
+    intervals' union (`busy_ms_per_tick`) for the idle share."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  experimental_config=_ExperimentalConfig(
+                      profile_all_threads=True)) as prof:
         for _ in range(ticks):
             app.tick()
         torch.cuda.synchronize()
@@ -336,8 +372,9 @@ def stage_breakdown(app, ticks: int = PROFILED) -> dict:
     busy_us = _union_us((e.start_ns() / 1e3, e.end_ns() / 1e3)
                         for e in kernels)
     stages, seen = {}, set()
+    launches, spans = _host_index(events, APP_STAGES)
     for name in APP_STAGES:
-        ks = _range_kernels(events, kernels, name)
+        ks = _range_kernels(kernels, launches, spans[name])
         seen.update(e.correlation_id() for e in ks)
         stages[name] = {
             "launches_per_tick": len(ks) / ticks,

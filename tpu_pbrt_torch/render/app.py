@@ -379,16 +379,27 @@ class App:
                     iterations=pp.denoiser_iterations)
                 debug.check_finite("denoise", img)
 
+        img, taa_state = self._post(img, motion, history.taa)
+        return img, rays_total, FrameHistory(
+            denoiser=denoiser_state, taa=taa_state, restir=restir_state,
+            sharc=sharc_state)
+
+    def _post(self, img: torch.Tensor, motion: torch.Tensor,
+              taa_state: taa_mod.TAAState):
+        """The tail of a tick on the denoised internal-resolution image:
+        TAA (or the bilinear upscale) to the output resolution, sharpen,
+        chromatic aberration, bloom and the tonemap. Returns (output
+        image, TAA state)."""
+        pp = self.settings.post_processing
         # --- TAA upscale to the output resolution
-        taa_state = history.taa
         if pp.upscaler != "none":
             with record_function("taa"):
                 img, taa_state = taa_mod.resolve(
-                    history.taa, img, motion, self.out_h, self.out_w)
+                    taa_state, img, motion, self.out_h, self.out_w)
                 if pp.sharpness > 0:
                     img = taa_mod.sharpen(img, pp.sharpness)
                 debug.check_finite("taa", img)
-        elif (rw, rh) != (self.out_w, self.out_h):
+        elif (self.render_w, self.render_h) != (self.out_w, self.out_h):
             img = taa_mod._upscale_bilinear(img, self.out_h, self.out_w)
 
         # --- lens fx + bloom + tonemap (chromatic aberration before bloom,
@@ -403,7 +414,4 @@ class App:
                                 pp.hdr_paper_white_nits,
                                 pp.hdr_color_rotation)
             debug.check_finite("bloom_tonemap", img)
-
-        return img, rays_total, FrameHistory(
-            denoiser=denoiser_state, taa=taa_state, restir=restir_state,
-            sharc=sharc_state)
+        return img, taa_state

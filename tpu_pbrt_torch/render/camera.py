@@ -156,23 +156,30 @@ def pixel_coords(width: int, height: int, device):
 def generate_rays(cam: CameraData, width: int, height: int,
                   aperture_u: torch.Tensor | None = None,
                   jitter: torch.Tensor | None = None,
-                  previous: bool = False):
+                  previous: bool = False,
+                  ndc: tuple | None = None):
     """Primary rays for every pixel, flattened row-major, SoA: pinhole, or
     the thin lens when `aperture_u` ((W*H, 2) uniforms) is given. `jitter`
     overrides the camera's; `previous` takes the previous frame's basis.
-    Returns (origin: Vec3, direction: Vec3, t_min, t_max) of (W*H,)
-    components on the camera's device."""
-    dev = cam.position.device
-    gy, gx = torch.meshgrid(
-        torch.arange(height, dtype=torch.float32, device=dev),
-        torch.arange(width, dtype=torch.float32, device=dev),
-        indexing="ij")
-    px = gx.reshape(-1)
-    py = gy.reshape(-1)
-    jit = cam.jitter if jitter is None else jitter
-    # UV -> NDC
-    ndc_x = (px + 0.5 + jit[0]) / width * 2.0 - 1.0
-    ndc_y = 1.0 - (py + 0.5 + jit[1]) / height * 2.0
+    `ndc=(ndc_x, ndc_y)` replaces the per-pixel grid (a band of a sharded
+    frame generates only its own rays; `jitter` is then unused). Returns
+    (origin: Vec3, direction: Vec3, t_min, t_max) of (W*H,) components, or
+    of the `ndc` lanes, on the camera's device."""
+    if ndc is not None:
+        ndc_x, ndc_y = ndc
+        px = ndc_x
+    else:
+        dev = cam.position.device
+        gy, gx = torch.meshgrid(
+            torch.arange(height, dtype=torch.float32, device=dev),
+            torch.arange(width, dtype=torch.float32, device=dev),
+            indexing="ij")
+        px = gx.reshape(-1)
+        py = gy.reshape(-1)
+        jit = cam.jitter if jitter is None else jitter
+        # UV -> NDC
+        ndc_x = (px + 0.5 + jit[0]) / width * 2.0 - 1.0
+        ndc_y = 1.0 - (py + 0.5 + jit[1]) / height * 2.0
 
     pos, right, up, fwd = (
         (cam.prev_position, cam.prev_right, cam.prev_up, cam.prev_forward)

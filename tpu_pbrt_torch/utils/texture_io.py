@@ -2,14 +2,18 @@
 `tpu_pbrt/utils/texture_io.py`).
 
 PNG goes through the port's own decoder (`utils/image.read_png`), Radiance
-.hdr through the RGBE decoder below; other LDR formats (JPEG, ...) need PIL
-and raise a clear error without it. OpenEXR and DDS are not ported yet and
-raise. `build_mip_chain` is the numpy box filter.
+.hdr through the RGBE decoder below, OpenEXR scanline images (NONE, RLE,
+ZIPS and ZIP compression; HALF, FLOAT and UINT channels) through the EXR
+decoder below, DDS (BC1-BC5, BC7, uncompressed) through `utils/dds.py`;
+other LDR formats (JPEG, ...) need PIL and raise a clear error without it.
+`build_mip_chain` is the numpy box filter.
 """
 
 from __future__ import annotations
 
 import io
+import struct
+import zlib
 
 import numpy as np
 
@@ -18,14 +22,25 @@ from .image import read_png
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
+def decode_dds_rgba8(raw: bytes, what: str = "image") -> np.ndarray:
+    """(H, W, 4) uint8: a DDS image's stored values (`utils/dds.py`),
+    rounded to 8 bits; the sRGB rule stays with the material slot."""
+    from .dds import _parse_dds, decode_surface
+
+    surf, w, h, fmt, _ = _parse_dds(bytes(raw), what)
+    return np.clip(np.round(decode_surface(surf, w, h, fmt) * 255), 0,
+                   255).astype(np.uint8)
+
+
 def decode_image_rgba8(raw: bytes, what: str = "image") -> np.ndarray:
     """(H, W, 4) uint8 from an encoded LDR image: PNG through `read_png`,
-    anything else through PIL where it is installed."""
+    DDS through `decode_dds_rgba8`, anything else through PIL where it is
+    installed."""
     raw = bytes(raw)
     if raw[:8] == _PNG_SIGNATURE:
         return read_png(raw)
     if raw[:4] == b"DDS ":
-        raise NotImplementedError(f"{what}: DDS textures are not ported")
+        return decode_dds_rgba8(raw, what)
     try:
         from PIL import Image
     except ImportError as e:
@@ -46,9 +61,11 @@ def load_image_rgba(path: str, srgb: bool = True) -> np.ndarray:
         rgb = _load_radiance_hdr(path)
         return np.concatenate([rgb, np.ones_like(rgb[..., :1])], -1)
     if lower.endswith(".exr"):
-        raise NotImplementedError(f"{path}: OpenEXR images are not ported")
+        return _load_exr(path)
     if lower.endswith(".dds"):
-        raise NotImplementedError(f"{path}: DDS textures are not ported")
+        from .dds import load_dds
+
+        return load_dds(path, srgb_default=srgb)
     with open(path, "rb") as f:
         raw = f.read()
     arr = decode_image_rgba8(raw, path).astype(np.float32) / 255.0
@@ -109,6 +126,134 @@ def _load_radiance_hdr(path: str) -> np.ndarray:
     rgbe = out.astype(np.float32)
     exp = np.ldexp(1.0, out[..., 3].astype(np.int32) - 136)
     return (rgbe[..., :3] * exp[..., None]).astype(np.float32)
+
+
+def _exr_unpredict_deinterleave(raw: bytes) -> np.ndarray:
+    """OpenEXR's ZIP/RLE byte postprocess: undo the delta predictor, then
+    split the byte stream back out of its two interleaved halves."""
+    t = np.frombuffer(raw, np.uint8).astype(np.int32)
+    t = (np.cumsum(t - 128) + 128 * 1).astype(np.uint8)  # d[i]+=d[i-1]-128
+    n = t.shape[0]
+    half = (n + 1) // 2
+    out = np.empty(n, np.uint8)
+    out[0::2] = t[:half]
+    out[1::2] = t[half:]
+    return out
+
+
+def _exr_rle_decode(raw: bytes) -> bytes:
+    out = bytearray()
+    i = 0
+    n = len(raw)
+    while i < n:
+        c = raw[i]
+        i += 1
+        if c > 127:         # signed char < 0: copy 256-c literal bytes
+            cnt = 256 - c
+            out += raw[i:i + cnt]
+            i += cnt
+        else:               # repeat next byte c+1 times
+            out += raw[i:i + 1] * (c + 1)
+            i += 1
+    return bytes(out)
+
+
+def _load_exr(path: str) -> np.ndarray:
+    """Minimal OpenEXR 2.0 scanline decoder -> (H, W, 4) float32 linear.
+    Supports single-part scanline files, NONE/RLE/ZIPS/ZIP compression,
+    HALF/FLOAT/UINT channels, 1x1 sampling (the reference loads .exr
+    through DirectXTex the same way, Source/TextureHelpers.ixx:49-55)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"\x76\x2f\x31\x01":
+        raise ValueError(f"{path}: not an OpenEXR file")
+    version = struct.unpack("<I", data[4:8])[0]
+    if version & 0x200:
+        raise ValueError(f"{path}: tiled EXR not supported")
+    if version & 0x1000:
+        raise ValueError(f"{path}: multi-part EXR not supported")
+
+    def read_cstr(pos):
+        end = data.index(b"\0", pos)
+        return data[pos:end].decode("latin-1"), end + 1
+
+    # --- header attributes
+    pos = 8
+    channels = []       # (name, pixel_type) in file (alphabetical) order
+    compression = 0
+    dw = None
+    while True:
+        name, pos = read_cstr(pos)
+        if name == "":
+            break
+        atype, pos = read_cstr(pos)
+        size = struct.unpack_from("<i", data, pos)[0]
+        pos += 4
+        payload = data[pos:pos + size]
+        pos += size
+        if name == "channels":
+            cp = 0
+            while payload[cp] != 0:
+                cend = payload.index(b"\0", cp)
+                cname = payload[cp:cend].decode("latin-1")
+                ptype, = struct.unpack_from("<i", payload, cend + 1)
+                xs, ys = struct.unpack_from("<ii", payload, cend + 9)
+                if xs != 1 or ys != 1:
+                    raise ValueError(f"{path}: subsampled channels")
+                channels.append((cname, ptype))
+                cp = cend + 17
+        elif name == "compression":
+            compression = payload[0]
+        elif name == "dataWindow":
+            dw = struct.unpack("<4i", payload)
+    if dw is None or not channels:
+        raise ValueError(f"{path}: missing dataWindow/channels")
+    w = dw[2] - dw[0] + 1
+    h = dw[3] - dw[1] + 1
+
+    lines_per_block = {0: 1, 1: 1, 2: 1, 3: 16}.get(compression)
+    if lines_per_block is None:
+        raise ValueError(
+            f"{path}: unsupported EXR compression {compression} "
+            "(NONE/RLE/ZIPS/ZIP only)")
+    n_blocks = (h + lines_per_block - 1) // lines_per_block
+    offsets = struct.unpack_from(f"<{n_blocks}Q", data, pos)
+
+    dtypes = {0: np.uint32, 1: np.float16, 2: np.float32}
+    bpp = {0: 4, 1: 2, 2: 4}
+    planes = {c: np.zeros((h, w), np.float32) for c, _ in channels}
+    row_bytes = sum(bpp[t] for _, t in channels) * w
+
+    for off in offsets:
+        y0, packed = struct.unpack_from("<ii", data, off)
+        raw = data[off + 8:off + 8 + packed]
+        ny = min(lines_per_block, dw[3] - y0 + 1)
+        expect = row_bytes * ny
+        if compression in (2, 3) and packed < expect:
+            raw = _exr_unpredict_deinterleave(zlib.decompress(raw))
+        elif compression == 1 and packed < expect:
+            raw = _exr_unpredict_deinterleave(_exr_rle_decode(raw))
+        else:
+            raw = np.frombuffer(raw, np.uint8)
+        bp = 0
+        for line in range(ny):
+            for cname, ptype in channels:
+                nb = bpp[ptype] * w
+                vals = np.frombuffer(
+                    bytes(raw[bp:bp + nb]), dtypes[ptype]).astype(np.float32)
+                if ptype == 0:
+                    vals = vals / np.float32(0xFFFFFFFF)
+                planes[cname][y0 - dw[1] + line] = vals
+                bp += nb
+
+    def plane(name, default):
+        return planes.get(name, np.full((h, w), default, np.float32))
+
+    if "Y" in planes and "R" not in planes:   # luminance-only EXR
+        y = planes["Y"]
+        return np.stack([y, y, y, plane("A", 1.0)], -1)
+    return np.stack([plane("R", 0.0), plane("G", 0.0), plane("B", 0.0),
+                     plane("A", 1.0)], -1)
 
 
 def build_mip_chain(img: np.ndarray, max_levels: int = 16) -> list[np.ndarray]:
