@@ -5,7 +5,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from `tpu_pbrt_torch/csrc/` and
-drives five paths through `Renderer`, one through `AnimatedRenderer`, one
+the native host builders (`tpu_pbrt_torch/native/`, which must build here;
+their four functions are held bit-equal to their numpy versions on the
+textured helmet's atlas and a 2048x2048 texture, host ms both ways), and
+drives six paths through `Renderer`, two through `AnimatedRenderer`, one
 through `DynamicRenderer`, four through the App (and the App's two
 debug views), the main path's frame and the App sharded over four bands
 of the card (`tpu_pbrt_torch/parallel/`), and the CLI, at 1920x1080, each
@@ -26,6 +29,14 @@ with the kernels' launch counts set to 0 just before and read just after:
   fetch on the 50-column textured sub-table and the texture taps in
   PyTorch; its frame must differ from the untextured one on the mesh and
   nowhere else;
+* `helmet_bvh`: the helmet configuration through `build_for_scene(kind=
+  "bvh")`, the LBVH walk kernel (`csrc/bvh_trace.cu`) at every query:
+  the kernel against the plain walk on held sets (2^16 rays of the bench
+  camera's and of a framing camera's 1080p rays, 2^16 bounce rays from the
+  mesh, 2^19 shadow segments around it), the camera rays' ids against the
+  resident walk's (>= 99.9% of hit lanes equal or an F3 key tie), one
+  frame with every walk launch held on its held lanes, host syncs, then
+  the timed frames;
 * an alpha-cutout scene (`models/cutout.py`: a floor, a masked quad with a
   checker of holes, a light): the re-trace loop around the dense closest hit
   at every bounce and every shadow ray, the row fetch on the 19-column
@@ -52,6 +63,10 @@ with the kernels' launch counts set to 0 just before and read just after:
   with both palettes, refreshes the shade table and refits the resident
   walk's tables on the card, then renders through the resident walk on
   the refit tables, kernel 3 and kernel 4;
+* `animated_bvh`: the same skinned tube with the tracer forced to `bvh`:
+  the LBVH refit on the card every frame (no host read; the refit tables
+  bit-equal to the CPU's), the walk kernel on the refit tables against the
+  plain walk, then run as `animated` is (at most 2 host syncs a frame);
 * `dynamic`: `DynamicRenderer` on the scene of `models/rigid.py` (a
   sliding box, a sliding emissive lamp, a floor slab; the objects of the
   reference's dynamic-scene tests), 4 bounces, counted rays, with the
@@ -145,7 +160,12 @@ pixels, and the full App paths' CPU run is fed them, see
 `animated` (a camera that frames the tube) and `dynamic` on the card
 against the CPU (`check_small_scene`: G-buffer tri ids equal, mean
 within 1e-3 relative, >= 99% of pixels within 1e-3, motion vectors within
-1e-4). It writes PNGs under `chiprun_out/` and prints one
+1e-4), 64x48 frames of the reduced helmet and of the Cornell box forced
+to `bvh` (real shadow rays with emitters through the any-hit walk), and
+a 64x48 App for each option of `APP_OPTIONS` (the Reinhard tonemap,
+chromatic aberration, sharpening, a camera moving every tick, the
+pairwise and the raytraced ReSTIR bias modes) by the App gate. It writes
+PNGs under `chiprun_out/` and prints one
 JSON line per result, then the
 `{"kernels": [...]}` line and, last, the `{"ok": true, "device": ...}`
 summary. Any failure exits nonzero before it. It never falls back to the
@@ -216,6 +236,16 @@ PEAK_F32_FLOPS = 67e12
 FLOPS_TEST_DIV = 46
 FLOPS_TEST_SCALED = 48
 FLOPS_UNPACK = 110
+# FP32 subtracts and multiplies of one slab test (a node visit of the LBVH
+# walk; its mins, maxes and compares not counted)
+FLOPS_SLAB = 12
+# rays of a held set of the LBVH walk (a strided subset of a pool, where
+# the plain walk on the card, one host read a step, checks the kernel)
+BVH_HELD = 1 << 16
+# segments of the helmet's held any-hit set (as the resident walk's held
+# shadow set: the helmet has no emitter, so its frames' shadow lanes are
+# empty)
+BVH_SHADOW = 1 << 19
 
 # the path whose run supplies each kernel's launch count
 KERNEL_PATH = {
@@ -223,6 +253,7 @@ KERNEL_PATH = {
     "fetch_bounce": "cornell", "fetch_rows": "cornell",
     "dense_closest_hit_shade": "cornell_fused",
     "resident_closest_hit": "helmet", "resident_any_hit": "helmet",
+    "bvh_closest_hit": "helmet_bvh", "bvh_any_hit": "helmet_bvh",
 }
 PATH_KERNELS = {
     "cornell": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
@@ -259,6 +290,13 @@ PATH_KERNELS = {
     # the refreshed sub-table
     "dynamic": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
                 "fetch_rows"),
+    # the helmet and the skinned tube through the LBVH walk (`kind="bvh"`):
+    # the helmet has no emitter and the tube scene none either, so their
+    # shadow lanes are empty, but each frame launches the any hit
+    "helmet_bvh": ("bvh_closest_hit", "bvh_any_hit", "fetch_bounce",
+                   "fetch_rows"),
+    "animated_bvh": ("bvh_closest_hit", "bvh_any_hit", "fetch_bounce",
+                     "fetch_rows"),
     # the App at its defaults on the golden scene (2,056 triangles): the
     # resident walk where the Cornell Apps sweep
     "golden": ("resident_closest_hit", "resident_any_hit", "fetch_bounce",
@@ -290,6 +328,23 @@ FOLDED_POOL = WIDTH * HEIGHT // 8
 # SELECT_MAX_LIGHTS lights) and of a helmet-100k-sized textured sub-table
 LIGHT_ROWS = 128
 BIG_TABLE_ROWS = 101760
+# the App's options gated on the card against the CPU (64x48 Apps, as
+# `check_small_app`): name -> (App path, settings {section: {field:
+# value}}, camera step a tick (metres along x, degrees of yaw) or None)
+APP_OPTIONS = {
+    "tonemap_reinhard": ("app_nodi", {"post_processing": {
+        "tonemap_operator": "reinhard"}}, None),
+    "chromatic_aberration": ("app_nodi", {"post_processing": {
+        "chromatic_aberration": 0.02}}, None),
+    "sharpen": ("app_nodi", {"post_processing": {"sharpness": 0.5}}, None),
+    "moving_camera": ("app", {}, (0.05, 1.0)),
+    "bias_pairwise": ("app", {"raytracing": {
+        "restir_temporal_bias_correction": "pairwise",
+        "restir_spatial_bias_correction": "pairwise"}}, None),
+    "bias_raytraced": ("app", {"raytracing": {
+        "restir_temporal_bias_correction": "raytraced",
+        "restir_spatial_bias_correction": "raytraced"}}, None),
+}
 # seeded tables (rows, columns) on both sides of the row fetch's lines
 # between its staged-table and tile designs (a table of at most 32 columns
 # and 48 KB at its odd row stride is staged): --fetch-times only
@@ -343,6 +398,21 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def plain_ms(fn) -> float:
     """The plain version's time (a record, not a yardstick): fewer runs."""
     return time_ms(fn, iters=3, warmup=1)
+
+
+def once_ms(fn) -> float:
+    """One call's device time by CUDA events, for a plain version that
+    reads the host as it goes (its own syncs pace it; no blocker)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -1331,14 +1401,16 @@ def check_small_frame(name: str, scene, settings, camera, min_hits: float,
 
 @contextlib.contextmanager
 def checked_wrappers(record: dict, keep: dict | None = None):
-    """Inside, every launch of kernels 1-4 and of the resident walk through
-    its wrapper (as the path's own code makes it) is held against the plain
-    version on the same inputs, by the rules of `check_closest`,
-    `check_any`, `check_bounce_block`, the row fetch's bit-exactness and
-    the walk's (keys or flags bit for bit, no skipped block that held a
-    hit); `record` gets {kernel: {rays: {"launches": n, "max_abs_err": e}}}
-    (for the row fetch keyed "<columns>x<slots>", for the walk by its
-    sorted, chunk-padded ray count). With `keep`, the first inputs of each
+    """Inside, every launch of kernels 1-4, of the resident walk and of the
+    LBVH walk through its wrapper (as the path's own code makes it) is held
+    against the plain version on the same inputs, by the rules of
+    `check_closest`, `check_any`, `check_bounce_block`, the row fetch's
+    bit-exactness, the resident walk's (keys or flags bit for bit, no
+    skipped block that held a hit) and `bvh_check` (on the launch's held
+    lanes: t, u, v, ids or flags bit for bit); `record` gets {kernel:
+    {rays: {"launches": n, "max_abs_err": e}}} (for the row fetch keyed
+    "<columns>x<slots>", for the resident walk by its sorted, chunk-padded
+    ray count). With `keep`, the first inputs of each
     (kernel, key) go to keep[(kernel, key)], for `shape_rows` to time. The
     plain versions launch no kernel. The shard threads of the sharded
     phases go through it too: a lock guards the record, and a failed check
@@ -1347,11 +1419,13 @@ def checked_wrappers(record: dict, keep: dict | None = None):
 
     import torch
     from tpu_pbrt_torch.ops import shade_table as st
+    from tpu_pbrt_torch.ops import traverse as tv
     from tpu_pbrt_torch.ops import traverse_dense as td
     from tpu_pbrt_torch.ops import traverse_resident as trs
 
     saved = (td.closest_hit_cuda, td.any_hit_cuda,
-             st.fetch_bounce_block_cuda, st.fetch_rows_cuda, trs.walk_cuda)
+             st.fetch_bounce_block_cuda, st.fetch_rows_cuda, trs.walk_cuda,
+             tv.closest_hit_cuda, tv.any_hit_cuda)
 
     lock = threading.Lock()
 
@@ -1413,14 +1487,32 @@ def checked_wrappers(record: dict, keep: dict | None = None):
         note(kname, rays.shape[0], 0.0, (tris, rays, octs))
         return got
 
+    def bvh_walk(occlusion):
+        kname = "bvh_any_hit" if occlusion else "bvh_closest_hit"
+
+        def launch(bvh, o, d, t_min, t_max):
+            # the whole launch, then its held lanes (BVH_HELD, strided)
+            # against the plain walk on the same lanes
+            got = saved[6 if occlusion else 5](bvh, o, d, t_min, t_max)
+            rays = (o, d, t_min, t_max)
+            idx = held_index(o.x.shape[0], o.x.device)
+            bvh_check(bvh, held_rays(rays, idx), occlusion,
+                      f"{kname} at {o.x.shape[0]} rays",
+                      got=bvh_lanes(got, idx), timed=False)
+            note(kname, o.x.shape[0], 0.0, (bvh, *rays))
+            return got
+        return launch
+
     (td.closest_hit_cuda, td.any_hit_cuda, st.fetch_bounce_block_cuda,
-     st.fetch_rows_cuda, trs.walk_cuda) = (closest, occluded, bounce, rows,
-                                           walk)
+     st.fetch_rows_cuda, trs.walk_cuda, tv.closest_hit_cuda,
+     tv.any_hit_cuda) = (closest, occluded, bounce, rows, walk,
+                         bvh_walk(False), bvh_walk(True))
     try:
         yield
     finally:
         (td.closest_hit_cuda, td.any_hit_cuda, st.fetch_bounce_block_cuda,
-         st.fetch_rows_cuda, trs.walk_cuda) = saved
+         st.fetch_rows_cuda, trs.walk_cuda, tv.closest_hit_cuda,
+         tv.any_hit_cuda) = saved
 
 
 def run_app(app, name: str, ticks: int, keep: dict | None = None,
@@ -1584,7 +1676,16 @@ def shape_rows(name: str, keep: dict, by_tag: dict, ticks: int) -> list:
     for (kernel, shape), args in sorted(keep.items(),
                                         key=lambda kv: str(kv[0])):
         lib = None
-        if kernel.startswith("resident"):
+        if kernel.startswith("bvh"):
+            # the whole launch held bit for bit and timed both ways (the
+            # plain walk once: it reads the host every step)
+            bvh, *rays = args
+            occl = kernel == "bvh_any_hit"
+            held = bvh_check(bvh, rays, occl, f"{kernel} {name} {shape}")
+            ms, pl, err = held["ms"], held["plain_ms"], 0.0
+            bd = held
+            tag = str(shape)
+        elif kernel.startswith("resident"):
             res, srt, octs = args
             occl = kernel == "resident_any_hit"
             got = trs.walk_cuda(res, srt, octs, occl)
@@ -1656,7 +1757,8 @@ def shape_rows(name: str, keep: dict, by_tag: dict, ticks: int) -> list:
                      "table": (list(args[0].shape) if kernel == "fetch_rows"
                                else None),
                      "triangles": (args[0].num
-                                   if kernel.startswith("resident") else None),
+                                   if kernel.startswith(("resident", "bvh"))
+                                   else None),
                      "launches": n, "launches_per_tick": n / ticks,
                      "max_abs_err": err, "ms": ms, "plain_ms": pl,
                      "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
@@ -1805,7 +1907,8 @@ def _motions(record: dict, replay: dict | None = None):
         gbuffer_mod.generate = orig
 
 
-def check_small_app(name: str, bands: int | None = None) -> dict:
+def check_small_app(name: str, bands: int | None = None,
+                    option: str | None = None) -> dict:
     """A 64x48 App (32x24 internal, 3 bounces, one fold) of the path `name`
     (with `bands`, sharded over that many bands: of the card, of the CPU)
     ticked three times with history carried on the card, through the
@@ -1818,25 +1921,44 @@ def check_small_app(name: str, bands: int | None = None) -> dict:
     card's: their ~1e-5 pixels of float noise decide at the image border
     whether ReSTIR's temporal tap and the denoiser's reprojection keep
     their history, and ReSTIR's reuse spreads each such flip over the
-    image (tests/test_torch_app.py's docstring has the readings)."""
+    image (tests/test_torch_app.py's docstring has the readings).
+
+    `option` (a key of APP_OPTIONS) names the App's option under test: the
+    App is `name`'s with those settings changed, and with a camera step
+    the camera moves by it before every tick but the first."""
     import torch
     from tpu_pbrt_torch.ops import cuda
     from tpu_pbrt_torch.parallel.mesh import make_mesh
-    from tpu_pbrt_torch.profile_frame import make_app
+    from tpu_pbrt_torch.profile_frame import app_scene, app_settings
+    from tpu_pbrt_torch.render.app import App
 
+    changes, step = APP_OPTIONS[option][1:] if option else ({}, None)
     extra = {} if name == "app_nodi" else {"sharc_log2": 12}
     imgs, launches, motions = {}, {}, {"cuda": {}, "cpu": {}}
     for dev in ("cuda", "cpu"):
-        app = make_app(name, SMALL_W, SMALL_H, device=dev, bounces=3,
-                       folds=(2,), **extra)
+        s = app_settings(SMALL_W, SMALL_H, path=name, bounces=3, folds=(2,),
+                         **extra)
+        for section, fields in changes.items():
+            for field, value in fields.items():
+                setattr(getattr(s, section), field, value)
+        app = App(*app_scene(name, SMALL_W, SMALL_H), s.check(), device=dev)
+        for section, fields in changes.items():
+            for field, value in fields.items():
+                if getattr(getattr(app.settings, section), field) != value:
+                    fail(f"small {name} {option}: {field} not taken")
         if bands is not None:
             app = ShardedTicks(app, card_mesh(bands) if dev == "cuda"
                                else make_mesh([torch.device(dev)] * bands))
         cuda.reset_launches()
         fed = motions["cuda"] if dev == "cpu" and extra else None
+        imgs[dev] = []
         with _motions(motions[dev], replay=fed):
-            imgs[dev] = [app.tick()[0].cpu().numpy()
-                         for _ in range(SMALL_APP_TICKS)]
+            for i in range(SMALL_APP_TICKS):
+                if step is not None and i:
+                    app.camera.position = app.camera.position + np.asarray(
+                        [step[0], 0.0, 0.0], np.float32)
+                    app.camera.look(step[1], 0.0)
+                imgs[dev].append(app.tick()[0].cpu().numpy())
         launches[dev] = {k.name: k.launches for k in cuda.KERNELS.values()}
     if any(launches["cpu"].values()):
         fail(f"small {name}: the CPU run launched kernels {launches['cpu']}")
@@ -1867,7 +1989,8 @@ def check_small_app(name: str, bands: int | None = None) -> dict:
                 ticks[-1]["pixels_within_1e-2"] < 0.99:
             fail(f"small {name} disagrees with the CPU: {ticks}")
     return {"resolution": [SMALL_W, SMALL_H], "render_resolution":
-            [SMALL_W // 2, SMALL_H // 2], "bands": bands,
+            [SMALL_W // 2, SMALL_H // 2], "bands": bands, "option": option,
+            "settings": changes, "camera_step": step,
             "cpu_fed_card_motion": bool(extra),
             "motion_max_abs_diff_px": motion_diff,
             "ticks": ticks, "launches_cuda": launches["cuda"]}
@@ -2061,8 +2184,7 @@ def cli_path() -> dict:
             if proc.returncode != 0:
                 fail(f"cli {name}: exit {proc.returncode}\n{proc.stdout}"
                      f"{proc.stderr[-4000:]}")
-            with open(png, "rb") as f:
-                img = read_png(f.read())[..., :3]
+            img = read_png(png)
             if img.shape != (HEIGHT, WIDTH, 3) or img.mean() <= 5:
                 fail(f"cli {name}: PNG {img.shape}, mean {img.mean()}")
             out[name] = {"args": args, "stdout": proc.stdout.splitlines(),
@@ -2305,9 +2427,10 @@ def check_refit_on_card(renderer, lights: bool):
 
 
 def _accel_module(kind: str):
-    from tpu_pbrt_torch.ops import traverse_dense, traverse_resident
+    from tpu_pbrt_torch.ops import traverse, traverse_dense, traverse_resident
 
-    return traverse_resident if kind == "resident" else traverse_dense
+    return {"dense": traverse_dense, "resident": traverse_resident,
+            "bvh": traverse}[kind]
 
 
 def run_scene_path(name: str, renderer, camera, keep: dict
@@ -2705,6 +2828,354 @@ def check_small_scene(name: str, make, camera, dt: float,
             "launches_cuda": launches["cuda"]}
 
 
+# --- the LBVH walk: held sets, the helmet and the skinned tube -----------
+
+def bvh_kernel(occlusion: bool, plain: bool = False):
+    """The LBVH walk's wrapper (or plain version) for a query kind."""
+    from tpu_pbrt_torch.ops import traverse as tv
+
+    if occlusion:
+        return tv.any_hit_plain if plain else tv.any_hit_cuda
+    return tv.closest_hit_plain if plain else tv.closest_hit_cuda
+
+
+def held_index(r: int, device):
+    """The lanes of a held set of a pool of r rays: BVH_HELD of them,
+    evenly strided (None: the whole pool)."""
+    import torch
+
+    if r <= BVH_HELD:
+        return None
+    return torch.arange(0, r, r // BVH_HELD, device=device)[:BVH_HELD]
+
+
+def held_rays(rays, idx):
+    """(origin, direction, t_min, t_max) at the lanes idx (None: all)."""
+    import torch
+    from tpu_pbrt_torch.ops.vec import Vec3
+
+    if idx is None:
+        return rays
+    o, d, t0, t1 = rays
+
+    def sel(x):
+        return x[idx] if isinstance(x, torch.Tensor) and x.dim() else x
+    return (Vec3(*(sel(c) for c in (o.x, o.y, o.z))),
+            Vec3(*(sel(c) for c in (d.x, d.y, d.z))), sel(t0), sel(t1))
+
+
+def bvh_lanes(result, idx):
+    """A walk's result (Hit or flags) at the lanes idx (None: all)."""
+    from tpu_pbrt_torch.ops.traverse import Hit
+
+    if idx is None:
+        return result
+    if isinstance(result, Hit):
+        return Hit(*(f[idx] for f in result))
+    return result[idx]
+
+
+def bvh_bound(bvh, rays, occlusion: bool, counts) -> dict:
+    """The least time of one walk on these rays: the operations its data
+    needs (each node visit one slab test, each leaf whose box was hit one
+    triangle test: `counts`, the plain walk's) against the bytes (the ray
+    columns, the node and triangle rows and ids once, the outputs)."""
+    r, n = rays[0].x.shape[0], bvh.num
+    nbytes = (r * 32 + (2 * n - 1) * 32 + n * 48
+              + (r if occlusion else n * 4 + r * 16))
+    return {**bound(nbytes, counts.nodes * FLOPS_SLAB
+                    + counts.tests * FLOPS_TEST_DIV), **counts._asdict()}
+
+
+def bvh_check(bvh, rays, occlusion: bool, name: str, got=None,
+              timed: bool = True) -> dict:
+    """The LBVH walk kernel (or `got`, its result on these rays) against
+    the plain walk on the card: t, u, v and ids, or the flags, bit for bit.
+    `timed`: the kernel's time, the plain walk's (one run: it reads the
+    host every step, so it is timed at its own pace), and the bound from
+    the plain walk's counts, on these rays."""
+    import torch
+    from tpu_pbrt_torch.ops import traverse as tv
+
+    if got is None:
+        got = bvh_kernel(occlusion)(bvh, *rays)
+    want, counts = tv.walk_plain(bvh, *rays, occlusion)
+    kname = "bvh_any_hit" if occlusion else "bvh_closest_hit"
+    if occlusion:
+        if not torch.equal(got, want):
+            fail(f"{kname} ({name}): {int((got != want).sum())} flags "
+                 f"differ from the plain walk")
+        out = {"occluded_share": float(want.float().mean())}
+    else:
+        for f in ("t", "u", "v", "tri"):
+            a, b = getattr(got, f), getattr(want, f)
+            if f != "tri":
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                fail(f"{kname} ({name}): {int((a != b).sum())} lanes' {f} "
+                     f"differ from the plain walk")
+        out = {"hit_share": float(want.mask.float().mean())}
+    out.update(rays=rays[0].x.shape[0], max_abs_err=0.0, library_ms=None,
+               tolerance="bit-exact")
+    if timed:
+        out.update(ms=time_ms(lambda: bvh_kernel(occlusion)(bvh, *rays)),
+                   plain_ms=once_ms(lambda: bvh_kernel(
+                       occlusion, plain=True)(bvh, *rays)),
+                   **bvh_bound(bvh, rays, occlusion, counts))
+    return out
+
+
+def bvh_rows(name: str, checks: dict) -> list:
+    """`kernels` entries of held sets: `<kernel>/<path>_<set>`, launches
+    null (no path's run launches on a held set)."""
+    rows = []
+    for s, c in checks.items():
+        kernel = ("bvh_any_hit" if "occluded_share" in c
+                  else "bvh_closest_hit")
+        rows.append({"name": f"{kernel}/{name}_{s}", "kernel": kernel,
+                     "path": None, "launches": None,
+                     **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")}})
+    return rows
+
+
+def helmet_bvh_path(camera, device) -> tuple[dict, np.ndarray, list, dict]:
+    """The `helmet` configuration (25,280 triangles, 1080p, 1 SPP, 4
+    bounces, folds 1-3, counted rays) through `build_for_scene(kind=
+    "bvh")`: the walk kernel against the plain walk on held sets (the
+    bench camera's and the framed camera's rays and bounce rays from the
+    mesh, 2^16 each; 2^19 shadow segments around the mesh), the camera
+    rays' triangle ids against the resident (K5) tracer's (>= 99.9% of
+    hit lanes equal or an F3 key tie; the rest printed), one frame with every
+    walk launch held on its held lanes (`checked_wrappers`), host syncs,
+    then `run_path`. Returns (result, frame, the held sets' kernel rows,
+    the kernel entries)."""
+    import torch
+    from tpu_pbrt_torch.models import helmet
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+    from tpu_pbrt_torch.ops.tracer import build_for_scene
+    from tpu_pbrt_torch.profile_frame import sync_sites
+    from tpu_pbrt_torch.render.camera import generate_rays
+    from tpu_pbrt_torch.render.renderer import Renderer
+
+    scene = helmet.make_scene()
+    t0 = time.perf_counter()
+    trc = build_for_scene(scene, device=device, kind="bvh")
+    build_s = time.perf_counter() - t0
+    if trc.kind != "bvh" or trc.num_tris != 25280:
+        fail(f"helmet_bvh: tracer {trc.kind} with {trc.num_tris} triangles")
+    bvh = trc.accel
+    cam_rays = generate_rays(camera.data(device=device), WIDTH, HEIGHT)
+    framed = generate_rays(helmet.make_camera(WIDTH, HEIGHT).data(
+        device=device), WIDTH, HEIGHT)
+    checks = {
+        "camera": bvh_check(bvh, held_rays(cam_rays, held_index(
+            WIDTH * HEIGHT, device)), False, "bench camera"),
+        "framed_camera": bvh_check(bvh, held_rays(framed, held_index(
+            WIDTH * HEIGHT, device)), False, "framed camera"),
+        "bounce": bvh_check(bvh, mesh_rays(scene.geometry, BVH_HELD, device,
+                                           SEED + 11), False, "bounce"),
+        "shadow": bvh_check(bvh, segment_rays(BVH_SHADOW, device, SEED + 12,
+                                              [-1.6] * 3, [1.6] * 3), True,
+                            "shadow segments"),
+    }
+    for s, c in checks.items():
+        share = c.get("hit_share", c.get("occluded_share"))
+        if not 0.0 < share < 1.0:
+            fail(f"helmet_bvh {s}: degenerate share {share}")
+    # the camera rays against the resident walk (K5) in the same call: on
+    # >= 99.9% of the hit lanes the ids are equal or an F3 tie (K5's key
+    # drops t's low idx_bits mantissa bits, and within one key bin the
+    # lower slot wins: the LBVH's exact t then quantizes to K5's key t)
+    res = build_for_scene(scene, device=device)
+    keep_bits = -(1 << trs.idx_bits(res.accel.tris.shape[0]))
+    cmp = {}
+    for cam_name, rays in (("bench_camera", cam_rays), ("framed_camera",
+                                                        framed)):
+        a, b = trc.closest_hit(*rays), res.closest_hit(*rays)
+        hit = a.mask | b.mask
+        both = a.mask & b.mask & (a.tri != b.tri)
+        tie = both & ((a.t.view(torch.int32) & keep_bits).view(
+            torch.float32) == b.t)
+        unexplained = int((both & ~tie).sum()) + int((a.mask != b.mask).sum())
+        cmp[cam_name] = {
+            "hit_lanes": int(hit.sum()),
+            "tri_equal": float((a.tri == b.tri)[hit].float().mean()),
+            "differ": int(both.sum()), "f3_ties": int(tie.sum()),
+            "hit_differs": int((a.mask != b.mask).sum()),
+            "equal_or_tie": 1.0 - unexplained / max(int(hit.sum()), 1)}
+        if cmp[cam_name]["equal_or_tie"] < 0.999:
+            fail(f"helmet_bvh vs resident on {cam_name}: {cmp[cam_name]}")
+    del res, cam_rays, framed
+    torch.cuda.empty_cache()
+    renderer = Renderer(scene, WIDTH, HEIGHT, helmet.settings(),
+                        device=device, tracer=trc)
+    renderer.render(camera, 0)
+    checked = {}
+    with checked_wrappers(checked):
+        renderer.render(camera, 97)
+    syncs = sync_sites(lambda: renderer.render(camera, 98))
+    result, img = run_path("helmet_bvh", renderer, camera)
+    result.update(build_seconds=build_s, levels=bvh.levels,
+                  host_syncs_per_frame=len(syncs), host_sync_sites=syncs,
+                  held_sets=checks, vs_resident=cmp,
+                  kernel_checks=kernel_checks("helmet_bvh", checked))
+    rows = bvh_rows("helmet_bvh", checks)
+    kres = {"bvh_closest_hit": checks["bounce"],
+            "bvh_any_hit": checks["shadow"]}
+    return result, img, rows, kres
+
+
+def animated_bvh_path(device) -> tuple[dict, np.ndarray, list]:
+    """bench.py's animated configuration (the 64 x 40 skinned tube, 5,120
+    triangles) with the tracer forced to `bvh`, refit on the card every
+    frame: the refit against the CPU's bit for bit, the walk kernel on the
+    refit tables against the plain walk (camera rays, bounce rays from the
+    posed mesh, shadow segments around it; 2^16 each), then
+    `run_scene_path` (at most 2 host syncs a frame). Returns (result,
+    frame, kernel rows)."""
+    import types
+
+    from tpu_pbrt_torch.models.cornell import make_cornell_camera
+    from tpu_pbrt_torch.ops.tracer import build_for_scene
+    from tpu_pbrt_torch.render.camera import generate_rays
+
+    renderer = animated_renderer(WIDTH, HEIGHT, device)
+    renderer.tracer = build_for_scene(renderer.scene, device=device,
+                                      kind="bvh")
+    if renderer.tracer.kind != "bvh" or renderer.tracer.num_tris != 5120:
+        fail(f"animated_bvh: tracer {renderer.tracer.kind} with "
+             f"{renderer.tracer.num_tris} triangles")
+    refit, posed, bvh = check_refit_on_card(renderer, lights=False)
+    camera = make_cornell_camera(WIDTH, HEIGHT)
+    cam_rays = generate_rays(camera.data(device=device), WIDTH, HEIGHT)
+    mesh = types.SimpleNamespace(positions=np.concatenate(posed),
+                                 indices=np.arange(3 * len(posed[0])).reshape(
+                                     3, -1).T)
+    lo = np.min([p.min(0) for p in posed], 0) - 0.2
+    hi = np.max([p.max(0) for p in posed], 0) + 0.2
+    checks = {
+        "camera": bvh_check(bvh, held_rays(cam_rays, held_index(
+            WIDTH * HEIGHT, device)), False, "animated camera"),
+        "bounce": bvh_check(bvh, mesh_rays(mesh, BVH_HELD, device,
+                                           SEED + 13), False,
+                            "animated bounce"),
+        "shadow": bvh_check(bvh, segment_rays(BVH_HELD, device, SEED + 14,
+                                              lo, hi), True,
+                            "animated shadow"),
+    }
+    del cam_rays
+    keep = {}
+    result, img, checked = run_scene_path("animated_bvh", renderer, camera,
+                                          keep)
+    result.update(refit_vs_cpu=refit, levels=bvh.levels,
+                  walk_on_refit_tables=checks,
+                  kernel_checks=kernel_checks("animated_bvh", checked))
+    keep = {k: v for k, v in keep.items() if k[0].startswith("bvh")}
+    rows = shape_rows("animated_bvh", keep, result["launches_by_rays"],
+                      SCENE_FRAMES)
+    return result, img, rows + bvh_rows("animated_bvh_refit", checks)
+
+
+def native_phase() -> dict:
+    """The four native host builders, built (a failed build fails here:
+    nothing falls back silently on this machine) and bit-equal to their
+    numpy versions: the Morton order and block bounds of the helmet's
+    25,280 triangles, the mip levels and quad rows of the textured
+    helmet's atlas and of a seeded 2048x2048 texture (whole atlases built
+    with the library and without it). Host-clock ms both ways."""
+    import contextlib as _ctx
+
+    from tpu_pbrt_torch import native
+    from tpu_pbrt_torch.models import helmet
+    from tpu_pbrt_torch.ops import texture as tex
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+    from tpu_pbrt_torch.utils import texture_io as tio
+
+    t0 = time.perf_counter()
+    if native.lib() is None:
+        fail(f"the native library did not build: {native.build_error}")
+    out = {"build_seconds": time.perf_counter() - t0,
+           "library": str(native.library_path().name)}
+
+    @_ctx.contextmanager
+    def without_native():
+        saved = native.lib
+        native.lib = lambda: None
+        try:
+            yield
+        finally:
+            native.lib = saved
+
+    def bits(a):
+        return [np.ascontiguousarray(x).view(np.uint8) for x in (
+            a if isinstance(a, (tuple, list)) else [a])]
+
+    def both(name, nat, numpy_fn, reps=1):
+        t = []
+        for fn in (nat, numpy_fn):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                res = fn()
+            t.append(((time.perf_counter() - t0) / reps * 1e3, res))
+        (nat_ms, a), (np_ms, b) = t
+        if len(bits(a)) != len(bits(b)) or not all(
+                x.shape == y.shape and np.array_equal(x, y)
+                for x, y in zip(bits(a), bits(b))):
+            fail(f"native {name}: differs from the numpy version")
+        out[name] = {"native_ms": nat_ms, "numpy_ms": np_ms,
+                     "bit_equal": True, "native_wins": nat_ms < np_ms}
+
+    scene, textures, srgb = helmet.make_textured_scene()
+    pos = np.asarray(scene.geometry.positions, np.float32)
+    ind = np.asarray(scene.geometry.indices, np.int64)
+    v = [pos[ind[:, k]] for k in range(3)]
+    both("morton_order_helmet", lambda: native.morton_order(*v),
+         lambda: trs.morton_order_numpy(*v), reps=3)
+    order = trs.morton_order_numpy(*v)
+    pad = (-len(order)) % trs.BLOCK
+    sv = [np.concatenate([c[order], np.zeros((pad, 3), np.float32)])
+          for c in v]
+    sid = np.concatenate([order, np.full(pad, -1, np.int32)])
+
+    def block_bounds_numpy():
+        nb = len(sid) // trs.BLOCK
+        lo = np.minimum(np.minimum(sv[0], sv[1]), sv[2])
+        hi = np.maximum(np.maximum(sv[0], sv[1]), sv[2])
+        valid = (sid >= 0).reshape(nb, trs.BLOCK, 1)
+        return (np.where(valid, lo.reshape(nb, trs.BLOCK, 3), np.inf).min(1),
+                np.where(valid, hi.reshape(nb, trs.BLOCK, 3),
+                         -np.inf).max(1))
+
+    both("block_bounds_helmet",
+         lambda: native.block_bounds(*sv, sid, trs.BLOCK),
+         block_bounds_numpy, reps=3)
+    big = np.random.default_rng(SEED).random((2048, 2048, 4)).astype(
+        np.float32)
+    both("mip_downsample_2048", lambda: native.mip_downsample(big),
+         lambda: tio.mip_level_numpy(big))
+    for srgb_flag in (False, True):
+        both(f"pack_level_quads_2048_srgb{int(srgb_flag)}",
+             lambda: native.pack_level_quads(big, True, srgb_flag),
+             lambda: tex.pack_level_quads_numpy(big, tex.WRAP_REPEAT,
+                                                srgb_flag))
+
+    def atlas(images, flags):
+        def run():
+            return tex.build_atlas_arrays(images, flags)
+
+        def run_numpy():
+            with without_native():
+                return tex.build_atlas_arrays(images, flags)
+        return run, run_numpy
+
+    both("atlas_helmet_textured", *atlas(textures, srgb), reps=3)
+    both("atlas_2048_srgb", *atlas([big], [True]))
+    return out
+
+
 def ptxas_usage(log: str, *kernels: str) -> dict:
     """{entry function: ptxas' "Used N registers, ..." line} for the entry
     functions of nvcc's log whose name holds one of `kernels`."""
@@ -2889,6 +3360,9 @@ def main() -> int:
     camera = make_cornell_camera(WIDTH, HEIGHT)
     kres, paths, pngs = {}, {}, {}
 
+    # --- the native host builders -----------------------------------------
+    print(json.dumps({"native": native_phase()}), flush=True)
+
     # --- the main path: Cornell 1080p -------------------------------------
     cornell = make_cornell_box()
     settings = PathTraceSettings(bounces=8, samples_per_pixel=1,
@@ -3009,6 +3483,15 @@ def main() -> int:
     del renderer, trc, untextured
     torch.cuda.empty_cache()
 
+    # --- the helmet through the LBVH walk (kind="bvh") --------------------
+    paths["helmet_bvh"], img, bvh_rows_, bvh_kres = helmet_bvh_path(camera,
+                                                                    device)
+    kres.update(bvh_kres)
+    app_rows_first = list(bvh_rows_)
+    print(json.dumps({"helmet_bvh": paths["helmet_bvh"]}), flush=True)
+    pngs["helmet_bvh"] = save_png("helmet_bvh_1080p.png", img)
+    torch.cuda.empty_cache()
+
     # --- alpha cutouts: the test scene on both tracer kinds, then a frame -
     print(json.dumps({"cutout_tracers": check_cutout_tracers(device)}),
           flush=True)
@@ -3079,7 +3562,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- the full App at its defaults: bench.py's app and manylight -------
-    app_rows = []
+    app_rows = app_rows_first
     for name in ("app", "manylight"):
         paths[name], img, rows = full_app_path(name, device)
         app_rows += rows
@@ -3093,6 +3576,11 @@ def main() -> int:
     app_rows += walk_rows + rows
     print(json.dumps({"animated": paths["animated"]}), flush=True)
     pngs["animated"] = save_png("animated_1080p.png", img)
+    torch.cuda.empty_cache()
+    paths["animated_bvh"], img, rows = animated_bvh_path(device)
+    app_rows += rows
+    print(json.dumps({"animated_bvh": paths["animated_bvh"]}), flush=True)
+    pngs["animated_bvh"] = save_png("animated_bvh_1080p.png", img)
     torch.cuda.empty_cache()
     paths["dynamic"], img, rows = dynamic_path(device)
     app_rows += rows
@@ -3173,8 +3661,21 @@ def main() -> int:
         if got != want:
             fail(f"small frame {name}: (tracer, textured, alpha_test) = "
                  f"{got}, expected {want}")
+    # the LBVH walk: the reduced helmet framed, and the Cornell box forced
+    # to it (real shadow rays with emitters through the any-hit walk)
+    small["helmet_bvh"] = check_small_frame(
+        "helmet_bvh", helmet.make_scene("helmet", *SMALL_HELMET),
+        helmet.settings(), helmet.make_camera, 0.2, kind="bvh")
+    small["cornell_bvh"] = check_small_frame(
+        "cornell_bvh", cornell, settings, make_cornell_camera, 0.5,
+        kind="bvh")
+    for name in ("helmet_bvh", "cornell_bvh"):
+        if small[name]["tracer"] != "bvh":
+            fail(f"small frame {name}: tracer {small[name]['tracer']}")
     for name in ("app_nodi", "app", "manylight", "golden"):
         small[name] = check_small_app(name)
+    for option, (base, _, _) in APP_OPTIONS.items():
+        small[f"app_option_{option}"] = check_small_app(base, option=option)
     small["animated"] = check_small_scene("animated", animated_renderer,
                                           tube_camera, 1 / 60, 0.1)
     from tpu_pbrt_torch.models import rigid

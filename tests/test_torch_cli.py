@@ -82,8 +82,7 @@ def render_both(tmp_path, settings_json, *extra):
                else _reference_fed(motions, own))
         with ctx:
             assert main([*args, "-o", png]) == 0
-        with open(png, "rb") as f:
-            out[name] = read_png(f.read())[..., :3].astype(np.int32)
+        out[name] = read_png(png).astype(np.int32)
     assert len(own) == len(motions) == 2
     for (mx, my), (jx, jy) in zip(motions, own):
         assert max(np.abs(mx - jx).max(), np.abs(my - jy).max()) <= 1e-4

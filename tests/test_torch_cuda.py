@@ -932,3 +932,95 @@ def test_kernel_from_a_shard_thread_uses_its_tensors_stream(dev):
     side.synchronize()
     assert n == 1
     assert torch.equal(got, st.fetch_rows_plain(table, slot))
+
+
+# --- the LBVH walk (csrc/bvh_trace.cu) ---------------------------------------
+
+def _bvh_case(n, seed, dev):
+    from tpu_pbrt_torch.ops import bvh as tbvh
+
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    v1 = v0 + rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    v2 = v0 + rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    if n > 8:                   # coincident triangles: equal Morton codes
+        v0[:8], v1[:8], v2[:8] = v0[0], v1[0], v2[0]
+    return tbvh.build(v0, v1, v2, device=dev)
+
+
+def _walk_rays(n, seed, dev):
+    """`_rays` plus axis-parallel directions with signed zeros (0 * inf in
+    the slab test) and NaN bounds."""
+    o, d, t_min, t_max = _rays(n, seed, dev)
+    axes = torch.tensor([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -0.0, 1],
+                         [-0.0, 0.0, -1]], dtype=torch.float32, device=dev)
+    k = min(n, axes.shape[0])
+    for i, c in enumerate("xyz"):
+        getattr(d, c)[:k] = axes[:k, i]
+    if n > 20:
+        t_max[13] = float("nan")
+    return o, d, t_min, t_max
+
+
+def _bits_equal(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("ntri", [1, 2, 33, 2049])
+@pytest.mark.parametrize("nray", [1, 255, 4099])
+def test_bvh_walk_kernels_exact(dev, ntri, nray):
+    """`tpb_bvh_closest_hit` / `tpb_bvh_any_hit` against the plain walk on
+    the card: t, u, v, triangle ids and occlusion bit for bit, one launch
+    each."""
+    from tpu_pbrt_torch.ops import traverse as tv
+
+    bvh = _bvh_case(ntri, ntri, dev)
+    rays = _walk_rays(nray, nray + ntri, dev)
+    n0 = tv.CLOSEST_HIT_KERNEL.launches
+    got = tv.closest_hit_cuda(bvh, *rays)
+    assert tv.CLOSEST_HIT_KERNEL.launches == n0 + 1
+    want = tv.closest_hit_plain(bvh, *rays)
+    for f in ("t", "u", "v", "tri"):
+        assert _bits_equal(getattr(got, f), getattr(want, f)), f
+    occ = tv.any_hit_cuda(bvh, *rays)
+    assert torch.equal(occ, tv.any_hit_plain(bvh, *rays))
+    assert torch.equal(tv.closest_hit(bvh, *rays).tri, got.tri)
+    if ntri > 8 and nray > 255:
+        assert 0.0 < float(got.mask.float().mean()) < 1.0
+
+
+def test_bvh_kernel_on_refit_tables(dev):
+    """The refit on the card equals the CPU's bit for bit, and the walk
+    kernel on the refit tables equals the plain walk."""
+    from tpu_pbrt_torch.ops import bvh as tbvh
+    from tpu_pbrt_torch.ops import traverse as tv
+
+    _, bind, posed = _posed_tube(32)
+    got = tbvh.refit(tbvh.build(*bind, device=dev),
+                     *(torch.as_tensor(p, device=dev) for p in posed))
+    want = tbvh.refit(tbvh.build(*bind, device="cpu"),
+                      *(torch.as_tensor(p) for p in posed))
+    for f, w in want._asdict().items():
+        g = getattr(got, f)
+        assert (_bits_equal(g.cpu(), w) if isinstance(w, torch.Tensor)
+                else g == w), f
+    rays = _walk_rays(5000, 3, dev)
+    for f in ("t", "tri"):
+        assert _bits_equal(getattr(tv.closest_hit_cuda(got, *rays), f),
+                           getattr(tv.closest_hit_plain(got, *rays), f))
+
+
+def test_bvh_wrappers_check_arguments(dev):
+    """The wrappers raise on what the kernel does not take: CPU rays with a
+    card BVH, and a BVH on another device than the rays."""
+    from tpu_pbrt_torch.ops import traverse as tv
+
+    bvh = _bvh_case(40, 1, dev)
+    cpu_rays = _walk_rays(64, 2, "cpu")
+    with pytest.raises(ValueError):
+        tv.closest_hit_cuda(bvh, *cpu_rays)
+    cpu_bvh = _bvh_case(40, 1, "cpu")
+    with pytest.raises(ValueError):
+        tv.any_hit_cuda(cpu_bvh, *_walk_rays(64, 2, dev))

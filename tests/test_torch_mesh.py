@@ -329,6 +329,41 @@ def test_render_sharded_with_folds_equals_unsharded():
                             mesh=cpu_mesh(4))
 
 
+def test_jit_render_sharded_is_render_sharded():
+    """`jit_render_sharded(settings, mesh, width, height)` returns the
+    reference's closure fn(tracer, scene, cam, frame): the sharded frame of
+    the port's scene, equal to `render_sharded`'s."""
+    st = TSettings(bounces=2, count_rays=True, compaction_schedule=(2,))
+    scene = tcornell.make_cornell_box()
+    r = Renderer(scene, 32, 32, st, device="cpu")
+    cam = tcornell.make_cornell_camera(32, 32).data(device="cpu")
+    want, want_rays = mesh.render_sharded(
+        r.tracer, r.env, r.light_count, cam, 5, width=32, height=32,
+        settings=st, mesh=cpu_mesh(2))
+    img, rays = mesh.jit_render_sharded(st, cpu_mesh(2), 32, 32)(
+        r.tracer, scene, cam, 5)
+    assert torch.equal(img, want) and float(rays) == float(want_rays)
+
+
+def test_jit_app_sharded_is_app_sharded():
+    """`jit_app_sharded(app, mesh)` returns the reference's closure
+    fn(tracer, scene, cam, frame, history): one tick equals the step of
+    `app_sharded` on the same history; another tracer raises."""
+    from tpu_pbrt_torch.profile_frame import make_app
+
+    app = make_app("app_nodi", 32, 24, device="cpu", bounces=1, folds=())
+    m = cpu_mesh(2)
+    cam = app.camera.data(device="cpu")
+    hist = mesh.split_rows(app.history, m)
+    want = app_mesh.app_sharded(app, m)(cam, 0, hist)
+    fn = app_mesh.jit_app_sharded(app, m)
+    got = fn(app.tracer, None, cam, 0, mesh.split_rows(app.history, m))
+    assert torch.equal(got[0], want[0]) and float(got[1]) == float(want[1])
+    other = Renderer(tcornell.make_cornell_box(), 8, 8, device="cpu").tracer
+    with pytest.raises(ValueError, match="own tracer"):
+        fn(other, None, cam, 0, hist)
+
+
 # --- ops/cuda.py: the build lock and the launch's device -------------------
 
 def test_library_builds_once_under_threads(monkeypatch):

@@ -26,6 +26,7 @@ from tpu_pbrt.ops import traverse_resident as jtr
 from tpu_pbrt_torch import convert
 from tpu_pbrt_torch.models import cornell as tcornell
 from tpu_pbrt_torch.models import tube
+from tpu_pbrt_torch.ops import bvh as tbvh
 from tpu_pbrt_torch.ops import shade_table as tst
 from tpu_pbrt_torch.ops import tracer as ttracer
 from tpu_pbrt_torch.ops import traverse_dense as ttd
@@ -229,19 +230,24 @@ def test_refit_walk_skips_no_hit(resident_refits, posed_tube):
 
 
 def test_tracer_build_kinds(posed_tube):
+    """`build` chooses as the reference: dense up to DENSE_MAX_TRIS, the
+    LBVH above; every kind can be forced; an unknown kind raises."""
     _, bind, _ = posed_tube
     big = ttracer.build(*bind, device="cpu")
     small = ttracer.build(*(c[:100] for c in bind), device="cpu")
     forced = ttracer.build(*(c[:100] for c in bind), kind="resident",
                            device="cpu")
-    assert (big.kind, small.kind, forced.kind) == ("resident", "dense",
-                                                   "resident")
+    forced_bvh = ttracer.build(*(c[:100] for c in bind), kind="bvh",
+                               device="cpu")
+    assert (big.kind, small.kind, forced.kind, forced_bvh.kind) == (
+        "bvh", "dense", "resident", "bvh")
+    assert big.num_tris == bind[0].shape[0] and forced_bvh.num_tris == 100
     assert big.shade_table is None and big.bounce_sub is None
-    with pytest.raises(ValueError, match="bvh"):
-        ttracer.build(*bind, kind="bvh", device="cpu")
+    with pytest.raises(ValueError, match="culled"):
+        ttracer.build(*bind, kind="culled", device="cpu")
 
 
-@pytest.mark.parametrize("kind", ["dense", "resident"])
+@pytest.mark.parametrize("kind", ["dense", "resident", "bvh"])
 def test_tracer_refit_rebuilds_derived_buffers(kind):
     """Refit with new shade and light tables: the accel, both sub-tables
     and the light columns come from the new tables, none from the bind
@@ -269,9 +275,13 @@ def test_tracer_refit_rebuilds_derived_buffers(kind):
     assert lights.count == trc.light_count
     np.testing.assert_allclose(lights.power.numpy(),
                                trc.lights.power.numpy(), rtol=1e-5)
-    refit = (ttd if kind == "dense" else ttr).refit(trc.accel, *moved)
-    for f in type(refit)._fields[:-1]:
-        assert torch.equal(getattr(new.accel, f), getattr(refit, f)), f
+    refit = {"dense": ttd, "resident": ttr,
+             "bvh": tbvh}[kind].refit(trc.accel, *moved)
+    for f, want in refit._asdict().items():     # bit for bit
+        got = getattr(new.accel, f)
+        assert (torch.equal(got.reshape(-1).view(torch.uint8),
+                            want.reshape(-1).view(torch.uint8))
+                if isinstance(want, torch.Tensor) else got == want), f
     kept = ttracer.refit(trc, *moved)
     assert torch.equal(kept.shade_table, trc.shade_table)
     assert torch.equal(kept.lights.v0, trc.lights.v0)

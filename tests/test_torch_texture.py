@@ -77,7 +77,7 @@ def test_read_png_matches_pil(mode):
     im.save(bio, "PNG", **save)
     raw = bio.getvalue()
     want = np.asarray(Image.open(io.BytesIO(raw)).convert("RGBA"))
-    got = image.read_png(raw)
+    got = image.decode_png(raw)
     assert got.dtype == np.uint8 and got.shape == (37, 23, 4)
     np.testing.assert_array_equal(want, got)
     if trns:
@@ -86,13 +86,13 @@ def test_read_png_matches_pil(mode):
 
 @pytest.mark.parametrize("channels", [3, 4])
 def test_png_write_read_round_trip(channels):
-    """`encode_png` -> `read_png`: exact, RGB and RGBA; PIL reads the same
+    """`encode_png` -> `decode_png`: exact, RGB and RGBA; PIL reads the same
     pixels from the port's bytes."""
     from PIL import Image
 
     img = _rgba(np.random.default_rng(1), 19, 31, channels)
     raw = image.encode_png(img)
-    got = image.read_png(raw)
+    got = image.decode_png(raw)
     np.testing.assert_array_equal(got[..., :channels], img)
     if channels == 3:
         assert (got[..., 3] == 255).all()
@@ -113,18 +113,18 @@ def test_read_png_rejects_what_it_does_not_decode(case):
                                              interlace))
                 + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
 
-    if case == "16bit":
+    if case == "16bit":      # 16-bit gray decodes; a 4-bit one does not
         with pytest.raises(NotImplementedError, match="bit depth"):
-            image.read_png(png(16, 0, bytes(10)))
-    elif case == "interlaced":
-        with pytest.raises(NotImplementedError, match="interlaced"):
-            image.read_png(png(8, 1, bytes(6)))
+            image.decode_png(png(4, 0, bytes(4)))
+    elif case == "interlaced":   # Adam7 (1) decodes; method 2 is undefined
+        with pytest.raises(NotImplementedError, match="interlace"):
+            image.decode_png(png(8, 2, bytes(6)))
     elif case == "not_png":
         with pytest.raises(ValueError, match="not a PNG"):
-            image.read_png(b"GIF89a" + bytes(20))
+            image.decode_png(b"GIF89a" + bytes(20))
     else:
         with pytest.raises(ValueError, match="bytes"):
-            image.read_png(png(8, 0, bytes(5)))
+            image.decode_png(png(8, 0, bytes(5)))
 
 
 def test_other_formats_raise_and_jpeg_goes_through_pil(tmp_path):

@@ -16,7 +16,7 @@ from .models.material import MaterialTable
 from .models.mesh import Geometry
 from .models.scene import (EmissiveLights, EnvironmentLight, Scene,
                            light_arrays)
-from .ops import texture, traverse_dense, traverse_resident
+from .ops import bvh, texture, traverse_dense, traverse_resident
 from .ops.tracer import Tracer
 from .ops.vec import Vec3
 from .passes.denoise import DenoiserState
@@ -25,7 +25,7 @@ from .passes.sharc import SHARCState
 from .passes.taa import TAAState
 from .render.app import FrameHistory
 
-_INT_FIELDS = ("tri_id", "orders")
+_INT_FIELDS = ("tri_id", "orders", "left", "right", "miss", "parent")
 # the port's own tables, which the reference's accel does not carry
 _DERIVED = ("boxes", "rows", "pad_rows", "pad_keys")
 
@@ -36,13 +36,10 @@ def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
                       lights: dict | None = None, *,
                       device: str | torch.device) -> Tracer:
     """Port `Tracer` from a reference tracer's leaves. `accel` holds the
-    fields of a `DenseTris` (v0, e1, e2, tri_id, opacity) or of a
-    `ResidentTris` (tris, tri_id, orders, keys, lo, hi, scene_diag) as
-    arrays, and `num` as an int. The tables the reference does not have
-    are derived as `prepare` derives them: the resident block boxes from
-    the packed rows (`traverse_resident.block_boxes`) and the sort's pad
-    rows (`traverse_resident.sort_pad`), the dense packed rows from v0, e1,
-    e2 and opacity (`traverse_dense.pack_rows`). `atlas`
+    fields of a `DenseTris` (v0, e1, e2, tri_id, opacity), of a
+    `ResidentTris` (tris, tri_id, orders, keys, lo, hi, scene_diag) or of
+    a `BVH` (its ten fields) as arrays, and `num` as an int. The tables the
+    reference does not have are derived as `accel_from_numpy` says. `atlas`
     holds the reference atlas's `texels` ((N, 4) uint32), `desc` and
     `levels`; `alpha_test` is the reference tracer's flag. `lights` (the
     reference scene's `EmissiveLights` fields, `count` included) gives the
@@ -67,17 +64,32 @@ def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
 
 
 def accel_from_numpy(accel: dict, *, device: str | torch.device):
-    """Port `DenseTris` or `ResidentTris` from a reference accel's fields
-    as arrays (and `num` as an int): a `traverse_dense.prepare` result, or a
-    `traverse_resident.prepare` or `refit` one. The port's own tables are
+    """Port `DenseTris`, `ResidentTris` or `BVH` from a reference accel's
+    fields as arrays (and `num` as an int): a `traverse_dense.prepare`
+    result, a `traverse_resident.prepare` or `refit` one, or a
+    `bvh.build` or `refit` one. The port's own tables are
     derived from them as `prepare` and `refit` derive them: the dense packed
     rows (`traverse_dense.pack_rows`), the resident block boxes from the
     packed rows and `scene_diag` (`traverse_resident.block_boxes`) and the
-    sort's pad rows (`traverse_resident.sort_pad`)."""
+    sort's pad rows (`traverse_resident.sort_pad`), and the LBVH's packed
+    node and triangle rows (`bvh.pack_nodes`, `bvh.pack_tris`) and its
+    level count (`bvh.tree_levels`, read on the host)."""
 
     def t(a, dtype):
         return torch.as_tensor(np.array(a, dtype=dtype), device=device)
 
+    if "node_min" in accel:
+        f = {k: t(accel[k], np.int32 if k in _INT_FIELDS else np.float32)
+             for k in bvh.BVH._fields[:10]}     # the reference's ten
+        n = int(accel["num"])
+        levels = (bvh.tree_levels(torch.as_tensor(np.array(accel["left"])),
+                                  torch.as_tensor(np.array(accel["right"])),
+                                  n) if n > 1 else 0)
+        return bvh.BVH(**f, nodes=bvh.pack_nodes(f["node_min"], f["node_max"],
+                                                 f["left"], f["miss"]),
+                       tris=bvh.pack_tris(f["tri_v0"], f["tri_e1"],
+                                          f["tri_e2"]),
+                       levels=levels, num=n)
     resident = "tris" in accel
     cls = (traverse_resident.ResidentTris if resident
            else traverse_dense.DenseTris)

@@ -93,7 +93,7 @@ class Model:
     nodes: list[Node]
     scene_roots: list[int]
     materials: list[dict]            # our material dict format
-    textures: list[np.ndarray]       # always empty: textures are not ported
+    textures: list[np.ndarray]       # decoded (H, W, 4) uint8 images
     texture_srgb: list[bool]
     skins: list[Skin] = field(default_factory=list)
     animations: list[AnimationClip] = field(default_factory=list)

@@ -50,6 +50,16 @@ def diffuse_term(roughness, nol, nov, voh):
     return fl * fv / math.pi
 
 
+def fresnel_schlick(f0, voh):
+    """Schlick Fresnel; f0 and voh broadcast against each other."""
+    return f0 + (1.0 - f0) * _schlick_weight(voh)
+
+
+def fresnel_schlick_rgb(f0: torch.Tensor, voh) -> torch.Tensor:
+    """f0 (..., 3), voh (...,) -> (..., 3)."""
+    return f0 + (1.0 - f0) * _schlick_weight(voh)[..., None]
+
+
 def fresnel_schlick_soa(f0: Vec3, voh) -> Vec3:
     """Schlick Fresnel for Vec3 f0."""
     w = _schlick_weight(voh)

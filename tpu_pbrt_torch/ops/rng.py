@@ -81,3 +81,32 @@ def uniform4(px: torch.Tensor, py: torch.Tensor, frame, counter):
                        _as_u32(counter, px))
     return (u32_to_uniform(x), u32_to_uniform(y),
             u32_to_uniform(z), u32_to_uniform(w))
+
+
+class PixelRng:
+    """A per-pixel stream: `PixelRng(px, py, frame)` then `next1()` ...
+    `next4()`, each draw `pcg4d(px, py, frame, counter)` with a Python
+    counter advanced per draw (the reference's sequential draws)."""
+
+    def __init__(self, px: torch.Tensor, py: torch.Tensor, frame):
+        self._px = px.to(torch.int64)
+        self._py = torch.broadcast_to(py.to(torch.int64), self._px.shape)
+        self._frame = frame
+        self._counter = 0
+
+    def _draw(self):
+        c = self._counter
+        self._counter += 1
+        return uniform4(self._px, self._py, self._frame, c)
+
+    def next1(self) -> torch.Tensor:
+        return self._draw()[0]
+
+    def next2(self):
+        return self._draw()[:2]
+
+    def next3(self):
+        return self._draw()[:3]
+
+    def next4(self):
+        return self._draw()

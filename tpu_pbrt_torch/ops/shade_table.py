@@ -690,6 +690,17 @@ def light_rows(table: torch.Tensor, li: torch.Tensor):
     return _light_rows(table, torch.clamp(li, min=0))
 
 
+def fetch_light_pdf_area(table: torch.Tensor, li: torch.Tensor):
+    """Area-measure selection pdf of explicit light indices."""
+    return light_rows(table, li)[_LPDFA]
+
+
+def fetch_light_area(table: torch.Tensor, li: torch.Tensor):
+    """Triangle area of explicit light indices (ReGIR's chained-RIS weight
+    needs 1 / (W * area))."""
+    return light_rows(table, li)[_LAREA]
+
+
 def light_from_rows(row, bary_u, bary_v) -> LightFetch:
     """Sqrt-warped point, normal, radiance and area pdf from fetched light
     rows."""

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import native
 from ..utils.texture_io import build_mip_chain, srgb_to_linear
 from .vec import Vec3
 
@@ -49,11 +50,22 @@ def _round_half_away(x: np.ndarray) -> np.ndarray:
 
 
 def _pack_level_quads(m: np.ndarray, wrap: int, srgb: bool) -> np.ndarray:
-    """(H, W, 4) f32 LINEAR level -> (H*W, 4) u32 quad rows. sRGB levels
-    re-encode before the u8 quantization (decode happens after unpack).
-    Float32 throughout and halves rounded away from zero, as the reference's
-    native packer; its power function is the C library's, which computes in
-    double and rounds once, so the power here is taken in float64."""
+    """(H, W, 4) f32 LINEAR level -> (H*W, 4) u32 quad rows: the native
+    packer (`native.pack_level_quads`) where it builds, else
+    `pack_level_quads_numpy`; the two give the same bits."""
+    rows = native.pack_level_quads(m, wrap == WRAP_REPEAT, srgb)
+    if rows is not None:
+        return rows
+    return pack_level_quads_numpy(m, wrap, srgb)
+
+
+def pack_level_quads_numpy(m: np.ndarray, wrap: int,
+                           srgb: bool) -> np.ndarray:
+    """`_pack_level_quads` in numpy. sRGB levels re-encode before the u8
+    quantization (decode happens after unpack). Float32 throughout and
+    halves rounded away from zero, as the native packer; its power function
+    is the C library's, which computes in double and rounds once, so the
+    power here is taken in float64."""
     m = np.asarray(m, np.float32)
     v = np.clip(m, np.float32(0.0), np.float32(1.0))
     if srgb:

@@ -107,3 +107,11 @@ def closest_hit_shade(tris: DenseTris, sub: torch.Tensor, origin: Vec3,
     zeros = torch.zeros_like(out[0])
     hit = Hit(torch.where(found, out[ROW_HIT_T], INF), zeros, zeros, tri)
     return hit, st.attrs_from_block(out[:st.FB_OUT])
+
+
+def any_hit(tris: DenseTris, origin: Vec3, direction: Vec3, t_min,
+            t_max) -> torch.Tensor:
+    """The fused occlusion sweep under the reference's name: kernel 2
+    (`traverse_dense.any_hit`, the port of this module's Pallas any-hit),
+    on CUDA rays the kernel, on CPU rays its plain version."""
+    return traverse_dense.any_hit(tris, origin, direction, t_min, t_max)

@@ -1,11 +1,15 @@
 """Tracer: the acceleration structure plus the packed shade/light tables,
 as one `nn.Module` (port of `tpu_pbrt/ops/tracer.py`).
 
-Two kinds, chosen by triangle count in `build_for_scene` and `build`:
+Three kinds:
   * 'dense' (up to DENSE_MAX_TRIS): every ray tests every triangle
     (`ops/traverse_dense`, kernels 1 and 2);
-  * 'resident' (above): the sorted-chunk walk of `ops/traverse_resident`
-    (the resident-walk kernel).
+  * 'resident' (`build_for_scene` above DENSE_MAX_TRIS): the sorted-chunk
+    walk of `ops/traverse_resident` (the resident-walk kernel);
+  * 'bvh' (`build` above DENSE_MAX_TRIS, or asked for): the stackless LBVH
+    walk of `ops/traverse` over `ops/bvh` (the `bvh_trace` kernel). As in
+    the reference it ignores per-triangle opacity (ROADMAP F7) and returns
+    exact t, u and v.
 
 The reference serves big scenes with `traverse_culled`, which is XLA, not
 Pallas, and is built around TPU costs: it fetches each chunk's working set
@@ -17,7 +21,8 @@ scenes, `traverse_resident`, which maps onto one thread block per 256-ray
 chunk on the card. `TPU_PBRT_FORCE_TRACER` is not ported.
 
 The scene tables are registered buffers, so `Tracer.to(device)` moves them
-all: the accel arrays (`accel_*`), the shade table and its sub-tables (the
+all: the accel's tensors (`accel_*`; its ints, such as the triangle count,
+are plain attributes), the shade table and its sub-tables (the
 bounce loop's and the alpha test's column subsets, built once here), the
 light table, the light CDF, the light table's columns (`light_*`, which
 ReSTIR and ReGIR read through `Tracer.lights`; the light count is a Python
@@ -43,11 +48,16 @@ from ..models.scene import LIGHT_FIELDS, LightTensors, light_arrays
 
 from . import shade_table as shade_mod
 from . import texture as tex_mod
-from . import trace_shade_fused, traverse_dense, traverse_resident
+from . import trace_shade_fused, traverse, traverse_dense, traverse_resident
+from .bvh import BVH
 from .texture import TextureAtlas
 from .traverse import Hit
 
 DENSE_MAX_TRIS = 2048
+# the first triangle count `build_for_scene` takes past the dense sweep (the
+# reference's `culled` kind starts here; the port's kind there is
+# 'resident', whose kernel does that work)
+CULLED_MIN_TRIS = DENSE_MAX_TRIS + 1
 
 # re-intersection passes for textured alpha cutouts: up to K-1 transparent
 # layers pierced per ray per query (the reference's static cap)
@@ -56,12 +66,13 @@ ALPHA_TEST_MAX_ITERS = 4
 _ACCEL = {
     "dense": (traverse_dense.DenseTris, traverse_dense),
     "resident": (traverse_resident.ResidentTris, traverse_resident),
+    "bvh": (BVH, traverse),
 }
 
 
 class Tracer(nn.Module):
     """Answers closest-hit and any-hit queries for one scene; the kind
-    follows the accel's type (`DenseTris` or `ResidentTris`)."""
+    follows the accel's type (`DenseTris`, `ResidentTris` or `BVH`)."""
 
     def __init__(self, accel, shade_table: torch.Tensor | None = None,
                  light_table: torch.Tensor | None = None,
@@ -79,8 +90,12 @@ class Tracer(nn.Module):
         self.alpha_test = bool(alpha_test)
         if self.alpha_test and not self.textured:
             raise ValueError("alpha_test needs a texture atlas")
-        for f in accel._fields[:-1]:            # every field but `num`
-            self.register_buffer("accel_" + f, getattr(accel, f))
+        for f in accel._fields:   # tensors as buffers, ints as attributes
+            v = getattr(accel, f)
+            if isinstance(v, torch.Tensor):
+                self.register_buffer("accel_" + f, v)
+            else:
+                setattr(self, "accel_" + f, v)
         self.register_buffer("shade_table", shade_table)
         self.register_buffer("light_table", light_table)
         self.register_buffer("light_cdf", light_cdf)
@@ -107,8 +122,7 @@ class Tracer(nn.Module):
     @property
     def accel(self):
         cls, _ = _ACCEL[self.kind]
-        return cls(*(getattr(self, "accel_" + f) for f in cls._fields[:-1]),
-                   num=self.num_tris)
+        return cls(*(getattr(self, "accel_" + f) for f in cls._fields))
 
     @property
     def lights(self) -> LightTensors:
@@ -202,8 +216,9 @@ def shadow_opacity(scene) -> np.ndarray:
 def build_for_scene(scene, textures=None, texture_srgb=None, *,
                     device: str | torch.device,
                     kind: str | None = None) -> Tracer:
-    """Full build from a port `Scene` on `device`: the accel (`kind`, or by
-    triangle count dense up to DENSE_MAX_TRIS and resident above), the
+    """Full build from a port `Scene` on `device`: the accel (`kind`:
+    'dense', 'resident' or 'bvh', or None for dense up to DENSE_MAX_TRIS
+    and resident above, where the reference takes `culled`), the
     padded shade table, the light table and the CDF, and with `textures` (a
     list of (H, W, 4) uint8 or float images; `texture_srgb` flags each) the
     texture atlas."""
@@ -246,13 +261,11 @@ def build(v0, v1, v2, kind: str | None = None, *,
           device: str | torch.device) -> Tracer:
     """The acceleration structure alone, without shade or light tables (hit
     queries and refits), from host (T, 3) corner arrays on `device`. `kind`
-    'dense' or 'resident', or None to choose by triangle count (dense up to
-    DENSE_MAX_TRIS). The reference's third kind, the 'bvh' LBVH walk, has
-    no counterpart in the port (ROADMAP M10 remainder): the port's big
-    scenes take the resident walk."""
+    'dense', 'resident' or 'bvh', or None to choose by triangle count as the
+    reference does: dense up to DENSE_MAX_TRIS, bvh above."""
     t = np.asarray(v0).shape[0]
     if kind is None:
-        kind = "dense" if t <= DENSE_MAX_TRIS else "resident"
+        kind = "dense" if t <= DENSE_MAX_TRIS else "bvh"
     if kind not in _ACCEL:
         raise ValueError(f"unknown tracer kind {kind!r}")
     return Tracer(_ACCEL[kind][1].prepare(v0, v1, v2, device=device))
@@ -282,7 +295,8 @@ def refit(tracer: Tracer, v0, v1, v2, *,
           light_cdf: torch.Tensor | None = None) -> Tracer:
     """A tracer for deformed or moved triangles (the skinned-BLAS update):
     (T, 3) posed corner tensors on the tracer's device refit its accel
-    (`traverse_dense.refit` or `traverse_resident.refit`), on the device
+    (`traverse_dense.refit`, `traverse_resident.refit` or `bvh.refit`), on
+    the device
     with no host read. `shade_table` (`shade_table.update_geometry`),
     `light_table` and `light_cdf` (`shade_table.refresh_light_table`)
     replace the tracer's tables; every buffer derived from them is built

@@ -39,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import native
 from . import cuda
 from .bvh import interleave, morton3d
 from .traverse import Hit
@@ -93,13 +94,9 @@ def prepare(v0, v1, v2, opacity=None, *,
         opacity = np.ones((t,), np.float32)
     opacity = np.asarray(opacity, np.float32)
 
-    centroid = (v0 + v1 + v2) / 3.0
-    lo = centroid.min(0)
-    hi = centroid.max(0)
-    q = np.clip((centroid - lo) / np.maximum(hi - lo, 1e-12) * 1024.0,
-                0, 1023).astype(np.int64)
-    codes = interleave(torch.as_tensor(q)).numpy()
-    order = np.argsort(codes, kind="stable").astype(np.int32)
+    order = native.morton_order(v0, v1, v2)
+    if order is None:
+        order = morton_order_numpy(v0, v1, v2)
     sv0, sv1, sv2 = v0[order], v1[order], v2[order]
     sid = order
     sop = opacity[order]
@@ -161,6 +158,20 @@ def prepare(v0, v1, v2, opacity=None, *,
         boxes=block_boxes(tris, tri_id, scene_diag),
         lo=dev(vlo.astype(np.float32)), hi=dev(vhi.astype(np.float32)),
         scene_diag=scene_diag, pad_rows=pad_rows, pad_keys=pad_keys, num=t)
+
+
+def morton_order_numpy(v0: np.ndarray, v1: np.ndarray,
+                       v2: np.ndarray) -> np.ndarray:
+    """The stable Morton argsort (int32) of the triangles' centroids within
+    the centroid bounds: `prepare`'s order without the native library
+    (`native.morton_order` gives the same)."""
+    centroid = (v0 + v1 + v2) / 3.0
+    lo = centroid.min(0)
+    hi = centroid.max(0)
+    q = np.clip((centroid - lo) / np.maximum(hi - lo, 1e-12) * 1024.0,
+                0, 1023).astype(np.int64)
+    codes = interleave(torch.as_tensor(q)).numpy()
+    return np.argsort(codes, kind="stable").astype(np.int32)
 
 
 def refit(tris: ResidentTris, v0, v1, v2) -> ResidentTris:

@@ -164,3 +164,12 @@ def safe_spawn_offset(p: Vec3, n: Vec3, direction: Vec3) -> Vec3:
     nn = n * sgn
     return Vec3(offset_ray_origin(p.x, nn.x), offset_ray_origin(p.y, nn.y),
                 offset_ray_origin(p.z, nn.z))
+
+
+def lerp(a: Vec3, b: Vec3, t) -> Vec3:
+    return a + (b - a) * t
+
+
+def gather(table: torch.Tensor, idx: torch.Tensor) -> Vec3:
+    """Rows of an (N, 3) table as three 1-D gathers."""
+    return Vec3(table[:, 0][idx], table[:, 1][idx], table[:, 2][idx])

@@ -268,3 +268,20 @@ def app_sharded(app, mesh: Mesh):
         return img, out[0][1], history
 
     return step
+
+
+def jit_app_sharded(app, mesh: Mesh):
+    """`app_sharded` as the reference's closure: fn(tracer, scene, cam,
+    frame, history) -> (image, rays, history). The step is built for
+    `app`: `tracer` must be `app.tracer` (another raises) and `scene` is
+    the App's own, whose environment the App took when it was made.
+    PyTorch runs eagerly: nothing is compiled, the name is the
+    reference's."""
+    step = app_sharded(app, mesh)
+
+    def fn(tracer, scene, cam, frame, history):
+        del scene
+        if tracer is not app.tracer:
+            raise ValueError("the sharded step runs its App's own tracer")
+        return step(cam, frame, history)
+    return fn

@@ -338,3 +338,21 @@ def gather_rows(history, mesh: Mesh):
                             restir=restir,
                             taa=on_device(history.taa, dev0),
                             sharc=on_device(history.sharc, dev0))
+
+
+def jit_render_sharded(settings: pathtrace.PathTraceSettings, mesh: Mesh,
+                       width: int, height: int):
+    """`render_sharded` as the reference's closure: fn(tracer, scene, cam,
+    frame) -> (image, rays) for a port `Scene` (its environment is moved
+    to the tracer's device at each call, its light count read on the
+    host). PyTorch runs eagerly: nothing is compiled, the name is the
+    reference's."""
+    def fn(tracer, scene, cam, frame):
+        from ..models.scene import environment_tensors
+
+        dev = tracer.shade_table.device
+        env = environment_tensors(scene.environment, device=dev)
+        return render_sharded(tracer, env, int(scene.lights.count), cam,
+                              frame, width=width, height=height,
+                              settings=settings, mesh=mesh)
+    return fn

@@ -1,10 +1,19 @@
-"""PNG input and output with the standard library only (zlib + struct).
+"""PNG input and output with the standard library only (zlib + struct), and
+the golden-image metrics (port of `tpu_pbrt/utils/image.py`).
 
 `encode_png` / `write_png` write 8-bit RGB or RGBA, no interlace, filter
-type 0 on every row. `read_png` decodes what glTF assets carry: 8-bit gray,
-gray + alpha, RGB, RGBA and palette images (with their `tRNS` transparency),
-non-interlaced, all five scanline filters; 16-bit, sub-byte and interlaced
-files raise.
+type 0 on every row. `decode_png` decodes PNG bytes to RGBA as PIL's
+`convert("RGBA")` does (the reference loads every LDR texture that way):
+8- and 16-bit gray, gray + alpha, RGB and RGBA, 8-bit palette images, their
+`tRNS` transparency, all five scanline filters, plain or Adam7 interlaced.
+Sub-byte depths (1, 2, 4 bits) raise. `read_png(path)` is the reference's
+`read_png`: (H, W, 3) RGB. `rmse`, `ssim` and `ssim_map` are the
+reference's metrics, in float64 numpy.
+
+16 bits become 8 as Pillow (12.x) converts them, which is not one rule: a
+16-bit gray image clips (min(v, 255)), and its `tRNS` key is compared with
+the clipped value; RGB, RGBA and gray + alpha keep the high byte, and an
+RGB key's low bytes are compared with the kept high bytes.
 """
 
 from __future__ import annotations
@@ -87,7 +96,40 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(data: bytes) -> np.ndarray:
+
+
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _samples(raw: bytes, w: int, h: int, c: int, depth: int,
+             interlace: int) -> np.ndarray:
+    """(H, W, C) samples (uint8, or uint16 at 16 bits) of the inflated
+    IDAT stream, plain or Adam7 interlaced."""
+    nbytes = depth // 8
+    bpp = c * nbytes
+    dtype = np.dtype(">u2") if depth == 16 else np.dtype(np.uint8)
+    if interlace == 0:
+        rows = _unfilter(raw, h, w * bpp, bpp)
+        return rows.view(dtype).reshape(h, w, c)
+    out = np.zeros((h, w, c), dtype)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw = max(0, -(-(w - x0) // dx))
+        ph = max(0, -(-(h - y0) // dy))
+        if pw == 0 or ph == 0:        # an empty pass has no scanlines
+            continue
+        size = ph * (pw * bpp + 1)
+        rows = _unfilter(raw[pos:pos + size], ph, pw * bpp, bpp)
+        out[y0::dy, x0::dx] = rows.view(dtype).reshape(ph, pw, c)
+        pos += size
+    if pos != len(raw):
+        raise ValueError(f"PNG data holds {len(raw)} bytes, expected {pos}")
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
     """Decode PNG bytes to (H, W, 4) uint8 RGBA (what PIL's
     `convert("RGBA")` gives for the same file)."""
     data = bytes(data)
@@ -115,19 +157,31 @@ def read_png(data: bytes) -> np.ndarray:
     if ihdr is None or not idat:
         raise ValueError("PNG without IHDR or IDAT")
     w, h, depth, color_type, compression, filt, interlace = ihdr
-    if depth != 8 or color_type not in _CHANNELS:
+    if color_type not in _CHANNELS or depth not in (8, 16) or (
+            depth == 16 and color_type == 3):
         raise NotImplementedError(
-            f"PNG bit depth {depth} / color type {color_type}: only 8-bit "
-            "gray, gray+alpha, RGB, RGBA and palette images are read")
-    if compression != 0 or filt != 0 or interlace != 0:
-        raise NotImplementedError("interlaced PNG, or an unknown compression "
-                                  "or filter method")
+            f"PNG bit depth {depth} / color type {color_type}: only 8- and "
+            "16-bit gray, gray+alpha, RGB, RGBA and 8-bit palette images are "
+            "read")
+    if compression != 0 or filt != 0 or interlace not in (0, 1):
+        raise NotImplementedError(f"PNG interlace method {interlace}, or an "
+                                  "unknown compression or filter method")
     c = _CHANNELS[color_type]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * c, c)
-    px = px.reshape(h, w, c)
+    px = _samples(zlib.decompress(b"".join(idat)), w, h, c, depth,
+                  interlace)
+    key = None
+    if trns is not None and color_type in (0, 2):
+        key = np.asarray(struct.unpack(f">{c}H", trns), np.int64)
+    if depth == 16:
+        if color_type == 0:       # Pillow's I;16 -> RGBA clips
+            px = np.minimum(px, 255).astype(np.uint8)
+        else:                     # the high byte; an RGB key's low bytes
+            px = (px >> 8).astype(np.uint8)
+            if key is not None:
+                key = key & 0xFF
     opaque = np.full((h, w, 1), 255, np.uint8)
     if color_type == 6:
-        return px.copy()
+        return np.ascontiguousarray(px)
     if color_type == 4:
         return np.concatenate([np.repeat(px[..., :1], 3, -1), px[..., 1:]],
                               -1)
@@ -144,8 +198,55 @@ def read_png(data: bytes) -> np.ndarray:
             raise ValueError("palette PNG indexes past its PLTE")
         return table[px[..., 0]]
     rgb = np.repeat(px, 3, -1) if color_type == 0 else px
-    if trns is not None:     # one fully transparent gray level or color
-        key = np.asarray(struct.unpack(f">{c}H", trns), np.int64)
+    if key is not None:      # one fully transparent gray level or color
         opaque = np.where((px == key).all(-1, keepdims=True), 0,
                           255).astype(np.uint8)
     return np.concatenate([rgb, opaque], -1)
+
+
+def read_png(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of the PNG file at `path` (PIL's
+    `convert("RGB")`, as the reference's `read_png`)."""
+    with open(path, "rb") as f:
+        return np.ascontiguousarray(decode_png(f.read())[..., :3])
+
+
+def rmse(a: np.ndarray, b: np.ndarray) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.sqrt(np.mean((a - b) ** 2)))
+
+
+def ssim(a: np.ndarray, b: np.ndarray, data_range: float = 1.0) -> float:
+    """Mean SSIM with an 8x8 uniform window (Wang et al. 2004 with a box
+    filter). Inputs (H, W) or (H, W, C) float."""
+    return float(np.mean(ssim_map(a, b, data_range)))
+
+
+def ssim_map(a: np.ndarray, b: np.ndarray,
+             data_range: float = 1.0) -> np.ndarray:
+    """Per-window local SSIM map (H-7, W-7), channel-averaged: where a
+    comparison loses (geometry, noise or tone)."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    if a.ndim == 3:
+        return np.mean([ssim_map(a[..., c], b[..., c], data_range)
+                        for c in range(a.shape[-1])], axis=0)
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+    win = 8
+
+    def box(x):
+        c = np.cumsum(np.cumsum(x, axis=0), axis=1)
+        c = np.pad(c, ((1, 0), (1, 0)))
+        s = (c[win:, win:] - c[:-win, win:] - c[win:, :-win]
+             + c[:-win, :-win])
+        return s / (win * win)
+
+    mu_a, mu_b = box(a), box(b)
+    var_a = box(a * a) - mu_a ** 2
+    var_b = box(b * b) - mu_b ** 2
+    cov = box(a * b) - mu_a * mu_b
+    num = (2 * mu_a * mu_b + c1) * (2 * cov + c2)
+    den = (mu_a ** 2 + mu_b ** 2 + c1) * (var_a + var_b + c2)
+    return num / den

@@ -1,12 +1,12 @@
 """Texture loading and mip chains on the host (port of
 `tpu_pbrt/utils/texture_io.py`).
 
-PNG goes through the port's own decoder (`utils/image.read_png`), Radiance
+PNG goes through the port's own decoder (`utils/image.decode_png`), Radiance
 .hdr through the RGBE decoder below, OpenEXR scanline images (NONE, RLE,
 ZIPS and ZIP compression; HALF, FLOAT and UINT channels) through the EXR
 decoder below, DDS (BC1-BC5, BC7, uncompressed) through `utils/dds.py`;
 other LDR formats (JPEG, ...) need PIL and raise a clear error without it.
-`build_mip_chain` is the numpy box filter.
+`build_mip_chain` is the box filter (native, or numpy without it).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import zlib
 
 import numpy as np
 
-from .image import read_png
+from .image import decode_png
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -33,12 +33,12 @@ def decode_dds_rgba8(raw: bytes, what: str = "image") -> np.ndarray:
 
 
 def decode_image_rgba8(raw: bytes, what: str = "image") -> np.ndarray:
-    """(H, W, 4) uint8 from an encoded LDR image: PNG through `read_png`,
+    """(H, W, 4) uint8 from an encoded LDR image: PNG through `decode_png`,
     DDS through `decode_dds_rgba8`, anything else through PIL where it is
     installed."""
     raw = bytes(raw)
     if raw[:8] == _PNG_SIGNATURE:
-        return read_png(raw)
+        return decode_png(raw)
     if raw[:4] == b"DDS ":
         return decode_dds_rgba8(raw, what)
     try:
@@ -258,21 +258,29 @@ def _load_exr(path: str) -> np.ndarray:
 
 def build_mip_chain(img: np.ndarray, max_levels: int = 16) -> list[np.ndarray]:
     """Box-filtered mip pyramid down to 1x1. img: (H, W, C); an odd last
-    row or column is dropped at each halving. The four taps of a texel are
-    summed in float32 in row-major order and divided by 4, the order of the
-    reference's native box filter (a level one texel high or wide counts
-    each of its two taps twice)."""
+    row or column is dropped at each halving. Each level comes from the
+    native box filter (`native.mip_downsample`) where it builds, else from
+    `mip_level_numpy`; the two give the same bits."""
+    from .. import native
+
     mips = [img.astype(np.float32)]
     while len(mips) < max_levels and (mips[-1].shape[0] > 1
                                       or mips[-1].shape[1] > 1):
-        src = mips[-1]
-        h, w = src.shape[:2]
-        nh, nw = max(h // 2, 1), max(w // 2, 1)
-        r0 = np.arange(nh) * 2 if h > 1 else np.zeros(1, np.int64)
-        c0 = np.arange(nw) * 2 if w > 1 else np.zeros(1, np.int64)
-        r1 = r0 + (h > 1)
-        c1 = c0 + (w > 1)
-        top, bot = src[r0], src[r1]
-        acc = ((top[:, c0] + top[:, c1]) + bot[:, c0]) + bot[:, c1]
-        mips.append((acc / np.float32(4.0)).astype(np.float32))
+        level = native.mip_downsample(mips[-1])
+        mips.append(mip_level_numpy(mips[-1]) if level is None else level)
     return mips
+
+
+def mip_level_numpy(src: np.ndarray) -> np.ndarray:
+    """One box-filter level in numpy: the four taps of a texel summed in
+    float32 in row-major order and divided by 4, the native filter's order
+    (a level one texel high or wide counts each of its two taps twice)."""
+    h, w = src.shape[:2]
+    nh, nw = max(h // 2, 1), max(w // 2, 1)
+    r0 = np.arange(nh) * 2 if h > 1 else np.zeros(1, np.int64)
+    c0 = np.arange(nw) * 2 if w > 1 else np.zeros(1, np.int64)
+    r1 = r0 + (h > 1)
+    c1 = c0 + (w > 1)
+    top, bot = src[r0], src[r1]
+    acc = ((top[:, c0] + top[:, c1]) + bot[:, c0]) + bot[:, c1]
+    return (acc / np.float32(4.0)).astype(np.float32)
