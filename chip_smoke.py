@@ -37,6 +37,18 @@ with the kernels' launch counts set to 0 just before and read just after:
   resident walk's (>= 99.9% of hit lanes equal or an F3 key tie), one
   frame with every walk launch held on its held lanes, host syncs, then
   the timed frames;
+* `helmet_bvh_framed`: the same tracer seen by the helmet's own framing
+  camera (`helmet.make_camera`: the mesh ~1/3 of the frame), so camera
+  rays hit it and bounce rays walk deep; and `golden_bvh`: the golden
+  scene (2,056 triangles, 82 lights) through `Renderer` with the tracer
+  forced to `bvh`, at the golden App's path-trace settings (NEE at every
+  vertex: shadow rays meet real occluders, the any-hit walk loaded). Each:
+  one frame with every kernel launch held, host syncs, the timed frames,
+  the frames' device ms, launches and idle share, and every walk launch's
+  shape timed and held bit for bit on its whole pool. Before the helmet
+  paths both walk kernels are held bit for bit on
+  `traverse.adversarial_cases` (exact ties, slab planes through ray
+  origins, the dense sweeps' adversarial sets over an LBVH);
 * an alpha-cutout scene (`models/cutout.py`: a floor, a masked quad with a
   checker of holes, a light): the re-trace loop around the dense closest hit
   at every bounce and every shadow ray, the row fetch on the 19-column
@@ -178,6 +190,17 @@ kernel and the bounce fetch, which share the sub-table's row layout), on
 the package of the checkout at DIR (this one or an older one, whose kernels
 it builds): the way to time two versions on the same sets within one call.
 
+    python3 chip_smoke.py --bvh-times [DIR ...]
+
+runs only the LBVH walk at the pools its four 1080p frames launch on
+(`helmet_bvh`, `helmet_bvh_framed`, `golden_bvh`, `animated_bvh`): every
+walk launch of one frame, in launch order, held bit for bit against the
+plain walk (whose counts give the bound) and timed, with the kernels of
+the checkouts DIR... (an earlier version unpacked with `git archive`
+into the git-ignored `_checkout/`) timed on the same inputs in turns,
+and each frame rendered through each version's kernels in the same
+turns (wall ms, device ms, launches, idle share).
+
     python3 chip_smoke.py --fetch-times DIR
 
 does the same for the row fetch alone: it checks and times the row fetch of
@@ -246,6 +269,9 @@ BVH_HELD = 1 << 16
 # shadow set: the helmet has no emitter, so its frames' shadow lanes are
 # empty)
 BVH_SHADOW = 1 << 19
+# the 1080p frames that run the LBVH walk (`bvh_frame`)
+BVH_FRAMES = ("helmet_bvh", "helmet_bvh_framed", "golden_bvh",
+              "animated_bvh")
 
 # the path whose run supplies each kernel's launch count
 KERNEL_PATH = {
@@ -297,6 +323,12 @@ PATH_KERNELS = {
                    "fetch_rows"),
     "animated_bvh": ("bvh_closest_hit", "bvh_any_hit", "fetch_bounce",
                      "fetch_rows"),
+    # the helmet seen by its framing camera, and the golden scene (82
+    # lights: NEE's shadow rays meet real occluders) through the LBVH walk
+    "helmet_bvh_framed": ("bvh_closest_hit", "bvh_any_hit", "fetch_bounce",
+                          "fetch_rows"),
+    "golden_bvh": ("bvh_closest_hit", "bvh_any_hit", "fetch_bounce",
+                   "fetch_rows"),
     # the App at its defaults on the golden scene (2,056 triangles): the
     # resident walk where the Cornell Apps sweep
     "golden": ("resident_closest_hit", "resident_any_hit", "fetch_bounce",
@@ -2878,11 +2910,12 @@ def bvh_lanes(result, idx):
 def bvh_bound(bvh, rays, occlusion: bool, counts) -> dict:
     """The least time of one walk on these rays: the operations its data
     needs (each node visit one slab test, each leaf whose box was hit one
-    triangle test: `counts`, the plain walk's) against the bytes (the ray
-    columns, the node and triangle rows and ids once, the outputs)."""
+    triangle test: `counts`, the plain walk's) against the bytes (the
+    intervals, the origins and directions of the lanes whose interval is
+    not empty, the node and triangle rows and ids once, the outputs)."""
     r, n = rays[0].x.shape[0], bvh.num
-    nbytes = (r * 32 + (2 * n - 1) * 32 + n * 48
-              + (r if occlusion else n * 4 + r * 16))
+    nbytes = (r * 8 + n_active(rays[2], rays[3], r) * 24 + (2 * n - 1) * 32
+              + n * 48 + (r if occlusion else n * 4 + r * 16))
     return {**bound(nbytes, counts.nodes * FLOPS_SLAB
                     + counts.tests * FLOPS_TEST_DIV), **counts._asdict()}
 
@@ -3020,7 +3053,9 @@ def helmet_bvh_path(camera, device) -> tuple[dict, np.ndarray, list, dict]:
     result.update(build_seconds=build_s, levels=bvh.levels,
                   host_syncs_per_frame=len(syncs), host_sync_sites=syncs,
                   held_sets=checks, vs_resident=cmp,
-                  kernel_checks=kernel_checks("helmet_bvh", checked))
+                  kernel_checks=kernel_checks("helmet_bvh", checked),
+                  device=bvh_frame_times(
+                      lambda f: renderer.render_with_stats(camera, f), 200))
     rows = bvh_rows("helmet_bvh", checks)
     kres = {"bvh_closest_hit": checks["bounce"],
             "bvh_any_hit": checks["shadow"]}
@@ -3076,6 +3111,60 @@ def animated_bvh_path(device) -> tuple[dict, np.ndarray, list]:
     rows = shape_rows("animated_bvh", keep, result["launches_by_rays"],
                       SCENE_FRAMES)
     return result, img, rows + bvh_rows("animated_bvh_refit", checks)
+
+
+def check_bvh_adversarial(device) -> dict:
+    """Both LBVH walk kernels against the plain walk on the card on
+    `traverse.adversarial_cases`: exact ties of duplicated and coincident
+    triangles, axis-parallel rays through node slab planes (0 * inf), and
+    the dense sweeps' adversarial sets over an LBVH of their table (shared
+    edges, |det| at the threshold, segments ending at their hit,
+    non-finite rays, empty and NaN intervals): t, u, v, ids and flags bit
+    for bit."""
+    from tpu_pbrt_torch.ops import traverse as tv
+
+    out = {}
+    for case, (bvh, sets) in tv.adversarial_cases(device).items():
+        out[case] = {"triangles": bvh.num}
+        for name, rays in sets.items():
+            c = bvh_check(bvh, rays, False, f"adversarial {case} {name}",
+                          timed=False)
+            bvh_check(bvh, rays, True, f"adversarial {case} {name}",
+                      timed=False)
+            out[case][name] = {"rays": c["rays"], "hit_share": c["hit_share"]}
+    return out
+
+
+def bvh_frame_path(name: str, device) -> tuple[dict, np.ndarray, list]:
+    """`helmet_bvh_framed` or `golden_bvh` (`bvh_frame`) at 1080p: one
+    frame with every kernel launch held against its plain version (the
+    walk on its held lanes), host syncs, `run_path`'s timed frames, the
+    frames' device time, launches and idle share (`bvh_frame_times`), and
+    every walk launch's shape timed and held bit for bit on the whole pool
+    (`shape_rows`). Returns (result, frame, kernel rows)."""
+    from tpu_pbrt_torch.profile_frame import sync_sites
+
+    renderer, camera, frame = bvh_frame(name, device)
+    want = (25280, 0) if name == "helmet_bvh_framed" else (2056, 82)
+    if renderer.tracer.kind != "bvh" or (
+            renderer.tracer.num_tris, renderer.light_count) != want:
+        fail(f"{name}: tracer {renderer.tracer.kind}, "
+             f"{renderer.tracer.num_tris} triangles, "
+             f"{renderer.light_count} lights")
+    renderer.render(camera, 0)
+    checked, keep = {}, {}
+    with checked_wrappers(checked, keep):
+        renderer.render(camera, 97)
+    syncs = sync_sites(lambda: renderer.render(camera, 98))
+    if len(syncs) > 1:
+        fail(f"{name}: {len(syncs)} host syncs a frame ({syncs})")
+    result, img = run_path(name, renderer, camera)
+    result.update(host_syncs_per_frame=len(syncs), host_sync_sites=syncs,
+                  kernel_checks=kernel_checks(name, checked),
+                  device=bvh_frame_times(frame, 200))
+    keep = {k: v for k, v in keep.items() if k[0].startswith("bvh")}
+    rows = shape_rows(name, keep, result["launches_by_rays"], FRAMES)
+    return result, img, rows
 
 
 def native_phase() -> dict:
@@ -3294,6 +3383,238 @@ def fetch_times(root: str) -> int:
     return 0
 
 
+def load_package(root: str, alias: str):
+    """The `tpu_pbrt_torch` package of the checkout at `root`, imported
+    under the name `alias` (its modules import each other relatively), so
+    that two versions of the package run in one process: its kernels build
+    from its own `csrc/` into its own `_build/`."""
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(root), "tpu_pbrt_torch")
+    spec = importlib.util.spec_from_file_location(
+        alias, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def golden_bvh_settings(device):
+    """The golden App's path-trace settings (`make_app("golden")
+    .pt_settings`: its bounces, Russian roulette, no folds) for a plain
+    frame: no ReSTIR DI or SHARC to take the first vertex's light or
+    terminate paths, so NEE runs at every vertex; counted rays."""
+    import dataclasses
+
+    from tpu_pbrt_torch.profile_frame import make_app
+
+    app = make_app("golden", SMALL_W, SMALL_H, device=device)
+    return dataclasses.replace(app.pt_settings, external_di=False,
+                               sharc_mode="off", count_rays=True)
+
+
+def bvh_frame(name: str, device):
+    """One of the four 1080p frames through the LBVH walk (`BVH_FRAMES`):
+    (renderer, camera, frame), frame(f) renders frame f and returns (image,
+    counted rays) on the card. `helmet_bvh`: the helmet
+    configuration from the bench camera (the mesh ~4% of the frame);
+    `helmet_bvh_framed`: the same from `helmet.make_camera` (~1/3);
+    `golden_bvh`: the golden scene (2,056 triangles, 82 lights) at the
+    golden App's path-trace settings; `animated_bvh`: the skinned tube
+    refit every frame."""
+    from tpu_pbrt_torch.models import helmet
+    from tpu_pbrt_torch.models.cornell import make_cornell_camera
+    from tpu_pbrt_torch.models.golden import (make_golden_camera,
+                                              make_golden_scene)
+    from tpu_pbrt_torch.ops.tracer import build_for_scene
+    from tpu_pbrt_torch.render.renderer import Renderer
+
+    if name == "animated_bvh":
+        renderer = animated_renderer(WIDTH, HEIGHT, device)
+        renderer.tracer = build_for_scene(renderer.scene, device=device,
+                                          kind="bvh")
+        camera = make_cornell_camera(WIDTH, HEIGHT)
+
+        def frame(f):
+            return renderer.render(camera, f, with_gbuffer=True)[:2]
+        return renderer, camera, frame
+    if name == "golden_bvh":
+        scene, settings = make_golden_scene(), golden_bvh_settings(device)
+        camera = make_golden_camera(WIDTH, HEIGHT)
+    else:
+        scene, settings = helmet.make_scene(), helmet.settings()
+        camera = (make_cornell_camera(WIDTH, HEIGHT) if name == "helmet_bvh"
+                  else helmet.make_camera(WIDTH, HEIGHT))
+    renderer = Renderer(scene, WIDTH, HEIGHT, settings, device=device,
+                        tracer=build_for_scene(scene, device=device,
+                                               kind="bvh"))
+    return renderer, camera, lambda f: renderer.render_with_stats(camera, f)
+
+
+@contextlib.contextmanager
+def bvh_capture(record: list):
+    """Inside, every launch of the LBVH walk's wrappers appends (query
+    kind, BVH, a copy of its rays) to `record`, in launch order."""
+    import torch
+    from tpu_pbrt_torch.ops import traverse as tv
+    from tpu_pbrt_torch.ops.vec import Vec3
+
+    saved = (tv.closest_hit_cuda, tv.any_hit_cuda)
+
+    def copy(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def wrap(occlusion):
+        def launch(bvh, o, d, t_min, t_max):
+            record.append((occlusion, bvh, (
+                Vec3(copy(o.x), copy(o.y), copy(o.z)),
+                Vec3(copy(d.x), copy(d.y), copy(d.z)), copy(t_min),
+                copy(t_max))))
+            return saved[occlusion](bvh, o, d, t_min, t_max)
+        return launch
+
+    tv.closest_hit_cuda, tv.any_hit_cuda = wrap(False), wrap(True)
+    try:
+        yield
+    finally:
+        tv.closest_hit_cuda, tv.any_hit_cuda = saved
+
+
+def bvh_frame_times(frame, first: int) -> dict:
+    """A warm-up frame, FRAMES timed frames (host clock around frames
+    ending in a synchronize), PROFILED frames under `torch.profiler`
+    (device ms, launches, busy time), all numbered from `first`."""
+    import types
+
+    import torch
+    from tpu_pbrt_torch.profile_frame import PROFILED, stage_breakdown
+
+    count = [first]
+
+    def tick():
+        count[0] += 1
+        return frame(count[0])
+
+    tick()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(FRAMES):
+        t0 = time.perf_counter()
+        tick()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    br = stage_breakdown(types.SimpleNamespace(tick=tick), PROFILED)
+    median = float(np.median(times))
+    out = {"ms_per_frame": times, "ms_per_frame_median": median,
+           "device_ms_per_frame": br.get("device_kernel_ms_per_tick"),
+           "launches_per_frame": br.get("launches_per_tick"),
+           "walk_device_ms_per_frame": sum(
+               v for k, v in br.get("hand_written_ms_per_tick", {}).items()
+               if "bvh_walk" in k)}
+    if "busy_ms_per_tick" in br:
+        out["device_idle_share"] = 1.0 - br["busy_ms_per_tick"] / median
+    return out
+
+
+def bvh_times(others: list) -> int:
+    """The LBVH walk at the pools its 1080p frames launch on
+    (`BVH_FRAMES`), one JSON line a launch and one a frame: every walk
+    launch of one frame, in launch order, held bit for bit against the
+    plain walk (which counts its node visits and triangle tests: the
+    bound) and timed; with `others` (checkouts of other versions, the
+    parent first) their kernels as well, on the same inputs, in turns
+    (the others, this, this, the others in reverse), and the frames
+    rendered through each version's kernels in the same turns (wall ms,
+    device ms, launches, idle share). Ends with the kernels' ptxas
+    lines."""
+    import torch
+    from tpu_pbrt_torch.ops import cuda
+    from tpu_pbrt_torch.ops import traverse as tv
+    from tpu_pbrt_torch.profile_frame import sync_sites
+
+    device = torch.device("cuda")
+    print(gpu_line(), flush=True)
+    cuda.library()
+    kernels = {"change": (tv.closest_hit_cuda, tv.any_hit_cuda)}
+    logs = {"change": cuda.build_log}
+    import importlib
+
+    names = []
+    for j, root in enumerate(others):
+        name = os.path.basename(os.path.normpath(root))
+        pkg = load_package(root, f"tpu_pbrt_torch_{j}")
+        old_tv = importlib.import_module(f"{pkg.__name__}.ops.traverse")
+        old_cuda = importlib.import_module(f"{pkg.__name__}.ops.cuda")
+        old_cuda.library()
+        kernels[name] = (old_tv.closest_hit_cuda, old_tv.any_hit_cuda)
+        logs[name] = old_cuda.build_log
+        names.append(name)
+    turns = names + ["change", "change"] + names[::-1]
+
+    def use(version):
+        tv.closest_hit_cuda, tv.any_hit_cuda = kernels[version]
+
+    out = {}
+    for name in BVH_FRAMES:
+        use("change")
+        renderer, _, frame = bvh_frame(name, device)
+        frame(0)
+        record = []
+        with bvh_capture(record):
+            frame(1)
+        syncs = sync_sites(lambda: frame(2))
+        launches = []
+        for i, (occl, bvh, rays) in enumerate(record):
+            plain = []
+            pl_ms = once_ms(lambda: plain.append(tv.walk_plain(bvh, *rays,
+                                                                occl)))
+            want, counts = plain[0]
+            row = {"launch": i, "query": "any_hit" if occl else "closest_hit",
+                   "rays": rays[0].x.shape[0],
+                   "live": n_active(rays[2], rays[3], rays[0].x.shape[0]),
+                   "plain_ms": pl_ms, **bvh_bound(bvh, rays, occl, counts)}
+            row["share"] = ("occluded_share" if occl else "hit_share")
+            row[row.pop("share")] = float(
+                (want if occl else want.mask).float().mean())
+            for version, pair in kernels.items():
+                got = pair[occl](bvh, *rays)
+                fields = ((got, want),) if occl else tuple(
+                    (getattr(got, f), getattr(want, f))
+                    for f in ("t", "u", "v", "tri"))
+                for a, b in fields:
+                    if a.dtype == torch.float32:
+                        a, b = a.view(torch.int32), b.view(torch.int32)
+                    if not torch.equal(a, b):
+                        fail(f"bvh_times {name} launch {i} ({version}): "
+                             f"{int((a != b).sum())} lanes differ from the "
+                             f"plain walk")
+            for version in turns:
+                row.setdefault(f"{version}_ms", []).append(time_ms(
+                    lambda: kernels[version][occl](bvh, *rays)))
+            launches.append(row)
+            print(json.dumps({"bvh_launch": name, **row}), flush=True)
+        del record
+        frames = {}
+        for k, version in enumerate(turns):
+            use(version)
+            frames.setdefault(version, []).append(
+                bvh_frame_times(frame, 100 * (k + 1)))
+        use("change")
+        out[name] = {"triangles": renderer.tracer.num_tris,
+                     "host_syncs_per_frame": len(syncs),
+                     "walk_launches_per_frame": len(launches),
+                     "launches": launches, "frames": frames}
+        print(json.dumps({"bvh_times": name, "frames": frames,
+                          "host_syncs_per_frame": len(syncs)}), flush=True)
+        del renderer, frame
+        torch.cuda.empty_cache()
+    print(json.dumps({"ptxas_bvh": {v: ptxas_usage(log, "bvh_walk")
+                                    for v, log in logs.items()},
+                      "gpu": gpu_line()}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3304,11 +3625,19 @@ def main() -> int:
     parser.add_argument("--fetch-times", metavar="DIR", default=None,
                         help="only check and time the row fetch of the "
                              "checkout at DIR")
+    parser.add_argument("--bvh-times", metavar="DIR", nargs="*",
+                        default=None,
+                        help="only check and time the LBVH walk at its "
+                             "frames' pools (against the kernels of the "
+                             "checkouts DIR..., if given)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False; this run needs a "
               "GPU and never falls back to the CPU", file=sys.stderr)
         return 2
+    if args.bvh_times is not None:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return bvh_times(args.bvh_times)
     if args.dense_times is not None:
         return dense_times(args.dense_times)
     if args.fetch_times is not None:
@@ -3484,12 +3813,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- the helmet through the LBVH walk (kind="bvh") --------------------
+    print(json.dumps({"bvh_adversarial": check_bvh_adversarial(device)}),
+          flush=True)
     paths["helmet_bvh"], img, bvh_rows_, bvh_kres = helmet_bvh_path(camera,
                                                                     device)
     kres.update(bvh_kres)
     app_rows_first = list(bvh_rows_)
     print(json.dumps({"helmet_bvh": paths["helmet_bvh"]}), flush=True)
     pngs["helmet_bvh"] = save_png("helmet_bvh_1080p.png", img)
+    torch.cuda.empty_cache()
+    paths["helmet_bvh_framed"], img, rows = bvh_frame_path(
+        "helmet_bvh_framed", device)
+    app_rows_first += rows
+    print(json.dumps({"helmet_bvh_framed": paths["helmet_bvh_framed"]}),
+          flush=True)
+    pngs["helmet_bvh_framed"] = save_png("helmet_bvh_framed_1080p.png", img)
     torch.cuda.empty_cache()
 
     # --- alpha cutouts: the test scene on both tracer kinds, then a frame -
@@ -3594,6 +3932,11 @@ def main() -> int:
     print(json.dumps({"golden": paths["golden"]}), flush=True)
     pngs["golden"] = os.path.join(out_dir, "golden_1080p.png")
     write_png(pngs["golden"], to_srgb8(torch.as_tensor(img)).numpy())
+    torch.cuda.empty_cache()
+    paths["golden_bvh"], img, rows = bvh_frame_path("golden_bvh", device)
+    app_rows += rows
+    print(json.dumps({"golden_bvh": paths["golden_bvh"]}), flush=True)
+    pngs["golden_bvh"] = save_png("golden_bvh_1080p.png", img)
     torch.cuda.empty_cache()
 
     # --- the App's debug views --------------------------------------------

@@ -981,11 +981,7 @@ def test_bvh_walk_kernels_exact(dev, ntri, nray):
     n0 = tv.CLOSEST_HIT_KERNEL.launches
     got = tv.closest_hit_cuda(bvh, *rays)
     assert tv.CLOSEST_HIT_KERNEL.launches == n0 + 1
-    want = tv.closest_hit_plain(bvh, *rays)
-    for f in ("t", "u", "v", "tri"):
-        assert _bits_equal(getattr(got, f), getattr(want, f)), f
-    occ = tv.any_hit_cuda(bvh, *rays)
-    assert torch.equal(occ, tv.any_hit_plain(bvh, *rays))
+    _assert_bvh_kernel_exact(bvh, rays)
     assert torch.equal(tv.closest_hit(bvh, *rays).tri, got.tri)
     if ntri > 8 and nray > 255:
         assert 0.0 < float(got.mask.float().mean()) < 1.0
@@ -1024,3 +1020,61 @@ def test_bvh_wrappers_check_arguments(dev):
     cpu_bvh = _bvh_case(40, 1, "cpu")
     with pytest.raises(ValueError):
         tv.any_hit_cuda(cpu_bvh, *_walk_rays(64, 2, dev))
+
+
+@pytest.fixture(scope="module")
+def bvh_adversarial(dev):
+    from tpu_pbrt_torch.ops import traverse as tv
+
+    return tv.adversarial_cases(dev)
+
+
+def _assert_bvh_kernel_exact(bvh, rays):
+    """Both walk kernels against the plain walk, every field bit for bit;
+    returns the plain closest hit."""
+    from tpu_pbrt_torch.ops import traverse as tv
+
+    want = tv.closest_hit_plain(bvh, *rays)
+    got = tv.closest_hit_cuda(bvh, *rays)
+    for f in ("t", "u", "v", "tri"):
+        assert _bits_equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(tv.any_hit_cuda(bvh, *rays),
+                       tv.any_hit_plain(bvh, *rays))
+    return want
+
+
+@pytest.mark.parametrize("case", ["table", "duplicates", "coincident"])
+def test_bvh_walk_adversarial_exact(dev, bvh_adversarial, case):
+    """The walk kernel against the plain walk on `traverse.adversarial_
+    cases`: exact ties (`duplicates`, `coincident`: the first leaf in
+    preorder wins), axis-parallel rays through node slab planes (0 * inf),
+    and the dense sweeps' adversarial sets (shared edges, |det| at the
+    threshold, segments ending at their hit, non-finite rays, empty and
+    NaN intervals); t, u, v, ids and flags bit for bit."""
+    bvh, sets = bvh_adversarial[case]
+    for name, rays in sets.items():
+        want = _assert_bvh_kernel_exact(bvh, rays)
+        if name == "aimed_ties":
+            assert float(want.mask.float().mean()) > 0.95
+
+
+def test_bvh_walk_on_refit_tables_adversarial(dev):
+    """The refit tube (the refit rebuilds the child rows the kernel reads):
+    slab-plane rays of the refit tree and seeded rays with NaN and empty
+    intervals, both queries, every field bit for bit."""
+    from tpu_pbrt_torch.ops import bvh as tbvh
+    from tpu_pbrt_torch.ops import traverse as tv
+
+    _, bind, posed = _posed_tube(32)
+    bvh = tbvh.refit(tbvh.build(*bind, device=dev),
+                     *(torch.as_tensor(p, device=dev) for p in posed))
+    o, d, t_max = tv.slab_plane_rays(bvh, 4096, np.random.default_rng(4))
+
+    def vec(a):
+        return Vec3(*(torch.as_tensor(np.ascontiguousarray(a[:, i]),
+                                      device=dev) for i in range(3)))
+
+    slab = (vec(o), vec(d), torch.zeros(4096, device=dev),
+            torch.as_tensor(t_max, device=dev))
+    assert _assert_bvh_kernel_exact(bvh, slab).mask.any()
+    assert _assert_bvh_kernel_exact(bvh, _walk_rays(5000, 3, dev)).mask.any()

@@ -24,20 +24,37 @@
 // occlusion walk ends at its first occluder. This is the reference's
 // per-lane rule; the lock-step loop only interleaves the lanes.
 //
-// Bound on this card: arithmetic. A visit costs one slab test (12 FP32
-// operations), a leaf whose box is hit one Möller-Trumbore test (46, one
-// division), and the walk reads 32 bytes a node and 48 a leaf from L2 (the
-// helmet's tables are 1.6 MB). This first design keeps to one thread a ray
-// and reads through the read-only path; rays arrive in pixel or pool order,
-// so neighbouring threads walk similar paths. Designing it for Hopper
-// (ray sorting, wider nodes, a short stack) is later work.
+// What bounds it on this card (an H100; chip_smoke.py --bvh-times, PERF.md).
+// Not the bytes (the rays and the tables once: 0.02-0.03 ms for a 1080p
+// pool) nor the FP32 work (12 operations a node, 46 a triangle). Where few
+// lanes of a pool are live (the helmet's bounces), a ray's walk is a chain
+// of dependent loads, the next node's index coming from the node just
+// loaded: ~240-370 ns a node from L2, up to ~450 nodes. Where many are (the
+// golden scene's bounces, its tables held in L1), the instructions its
+// warps issue while their lanes walk apart.
+//
+// The design: one thread walks one ray in the plain walk's order, a node a
+// turn, through the read-only path, and each turn costs fewer instructions:
+//  * min / max are single min.NaN / max.NaN instructions (ten a node), not
+//    compare-and-select chains: about a quarter of the time of the
+//    instruction-bound pools;
+//  * a lane reads its interval first: where it is empty (t_max <= t_min, or
+//    NaN: a finished path's lane) the plain walk takes nothing, and the lane
+//    reads no more of its ray and no node (8 bytes, not 32).
+// Tried on the same pools and not kept (PERF.md): testing both children of
+// a node from one 64-byte row of their boxes, which shortens a ray's chain
+// but makes divergent turns (faster on the sparse helmet pools, slower on
+// full ones; split warp by warp between two kernels, a pool paid both
+// kernels' chains), and a persistent grid whose lanes take the next ray
+// from a pool counter (slower everywhere: an atomic a warp a take).
 //
 // Exactness. Built with -fmad=false, every product and sum rounds as in the
 // plain walk, in the reference's operation order (intersect.ray_aabb_soa and
 // ray_triangle_soa); min and max propagate NaN as torch.minimum / maximum
 // do, so a slab plane through the origin of an axis-parallel ray (0 * inf)
-// misses in both. t, u, v, the triangle and the flag are bit-equal to the
-// plain walk's on the card.
+// misses in both (which zero or NaN they return does not matter: only the
+// final comparison is read). t, u, v, the triangle and the flag are
+// bit-equal to the plain walk's on the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,11 +68,15 @@ struct RayPtrs {
 };
 
 __device__ __forceinline__ float nan_min(float a, float b) {
-    return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
 }
 
 __device__ __forceinline__ float nan_max(float a, float b) {
-    return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
 }
 
 // intersect.safe_inv_dir_soa: +-inf for components under 1e-20 in size
@@ -73,15 +94,19 @@ bvh_walk_kernel(RayPtrs rays, const float4* __restrict__ nodes,
                 uint8_t* __restrict__ out_occ) {
     const int i = blockIdx.x * kThreads + threadIdx.x;
     if (i >= r) return;
-    const float ox = rays.ox[i], oy = rays.oy[i], oz = rays.oz[i];
-    const float dx = rays.dx[i], dy = rays.dy[i], dz = rays.dz[i];
-    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
     const float t0 = rays.tmin[i];
     float best_t = rays.tmax[i];       // the occlusion walk never lowers it
     float best_u = 0.0f, best_v = 0.0f;
     int best_i = -1;
     bool occluded = false;
-    int cur = 0;
+    float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+    int cur = -1;
+    if (best_t > t0) {                 // else no node and no more of the ray
+        ox = rays.ox[i], oy = rays.oy[i], oz = rays.oz[i];
+        dx = rays.dx[i], dy = rays.dy[i], dz = rays.dz[i];
+        cur = 0;
+    }
+    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
     while (cur >= 0) {
         const float4 lo = __ldg(nodes + 2 * cur);
         const float4 hi = __ldg(nodes + 2 * cur + 1);

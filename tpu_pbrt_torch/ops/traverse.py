@@ -16,7 +16,8 @@ the finished ones dropped), built on `intersect.ray_aabb_soa` and
 walks each ray alone in the same arithmetic, so on the card t, u, v, the
 triangle and the occlusion flag are bit-equal to the plain walk's.
 `closest_hit` / `any_hit` take the kernel for CUDA rays and the plain walk
-for CPU rays.
+for CPU rays. `adversarial_cases` holds the inputs the card tests and
+`chip_smoke.py` hold the kernel to the plain walk on.
 
 The `bvh` tracer kind (`ops/tracer.py`) reads `prepare` and `refit` here.
 It ignores per-triangle opacity, as the reference's `bvh` kind does: an
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import bvh as bvh_mod
@@ -221,6 +223,94 @@ def any_hit(bvh: BVH, origin: Vec3, direction: Vec3, t_min,
     if origin.x.is_cuda:
         return any_hit_cuda(bvh, origin, direction, t_min, t_max)
     return any_hit_plain(bvh, origin, direction, t_min, t_max)
+
+
+def slab_plane_rays(bvh: BVH, n: int, rng):
+    """Axis-parallel rays (the other two components +0.0 or -0.0, so the
+    slab test multiplies 0 by +-inf) whose origins lie on a plane of a
+    node's box in a zero component, from outside the box along the axis;
+    a lane in eight carries a segment that ends inside the box."""
+    lo = bvh.node_min.cpu().numpy()
+    hi = bvh.node_max.cpu().numpy()
+    k = rng.integers(0, lo.shape[0], n)
+    lo, hi = lo[k], hi[k]
+    rows = np.arange(n)
+    axis = rng.integers(0, 3, n)
+    plane = (axis + rng.integers(1, 3, n)) % 3
+    o = lo + (hi - lo) * rng.uniform(size=(n, 3)).astype(np.float32)
+    o[rows, plane] = np.where((rng.uniform(size=n) < 0.5)[:, None], lo,
+                              hi)[rows, plane]
+    sign = np.where(rng.uniform(size=n) < 0.5, -1.0, 1.0).astype(np.float32)
+    span = (hi - lo)[rows, axis] + 1.0
+    o[rows, axis] = np.where(sign > 0, lo[rows, axis] - 1.0,
+                             hi[rows, axis] + 1.0)
+    d = np.where(rng.uniform(size=(n, 3)) < 0.5, -0.0, 0.0).astype(
+        np.float32)
+    d[rows, axis] = sign
+    t_max = np.where(rng.uniform(size=n) < 0.125, span * 0.5, np.inf)
+    return o, d, t_max.astype(np.float32)
+
+
+def adversarial_cases(device, seed: int = 23) -> dict:
+    """{case: (BVH, {set: (origin, direction, t_min, t_max)})} on
+    `device`, the inputs that would break a walk kernel not bit-equal to
+    the plain walk:
+      * `table`: an LBVH over the dense sweeps' adversarial table, with
+        its sets (`ops/dense_cases.py`: shared edges and vertices,
+        in-plane rays, |det| at the threshold, origins on a surface,
+        segments ending at their hit, +-0.0 directions, underflowing
+        numerators, non-finite rays, empty and NaN intervals);
+      * `duplicates` (64 triangles, half sharing one triangle: equal
+        Morton codes) and `coincident` (16 coincident triangles): rays
+        aimed at the shared triangle's vertices, edges and interior, every
+        hit an exact tie that the first leaf in preorder must win;
+    and in each case `slab_planes`: axis-parallel rays with +-0.0 in the
+    other components whose origins lie on the planes of node boxes."""
+    from . import dense_cases
+
+    rng = np.random.default_rng(seed)
+
+    def rays(o, d, t_min, t_max):
+        def v(a):
+            return Vec3(*(torch.as_tensor(np.ascontiguousarray(
+                a[:, i], np.float32), device=device) for i in range(3)))
+
+        def lane(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=device)
+        return v(o), v(d), lane(t_min), lane(t_max)
+
+    v0, v1, v2, _ = dense_cases.table_corners(seed)
+    _, sets = dense_cases.adversarial_case(device, seed)
+    corners = {"table": (v0, v1, v2)}
+    spread = np.random.default_rng(9)
+    d0 = spread.uniform(-10, 10, (64, 3)).astype(np.float32)
+    d1 = (d0 + spread.normal(0, 0.5, (64, 3))).astype(np.float32)
+    d2 = (d0 + spread.normal(0, 0.5, (64, 3))).astype(np.float32)
+    d0[:32], d1[:32], d2[:32] = d0[0], d1[0], d2[0]
+    corners["duplicates"] = (d0, d1, d2)
+    corners["coincident"] = (np.zeros((16, 3), np.float32),
+                             np.tile(np.float32([[1, 0, 0]]), (16, 1)),
+                             np.tile(np.float32([[0, 1, 0]]), (16, 1)))
+    out = {}
+    for name, (a, b, c) in corners.items():
+        bvh = bvh_mod.build(a, b, c, device=device)
+        case = dict(sets) if name == "table" else {}
+        if name != "table":
+            bary = rng.uniform(size=(4096, 2)).astype(np.float32)
+            bary[:7] = [[0, 0], [1, 0], [0, 1], [.5, 0], [0, .5], [.5, .5],
+                        [.25, .25]]
+            bary = np.where(bary.sum(1, keepdims=True) > 1, 1 - bary, bary)
+            target = (a[0] + (b[0] - a[0]) * bary[:, :1]
+                      + (c[0] - a[0]) * bary[:, 1:])
+            d = rng.normal(size=target.shape)
+            d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(
+                np.float32)
+            case["aimed_ties"] = rays(target - 3.0 * d, d,
+                                      np.zeros(4096), np.full(4096, np.inf))
+        o, d, t_max = slab_plane_rays(bvh, 4096, rng)
+        case["slab_planes"] = rays(o, d, np.zeros(4096), t_max)
+        out[name] = (bvh, case)
+    return out
 
 
 def brute_force_closest_hit(v0, v1, v2, origin, direction, t_min,

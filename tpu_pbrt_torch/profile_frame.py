@@ -70,7 +70,7 @@ APP_PATHS = ("app", "manylight", "golden", "app_nodi")
 # substrings of the hand-written kernels' symbol names (csrc/*.cu)
 HAND_WRITTEN = ("dense_closest_hit_kernel", "dense_closest_hit_shade_kernel",
                 "dense_any_hit_kernel", "fetch_bounce_kernel",
-                "fetch_rows_", "resident_walk_kernel")
+                "fetch_rows_", "resident_walk_kernel", "bvh_walk")
 
 
 def app_settings(width: int = WIDTH, height: int = HEIGHT,
