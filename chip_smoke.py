@@ -11,7 +11,8 @@ textured helmet's atlas and a 2048x2048 texture, host ms both ways), and
 drives six paths through `Renderer`, two through `AnimatedRenderer`, one
 through `DynamicRenderer`, four through the App (and the App's two
 debug views), the main path's frame and the App sharded over four bands
-of the card (`tpu_pbrt_torch/parallel/`), and the CLI, at 1920x1080, each
+of the card (`tpu_pbrt_torch/parallel/`), the CLI, and six of bench.py's
+configurations built by `tpu_pbrt_torch/bench_configs.py`, at 1920x1080, each
 with the kernels' launch counts set to 0 just before and read just after:
 
 * the main path: the Cornell box, 1 SPP, 8 bounces, NEE + MIS, Russian
@@ -105,6 +106,33 @@ with the kernels' launch counts set to 0 just before and read just after:
   App sharded over 2 and 4 bands of the card against the same on the CPU
   (the App gate below, the CPU fed each band's motion vectors). Four
   bands of one card are a rig for the seams, not a speed configuration;
+* six of bench.py's configurations, each built by
+  `tpu_pbrt_torch.bench_configs.make` (nothing cut), the cheapest first:
+  `cornell-nofold` (8 bounces, no folds: kernels 1-4 at the full pool on
+  every bounce), `cornell-bxdf` (the metal tall and glass short block,
+  4 SPP, folds 4-6), `sphere` (the closed 25,280-triangle UV sphere: K5,
+  kernels 3 and 4), `sphere-textured` (its checker map, ray cones, the
+  row fetch on the 50-column sub-table), `helmet-100k` (101,760
+  triangles, 795 blocks: K5 with 6 key mantissa bits, the row fetch on
+  the 101,760 x 64 G-buffer table) and `app-native` (bench.py's app at
+  super_resolution_scale 1.0: the App's passes at 1920x1080 internal).
+  A frame configuration runs as the animated paths do (`drive_frames`:
+  two warm-up frames, one frame with every kernel launch held against its
+  plain version, one in sync-debug mode (at most 1 host sync), 8 timed
+  frames, 2 profiled), then its image (the mean of 4 more frames) is
+  checked: `cornell-nofold` shows the Cornell layout, `cornell-bxdf`'s
+  block pixels move from the Cornell frame's by more than twice what the
+  others move, a mesh differs from the sky it hides, `sphere-textured`
+  from the untextured sphere on the mesh and nowhere else. `helmet-100k`
+  first times the host build of the resident walk's tables (through
+  `native/`) and of the LBVH, compares K5's ids on the camera rays and
+  on the frame's first traced bounce with the exact LBVH walk's (counts:
+  ids equal, F3 ties, lanes where K5's winner lies more than 2^-11
+  relative beyond the LBVH's; >= 99.9% of the hit lanes equal or a tie),
+  and runs the walk alone on the bench camera's rays and 2^19 bounce and
+  shadow sets. `app-native` runs as `app` does. Every (kernel, shape) of
+  the held frame or tick is timed into a `kernels` entry
+  `<kernel>/<config>_<shape>`;
 * `cli`: `python -m tpu_pbrt_torch` in a subprocess at its defaults
   (the Cornell box at 1920x1080, 4 frames), then on the scene JSON of
   `write_cli_scene` (an `MSFT_texture_dds` BC1 base colour, an .exr
@@ -159,8 +187,7 @@ opaque texels stopped on, shadow rays through holes, misses, all-empty
 pools, ids and flags equal to the plain versions' on the CPU and, with the
 bits of t, to the plain versions' on the card. The cutout frame's own
 tracer is held the same way on the card on its 1080p camera rays, on
-seeded bounce rays and on shadow segments. After the paths it runs the walk
-alone at `helmet-100k` (101,760 triangles), then holds small frames
+seeded bounce rays and on shadow segments. After the paths it holds small frames
 rendered through the kernels against the same frames rendered by the
 plain versions on the CPU, and a 64x48 App of each App path (32x24
 internal, 3 bounces, one fold; SHARC at 2^12) ticked three times on the
@@ -173,7 +200,9 @@ pixels, and the full App paths' CPU run is fed them, see
 against the CPU (`check_small_scene`: G-buffer tri ids equal, mean
 within 1e-3 relative, >= 99% of pixels within 1e-3, motion vectors within
 1e-4), 64x48 frames of the reduced helmet and of the Cornell box forced
-to `bvh` (real shadow rays with emitters through the any-hit walk), and
+to `bvh` (real shadow rays with emitters through the any-hit walk), of
+the five frame configurations above at 64x48 (`check_small_config`; the
+meshes under `helmet.make_camera`) and a 64x48 `app-native` App, and
 a 64x48 App for each option of `APP_OPTIONS` (the Reinhard tonemap,
 chromatic aberration, sharpening, a camera moving every tick, the
 pairwise and the raytraced ReSTIR bias modes) by the App gate. It writes
@@ -342,6 +371,27 @@ PATH_KERNELS = {
     "app_sharded": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
                     "fetch_rows"),
 }
+# bench.py's configurations first run as frames and ticks on the card here
+# (`bench_configs.make`), the cheapest first: name -> the kernels its frame
+# or tick launches
+CONFIG_KERNELS = {
+    "cornell-nofold": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
+                       "fetch_rows"),
+    "cornell-bxdf": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
+                     "fetch_rows"),
+    "sphere": ("resident_closest_hit", "resident_any_hit", "fetch_bounce",
+               "fetch_rows"),
+    "sphere-textured": ("resident_closest_hit", "resident_any_hit",
+                        "fetch_rows"),
+    "helmet-100k": ("resident_closest_hit", "resident_any_hit",
+                    "fetch_bounce", "fetch_rows"),
+    "app-native": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
+                   "fetch_rows"),
+}
+PATH_KERNELS.update(CONFIG_KERNELS)
+# their timed frames (ticks: APP_TICKS), and the frames averaged for their
+# image checks
+CONFIG_FRAMES, CONFIG_MEAN_FRAMES = 8, 4
 # the sharded phases' mesh: bands of one card (a rig for the seams, not a
 # speed configuration)
 MESH_BANDS = 4
@@ -1268,21 +1318,17 @@ def check_resident_kernels(renderer, scene, cam_rays, device) -> dict:
     return {"resident_closest_hit": cam, "resident_any_hit": anyh}
 
 
-def check_helmet_100k(device) -> dict:
+def check_helmet_100k(res, geometry, device) -> dict:
     """The resident walk at `helmet-100k` (bench.py's 320 x 160 grid:
-    101,760 triangles, 795 blocks, 6 key mantissa bits), walk only: closest
-    hit on the bench camera's 1080p rays and on 2^19 bounce rays from the
-    mesh, any hit on 2^19 seeded segments; each bit-exact against one plain
-    walk, with kernel time, counts and bound. The plain walk is not timed
-    at this size."""
-    from tpu_pbrt_torch.models import helmet
+    101,760 triangles, 795 blocks, 6 key mantissa bits) on the frame's
+    tables `res`, walk only: closest hit on the bench camera's 1080p rays
+    and on 2^19 bounce rays from the mesh, any hit on 2^19 seeded segments;
+    each bit-exact against one plain walk, with kernel time, counts and
+    bound. The plain walk is not timed here."""
     from tpu_pbrt_torch.models.cornell import make_cornell_camera
     from tpu_pbrt_torch.ops import traverse_resident as trs
     from tpu_pbrt_torch.render.camera import generate_rays
 
-    g = helmet.make_scene("helmet", 320, 160).geometry
-    p, i = g.positions, g.indices
-    res = trs.prepare(p[i[:, 0]], p[i[:, 1]], p[i[:, 2]], device=device)
     nb = res.tris.shape[0]
     cam = generate_rays(make_cornell_camera(WIDTH, HEIGHT).data(device=device),
                         WIDTH, HEIGHT)
@@ -1291,7 +1337,8 @@ def check_helmet_100k(device) -> dict:
         "key_mantissa_bits": 23 - trs.idx_bits(nb),
         "camera": walk_check(res, cam, False, "helmet-100k camera",
                              time_plain=False),
-        "bounce_subset": walk_check(res, mesh_rays(g, SUBSET, device, SEED),
+        "bounce_subset": walk_check(res, mesh_rays(geometry, SUBSET, device,
+                                                   SEED),
                                     False, "helmet-100k bounce subset",
                                     time_plain=False),
         "shadow_subset": walk_check(
@@ -1382,21 +1429,25 @@ def check_cornell_image(name: str, img: np.ndarray) -> None:
 
 def check_small_frame(name: str, scene, settings, camera, min_hits: float,
                       textures=None, texture_srgb=None,
-                      kind: str | None = None) -> dict:
+                      kind: str | None = None, build=None) -> dict:
     """A 64x48 frame through the kernels on the card against the same frame
     through the plain versions on the CPU: G-buffer tri ids exact, frame
     mean within 1e-3 relative, >= 99% of all pixels and >= 99% of the
     pixels with a primary hit within 1e-3 relative (a one-ulp difference
     can flip a Russian-roulette or lobe decision), and at least `min_hits`
     of the frame hit, so the hit pixels outnumber the 1% slack. `kind`
-    forces the tracer kind (the resident walk on a small scene)."""
+    forces the tracer kind (the resident walk on a small scene); `build`
+    (device -> renderer) replaces the scene, settings and textures."""
     from tpu_pbrt_torch.ops.tracer import build_for_scene
     from tpu_pbrt_torch.render.renderer import Renderer, _render_frame
 
-    out = {"triangles": int(scene.geometry.num_tris)}
+    out = {}
     imgs = {}
     for dev in ("cuda", "cpu"):
-        if kind is None:
+        if build is not None:
+            r = build(dev)
+            settings = r.settings
+        elif kind is None:
             r = Renderer(scene, SMALL_W, SMALL_H, settings, device=dev,
                          textures=textures, texture_srgb=texture_srgb)
         else:
@@ -1408,7 +1459,8 @@ def check_small_frame(name: str, scene, settings, camera, min_hits: float,
             r.tracer, r.env, r.light_count, cam, 7, width=SMALL_W,
             height=SMALL_H, settings=settings, with_gbuffer=True)
         imgs[dev] = (img.cpu().numpy(), gb.tri.cpu().numpy(), float(rays))
-        out.update(tracer=r.tracer.kind, textured=r.tracer.textured,
+        out.update(triangles=r.tracer.num_tris, tracer=r.tracer.kind,
+                   textured=r.tracer.textured,
                    alpha_test=r.tracer.alpha_test)
     (gi, gt, gr), (ci, ct, cr) = imgs["cuda"], imgs["cpu"]
     if not np.isfinite(gi).all():
@@ -1429,6 +1481,26 @@ def check_small_frame(name: str, scene, settings, camera, min_hits: float,
             or out["hit_share"] < min_hits):
         fail(f"small frame {name} disagrees with the CPU frame: {out}")
     return out
+
+
+def check_small_config(name: str) -> dict:
+    """A frame configuration of `bench_configs.make` at 64x48 by the gate
+    of `check_small_frame`, on its own camera (the Cornell box: half the
+    frame hits) or, for a mesh, under `helmet.make_camera`, which frames
+    it (the bench camera sees it on ~4% of the pixels)."""
+    from tpu_pbrt_torch import bench_configs
+    from tpu_pbrt_torch.models import helmet
+    from tpu_pbrt_torch.models.cornell import make_cornell_camera
+
+    def build(dev):
+        return bench_configs.make(name, device=dev, width=SMALL_W,
+                                  height=SMALL_H).target
+
+    if name.startswith("cornell"):
+        return check_small_frame(name, None, None, make_cornell_camera, 0.5,
+                                 build=build)
+    return check_small_frame(name, None, None, helmet.make_camera, 0.2,
+                             build=build)
 
 
 @contextlib.contextmanager
@@ -1656,7 +1728,7 @@ def app_path(scene, device) -> tuple[dict, np.ndarray, dict, dict]:
     shape)."""
     import torch
     from tpu_pbrt_torch.models.cornell import make_cornell_camera
-    from tpu_pbrt_torch.profile_frame import APP_FOLDS, app_settings
+    from tpu_pbrt_torch.bench_configs import APP_FOLDS, app_settings
     from tpu_pbrt_torch.render.app import App
     from tpu_pbrt_torch.render.camera import generate_rays
 
@@ -1721,12 +1793,16 @@ def shape_rows(name: str, keep: dict, by_tag: dict, ticks: int) -> list:
             res, srt, octs = args
             occl = kernel == "resident_any_hit"
             got = trs.walk_cuda(res, srt, octs, occl)
-            want, counts = trs.walk_plain(res, srt, octs, occl)
+            plain = []
+            # one plain walk, timed and held (it sweeps every block: at
+            # helmet-100k's 795 blocks a call takes seconds)
+            pl = once_ms(lambda: plain.append(trs.walk_plain(res, srt, octs,
+                                                             occl)))
+            want, counts = plain[0]
             if not torch.equal(got, want) or counts.missed_hits:
                 fail(f"{kernel} {name} {shape}: walk differs or the cull "
                      f"skipped {counts.missed_hits} hits")
             ms = time_ms(lambda: trs.walk_cuda(res, srt, octs, occl))
-            pl = plain_ms(lambda: trs.walk_plain(res, srt, octs, occl))
             err = 0.0
             rp, nb = srt.shape[0], res.tris.shape[0]
             table_bytes = (res.tris.numel() + res.boxes.numel()
@@ -1877,15 +1953,17 @@ def check_fused_sharc_update(app) -> dict:
 
 def full_app_path(name: str, device) -> tuple[dict, np.ndarray, list]:
     """An App path at the settings' defaults (bench.py's `app` on the
-    Cornell box, `manylight` on the 64-light room): `run_app` with kernel
+    Cornell box, `app-native` the same at 1920x1080 internal, `manylight`
+    on the 64-light room): `run_app` with kernel
     inputs kept and stages profiled, the output's layout, one SHARC
     resolve card vs CPU, the fused SHARC update, then every (kernel, shape)
     of the tick timed (`shape_rows`). Returns (result, image, rows)."""
-    from tpu_pbrt_torch.profile_frame import APP_FOLDS, make_app
+    from tpu_pbrt_torch.bench_configs import APP_FOLDS, make_app
 
     app = make_app(name, WIDTH, HEIGHT, device=device)
     rt = app.settings.raytracing
-    if ((app.render_w, app.render_h) != (WIDTH // 2, HEIGHT // 2)
+    scale = 1 if name == "app-native" else 2
+    if ((app.render_w, app.render_h) != (WIDTH // scale, HEIGHT // scale)
             or tuple(app.pt_settings.compaction_schedule) != APP_FOLDS
             or not (rt.restir_di and rt.sharc)
             or app.sharc_settings.capacity_log2 != 22
@@ -1961,7 +2039,7 @@ def check_small_app(name: str, bands: int | None = None,
     import torch
     from tpu_pbrt_torch.ops import cuda
     from tpu_pbrt_torch.parallel.mesh import make_mesh
-    from tpu_pbrt_torch.profile_frame import app_scene, app_settings
+    from tpu_pbrt_torch.bench_configs import app_scene, app_settings
     from tpu_pbrt_torch.render.app import App
 
     changes, step = APP_OPTIONS[option][1:] if option else ({}, None)
@@ -1974,6 +2052,7 @@ def check_small_app(name: str, bands: int | None = None,
             for field, value in fields.items():
                 setattr(getattr(s, section), field, value)
         app = App(*app_scene(name, SMALL_W, SMALL_H), s.check(), device=dev)
+        render = [app.render_w, app.render_h]
         for section, fields in changes.items():
             for field, value in fields.items():
                 if getattr(getattr(app.settings, section), field) != value:
@@ -2020,8 +2099,8 @@ def check_small_app(name: str, bands: int | None = None,
         if ticks[-1]["mean_abs_diff"] > 1e-3 or \
                 ticks[-1]["pixels_within_1e-2"] < 0.99:
             fail(f"small {name} disagrees with the CPU: {ticks}")
-    return {"resolution": [SMALL_W, SMALL_H], "render_resolution":
-            [SMALL_W // 2, SMALL_H // 2], "bands": bands, "option": option,
+    return {"resolution": [SMALL_W, SMALL_H], "render_resolution": render,
+            "bands": bands, "option": option,
             "settings": changes, "camera_step": step,
             "cpu_fed_card_motion": bool(extra),
             "motion_max_abs_diff_px": motion_diff,
@@ -2141,7 +2220,7 @@ def app_sharded_path(device) -> tuple[dict, np.ndarray, list]:
     2 and 4 bands against the CPU (`check_small_app`). Returns (result,
     image, `kernels` rows)."""
     import torch
-    from tpu_pbrt_torch.profile_frame import APP_FOLDS, make_app
+    from tpu_pbrt_torch.bench_configs import APP_FOLDS, make_app
 
     name = "app_sharded"
     app = make_app("app", WIDTH, HEIGHT, device=device)
@@ -2465,18 +2544,17 @@ def _accel_module(kind: str):
             "bvh": traverse}[kind]
 
 
-def run_scene_path(name: str, renderer, camera, keep: dict
-                   ) -> tuple[dict, np.ndarray, dict]:
-    """An animated or dynamic path at 1080p, the animation advancing 1/60
-    s a frame: SCENE_WARMUP frames, one frame with every kernel launch held
-    against its plain version (`checked_wrappers`, its first inputs at each
-    shape kept in `keep`), one frame in sync-debug mode (at most two host
-    syncs: the camera's upload and the palettes'), SCENE_FRAMES timed
-    frames with the launch counts set to 0 just before and read just after,
-    PROFILED frames under `torch.profiler` (device ms, idle share, the
-    `skin_refit` range's device ms: skinning, table refresh and refit),
-    and one skin + refresh + refit timed alone by CUDA events. Returns
-    (result, last frame, the checked frame's record)."""
+def drive_frames(name: str, frame, device, keep: dict, frames: int,
+                 max_syncs: int) -> tuple[dict, np.ndarray, dict]:
+    """A path of frames at 1080p, `frame()` rendering the next one and
+    returning (image, counted rays): SCENE_WARMUP frames, one frame with
+    every kernel launch held against its plain version (`checked_wrappers`,
+    its first inputs at each shape kept in `keep`), one frame in
+    sync-debug mode (at most `max_syncs` host syncs), `frames` timed frames
+    with the launch counts set to 0 just before and read just after, and
+    PROFILED frames under `torch.profiler` (device ms, idle share, by the
+    ranges of `APP_STAGES`). Returns (result, last timed frame, the checked
+    frame's record)."""
     import types
 
     import torch
@@ -2484,28 +2562,21 @@ def run_scene_path(name: str, renderer, camera, keep: dict
     from tpu_pbrt_torch.profile_frame import (PROFILED, stage_breakdown,
                                               sync_sites)
 
-    count = [0]
-
-    def frame():
-        count[0] += 1
-        img, rays, _ = renderer.render(camera, count[0], with_gbuffer=True)
-        return img, rays
-
     for _ in range(SCENE_WARMUP):
         frame()
     checked = {}
     with checked_wrappers(checked, keep):
         frame()
     syncs = sync_sites(frame)
-    if len(syncs) > 2:
+    if len(syncs) > max_syncs:
         fail(f"{name}: {len(syncs)} host syncs a frame ({syncs}), more than "
-             f"the camera's and the palettes' uploads")
+             f"{max_syncs}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rays = torch.zeros((), dtype=torch.float64, device=renderer.device)
+    rays = torch.zeros((), dtype=torch.float64, device=device)
     times = []
     cuda.reset_launches()
-    for _ in range(SCENE_FRAMES):
+    for _ in range(frames):
         t0 = time.perf_counter()
         img, rc = frame()
         rays += rc
@@ -2525,31 +2596,53 @@ def run_scene_path(name: str, renderer, camera, keep: dict
         fail(f"{name}: frame is black (mean {out.mean()})")
     median = float(np.median(times))
     br = stage_breakdown(types.SimpleNamespace(tick=frame), PROFILED)
-    pal = renderer.upload(renderer.palettes(1 / 60))
     total_rays = float(rays.item())
+    result = {
+        "frames": frames, "warmup_frames": SCENE_WARMUP,
+        "ms_per_frame": times, "ms_per_frame_median": median,
+        "ms_per_frame_spread": [min(times), max(times)],
+        "rays_per_frame": total_rays / frames,
+        "mrays_per_s": total_rays / (sum(times) / 1e3) / 1e6,
+        "host_syncs_per_frame": len(syncs), "host_sync_sites": syncs,
+        "peak_mem_gb": peak, "image_mean": float(out.mean()),
+        "launches_per_frame": {k: n / frames for k, n in launches.items()},
+        "launches": launches, "launches_by_rays": by_tag,
+        "device": br,
+    }
+    if "busy_ms_per_tick" in br:
+        result["device_idle_share"] = 1.0 - br["busy_ms_per_tick"] / median
+    return result, out, checked
+
+
+def run_scene_path(name: str, renderer, camera, keep: dict
+                   ) -> tuple[dict, np.ndarray, dict]:
+    """An animated or dynamic path at 1080p, the animation advancing 1/60
+    s a frame: `drive_frames` (SCENE_FRAMES timed frames, at most two host
+    syncs: the camera's upload and the palettes'), the `skin_refit`
+    range's device ms of its profiled frames (skinning, table refresh and
+    refit), and one skin + refresh + refit timed alone by CUDA events.
+    Returns (result, last frame, the checked frame's record)."""
+    count = [0]
+
+    def frame():
+        count[0] += 1
+        img, rays, _ = renderer.render(camera, count[0], with_gbuffer=True)
+        return img, rays
+
+    run, out, checked = drive_frames(name, frame, renderer.device, keep,
+                                     SCENE_FRAMES, 2)
+    pal = renderer.upload(renderer.palettes(1 / 60))
     s = renderer.settings
     result = {
         "resolution": [WIDTH, HEIGHT], "triangles": renderer.tracer.num_tris,
         "tracer": renderer.tracer.kind, "lights": renderer.light_count,
-        "bounces": s.bounces, "spp": s.samples_per_pixel,
-        "frames": SCENE_FRAMES, "warmup_frames": SCENE_WARMUP,
-        "ms_per_frame": times, "ms_per_frame_median": median,
-        "ms_per_frame_spread": [min(times), max(times)],
-        "rays_per_frame": total_rays / SCENE_FRAMES,
-        "mrays_per_s": total_rays / (sum(times) / 1e3) / 1e6,
-        "host_syncs_per_frame": len(syncs), "host_sync_sites": syncs,
-        "peak_mem_gb": peak, "image_mean": float(out.mean()),
-        "launches_per_frame": {k: n / SCENE_FRAMES
-                               for k, n in launches.items()},
-        "launches": launches, "launches_by_rays": by_tag,
-        "device": br,
+        "bounces": s.bounces, "spp": s.samples_per_pixel, **run,
         "skin_refit_event_ms": time_ms(
             lambda: renderer.posed_tracer(pal[0], pal[1]), iters=10),
     }
-    if "busy_ms_per_tick" in br:
-        result["device_idle_share"] = 1.0 - br["busy_ms_per_tick"] / median
-        result["skin_refit_device_ms"] = br["stages"]["skin_refit"][
-            "device_ms_per_tick"]
+    if "busy_ms_per_tick" in run["device"]:
+        result["skin_refit_device_ms"] = run["device"]["stages"][
+            "skin_refit"]["device_ms_per_tick"]
     return result, out, checked
 
 
@@ -2565,18 +2658,13 @@ def tube_camera(width: int, height: int):
 
 
 def animated_renderer(width: int, height: int, device):
-    """bench.py's animated configuration: the 64 x 40 skinned tube (5,120
-    triangles), 4 bounces, 1 SPP, counted rays."""
-    from tpu_pbrt_torch.models import tube
-    from tpu_pbrt_torch.passes.pathtrace import PathTraceSettings
-    from tpu_pbrt_torch.render.animated import (AnimatedRenderer,
-                                                prepare_skinned)
+    """bench.py's animated configuration (`bench_configs.make("animated")`:
+    the 64 x 40 skinned tube, 5,120 triangles, 4 bounces, 1 SPP, counted
+    rays)."""
+    from tpu_pbrt_torch import bench_configs
 
-    model, scene = tube.make_skinned_tube(64, 41)
-    return AnimatedRenderer(
-        scene, prepare_skinned(model), width, height,
-        PathTraceSettings(bounces=4, samples_per_pixel=1, count_rays=True),
-        device=device)
+    return bench_configs.make("animated", device=device, width=width,
+                              height=height).target
 
 
 def dynamic_renderer(width: int, height: int, device):
@@ -2708,7 +2796,7 @@ def golden_path(device) -> tuple[dict, np.ndarray, list]:
     540 internal): `run_app` with kernel inputs kept and stages profiled,
     the frame's layout, every (kernel, shape) of the checked tick timed
     (`shape_rows`). Returns (result, image, rows)."""
-    from tpu_pbrt_torch.profile_frame import make_app
+    from tpu_pbrt_torch.bench_configs import make_app
 
     app = make_app("golden", WIDTH, HEIGHT, device=device)
     rt = app.settings.raytracing
@@ -2738,7 +2826,7 @@ def debug_view_path(view: str, device) -> tuple[dict, np.ndarray]:
     hashed colours, and leave the history as it was."""
     import torch
     from tpu_pbrt_torch.ops import cuda
-    from tpu_pbrt_torch.profile_frame import make_app
+    from tpu_pbrt_torch.bench_configs import make_app
 
     app = make_app("app", WIDTH, HEIGHT, device=device)
     app.settings.raytracing.debug_view = view
@@ -2985,6 +3073,7 @@ def helmet_bvh_path(camera, device) -> tuple[dict, np.ndarray, list, dict]:
     then `run_path`. Returns (result, frame, the held sets' kernel rows,
     the kernel entries)."""
     import torch
+    from tpu_pbrt_torch import bench_configs
     from tpu_pbrt_torch.models import helmet
     from tpu_pbrt_torch.ops import traverse_resident as trs
     from tpu_pbrt_torch.ops.tracer import build_for_scene
@@ -2992,7 +3081,7 @@ def helmet_bvh_path(camera, device) -> tuple[dict, np.ndarray, list, dict]:
     from tpu_pbrt_torch.render.camera import generate_rays
     from tpu_pbrt_torch.render.renderer import Renderer
 
-    scene = helmet.make_scene()
+    scene, settings = bench_configs.mesh_setup("helmet")[:2]
     t0 = time.perf_counter()
     trc = build_for_scene(scene, device=device, kind="bvh")
     build_s = time.perf_counter() - t0
@@ -3042,8 +3131,8 @@ def helmet_bvh_path(camera, device) -> tuple[dict, np.ndarray, list, dict]:
             fail(f"helmet_bvh vs resident on {cam_name}: {cmp[cam_name]}")
     del res, cam_rays, framed
     torch.cuda.empty_cache()
-    renderer = Renderer(scene, WIDTH, HEIGHT, helmet.settings(),
-                        device=device, tracer=trc)
+    renderer = Renderer(scene, WIDTH, HEIGHT, settings, device=device,
+                        tracer=trc)
     renderer.render(camera, 0)
     checked = {}
     with checked_wrappers(checked):
@@ -3164,6 +3253,225 @@ def bvh_frame_path(name: str, device) -> tuple[dict, np.ndarray, list]:
                   device=bvh_frame_times(frame, 200))
     keep = {k: v for k, v in keep.items() if k[0].startswith("bvh")}
     rows = shape_rows(name, keep, result["launches_by_rays"], FRAMES)
+    return result, img, rows
+
+
+def mesh_vs_sky(renderer, camera, img: np.ndarray) -> tuple[dict, np.ndarray]:
+    """The mesh's pixels (the camera rays' hits) against the sky: the mesh
+    must cover some of the frame and less than half, and its pixels must
+    differ from the sky they hide. Returns (readings, hit mask)."""
+    import torch
+    from tpu_pbrt_torch.models.scene import environment_radiance
+    from tpu_pbrt_torch.render.camera import generate_rays
+
+    rays = generate_rays(camera.data(device=renderer.device), WIDTH, HEIGHT)
+    mask = renderer.tracer.closest_hit(*rays).mask.reshape(
+        HEIGHT, WIDTH).cpu().numpy()
+    sky = environment_radiance(renderer.environment, rays[1])
+    sky = torch.stack([sky.x, sky.y, sky.z], -1).reshape(
+        HEIGHT, WIDTH, 3).cpu().numpy()
+    on_mesh = float(np.abs(img[mask] - sky[mask]).mean())
+    off_mesh = float(np.abs(img[~mask] - sky[~mask]).mean())
+    if not 0.0 < mask.mean() < 0.5 or on_mesh <= 0.05:
+        fail(f"mesh covers {mask.mean()} of the frame and differs from the "
+             f"sky by {on_mesh} there")
+    return {"screen_fraction": float(mask.mean()),
+            "mean_abs_diff_from_sky_on_mesh": on_mesh,
+            "mean_abs_diff_from_sky_off_mesh": off_mesh}, mask
+
+
+def block_pixels_differ(renderer, camera, img: np.ndarray,
+                        cornell: np.ndarray) -> dict:
+    """`cornell-bxdf` against the Cornell frame: on the pixels whose camera
+    ray hits the metal or the glass block, the mean colour must move by
+    more than 0.02 and by more than twice what it moves on the other
+    pixels (where only their light changes)."""
+    from tpu_pbrt_torch.models.cornell import MAT_GLASS, MAT_METAL
+    from tpu_pbrt_torch.render.camera import generate_rays
+
+    rays = generate_rays(camera.data(device=renderer.device), WIDTH, HEIGHT)
+    tri = renderer.tracer.closest_hit(*rays).tri.cpu().numpy()
+    mat = np.asarray(renderer.scene.geometry.tri_material)[np.maximum(tri, 0)]
+    blocks = ((tri >= 0) & np.isin(mat, (MAT_METAL, MAT_GLASS))).reshape(
+        HEIGHT, WIDTH)
+
+    def moved(m):
+        return float(np.abs(img[m].mean(0) - cornell[m].mean(0)).mean())
+
+    on, off = moved(blocks), moved(~blocks)
+    if not (0.02 < on and 2 * off < on):
+        fail(f"cornell-bxdf: the blocks' pixels moved {on} from the Cornell "
+             f"frame, the others {off}")
+    return {"block_share": float(blocks.mean()),
+            "mean_colour_moved_on_blocks": on,
+            "mean_colour_moved_elsewhere": off}
+
+
+def _exact_t(tris, rays, tri):
+    """Each lane's exact hit t on the triangle `tri` (Moller-Trumbore on
+    the scene's corners `tris` = (v0, e1, e2), (T, 3) device tensors);
+    +inf where tri < 0 or the ray misses it."""
+    import torch
+    from tpu_pbrt_torch.ops.intersect import ray_triangle_soa
+    from tpu_pbrt_torch.ops.vec import Vec3
+
+    k = tri.clamp(min=0).long()
+    v0, e1, e2 = (Vec3(*(c[k, j] for j in range(3))) for c in tris)
+    t, _, _, _ = ray_triangle_soa(rays[0], rays[1], v0, e1, e2, rays[2],
+                                  rays[3])
+    return torch.where(tri >= 0, t, math.inf)
+
+
+def k5_vs_lbvh(renderer, bvh_tracer, rays) -> dict:
+    """The resident walk's (K5's) ids against the exact LBVH walk's on the
+    same rays: on the lanes either hits, (a) ids equal, (b) F3 ties (ids
+    differ and the LBVH's exact t, cut to K5's key bits, is K5's key t:
+    within one key bin the lower slot wins), (c) lanes where K5's winner's
+    exact t exceeds the LBVH winner's by more than 2^-11 relative, where a
+    key of 11 mantissa bits (the reference's default `culled` tracer)
+    would have chosen otherwise. Fails unless (a) + (b) cover >= 99.9% of
+    the lanes either hits."""
+    import torch
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+
+    g = renderer.scene.geometry
+    p = torch.as_tensor(np.asarray(g.positions, np.float32),
+                        device=renderer.device)
+    i = torch.as_tensor(np.asarray(g.indices, np.int64),
+                        device=renderer.device)
+    v0 = p[i[:, 0]]
+    tris = (v0, p[i[:, 1]] - v0, p[i[:, 2]] - v0)
+    a, b = renderer.tracer.closest_hit(*rays), bvh_tracer.closest_hit(*rays)
+    keep = -(1 << trs.idx_bits(renderer.tracer.accel.tris.shape[0]))
+    hit = a.mask | b.mask
+    both = a.mask & b.mask & (a.tri != b.tri)
+    tie = both & ((b.t.view(torch.int32) & keep).view(torch.float32) == a.t)
+    ta, tb = _exact_t(tris, rays, a.tri), _exact_t(tris, rays, b.tri)
+    beyond = both & (ta > tb * (1.0 + 2.0 ** -11))
+    n = max(int(hit.sum()), 1)
+    out = {"rays": int(a.tri.shape[0]),
+           "live_rays": int((rays[3] > rays[2]).sum()),
+           "hit_lanes": int(hit.sum()),
+           "a_ids_equal": int(((a.tri == b.tri) & hit).sum()),
+           "b_f3_ties": int(tie.sum()),
+           "c_beyond_2^-11": int(beyond.sum()),
+           "ids_differ_not_tie": int((both & ~tie).sum()),
+           "hit_differs": int((a.mask != b.mask).sum())}
+    out["equal_or_tie"] = (out["a_ids_equal"] + out["b_f3_ties"]) / n
+    if out["equal_or_tie"] < 0.999:
+        fail(f"helmet-100k: K5 against the LBVH walk: {out}")
+    return out
+
+
+def helmet_100k_checks(renderer, camera, device) -> dict:
+    """`helmet-100k` beyond its frames: the host build of the resident
+    walk's tables (`traverse_resident.prepare`, through `native/`) and of
+    the LBVH, both timed by the host clock; K5's ids against the exact
+    LBVH walk on the camera rays and on the rays of the frame's first
+    traced bounce (`k5_vs_lbvh`); the walk alone (`check_helmet_100k`)."""
+    import torch
+    from tpu_pbrt_torch import native
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+    from tpu_pbrt_torch.ops.tracer import build_for_scene
+    from tpu_pbrt_torch.render.camera import generate_rays
+
+    g = renderer.scene.geometry
+    p, i = np.asarray(g.positions, np.float32), np.asarray(g.indices)
+    if native.lib() is None:
+        fail("helmet-100k: the native host builders did not build")
+    t0 = time.perf_counter()
+    trs.prepare(p[i[:, 0]], p[i[:, 1]], p[i[:, 2]], device=device)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bvh = build_for_scene(renderer.scene, device=device, kind="bvh")
+    torch.cuda.synchronize()
+    bvh_s = time.perf_counter() - t0
+    # the rays of the frame's first traced bounce (the G-buffer's primary
+    # hits are bounce 0's): the second closest-hit query of a frame
+    calls = []
+    trace = renderer.tracer.closest_hit
+
+    def record(*rays):
+        calls.append(rays)
+        return trace(*rays)
+
+    renderer.tracer.closest_hit = record
+    try:
+        renderer.render_with_stats(camera, 10 ** 6)
+    finally:
+        del renderer.tracer.closest_hit
+    cam_rays = generate_rays(camera.data(device=device), WIDTH, HEIGHT)
+    vs = {"camera": k5_vs_lbvh(renderer, bvh, cam_rays),
+          "bounce_1": k5_vs_lbvh(renderer, bvh, calls[1])}
+    del calls, cam_rays, bvh
+    torch.cuda.empty_cache()
+    return {"prepare_host_seconds": prepare_s, "bvh_build_seconds": bvh_s,
+            "k5_vs_lbvh": vs,
+            "walk_alone": check_helmet_100k(renderer.tracer.accel, g, device)}
+
+
+def config_path(name: str, device, cornell: np.ndarray | None = None,
+                untextured: np.ndarray | None = None
+                ) -> tuple[dict, np.ndarray, list]:
+    """One of bench.py's configurations (`CONFIG_KERNELS`) built by
+    `bench_configs.make` at 1920x1080, run as the animated paths are
+    (`drive_frames`: CONFIG_FRAMES timed frames, at most 1 host sync), its
+    image the mean of CONFIG_MEAN_FRAMES more frames: finite; `cornell-
+    nofold` with the Cornell layout; `cornell-bxdf` against the Cornell
+    frame `cornell` on the blocks' pixels (`block_pixels_differ`); the
+    meshes against the sky (`mesh_vs_sky`), `sphere-textured` also against
+    the untextured sphere's `untextured` (different on the mesh, equal off
+    it); `helmet-100k`'s own checks first (`helmet_100k_checks`). Then
+    every (kernel, shape) of the checked frame timed (`shape_rows`).
+    Returns (result, image, rows)."""
+    from tpu_pbrt_torch import bench_configs
+
+    t0 = time.perf_counter()
+    cfg = bench_configs.make(name, device=device, width=WIDTH, height=HEIGHT)
+    build_s = time.perf_counter() - t0
+    r, camera, s = cfg.target, cfg.camera, cfg.settings
+    kind = "dense" if name.startswith("cornell") else "resident"
+    if r.tracer.kind != kind or r.tracer.textured != name.endswith(
+            "-textured"):
+        fail(f"{name}: tracer {r.tracer.kind}, textured {r.tracer.textured}")
+    extra = helmet_100k_checks(r, camera, device) if (
+        name == "helmet-100k") else {}
+    count = [0]
+
+    def frame():
+        count[0] += 1
+        return r.render_with_stats(camera, count[0])
+
+    keep = {}
+    run, _, checked = drive_frames(name, frame, device, keep, CONFIG_FRAMES,
+                                   1)
+    img = r.render_mean(camera, CONFIG_MEAN_FRAMES, 1000).cpu().numpy()
+    if not np.isfinite(img).all():
+        fail(f"{name}: non-finite pixels in the mean frame")
+    result = {"config": name, "label": cfg.label,
+              "resolution": [WIDTH, HEIGHT], "build_seconds": build_s,
+              "triangles": r.tracer.num_tris, "tracer": r.tracer.kind,
+              "textured": r.tracer.textured, "lights": r.light_count,
+              "bounces": s.bounces, "spp": s.samples_per_pixel,
+              "folds": list(s.compaction_schedule),
+              "cone_spread": s.cone_spread, **run, **extra}
+    if name == "cornell-nofold":
+        check_cornell_image(name, img)
+    elif name == "cornell-bxdf":
+        result["vs_cornell"] = block_pixels_differ(r, camera, img, cornell)
+    else:
+        result["vs_sky"], mask = mesh_vs_sky(r, camera, img)
+        if untextured is not None:
+            on = float(np.abs(img[mask] - untextured[mask]).mean())
+            off = float(np.abs(img[~mask] - untextured[~mask]).max())
+            if on <= 0.01 or off > 1e-6:
+                fail(f"{name}: differs from the untextured frame by {on} "
+                     f"(mean) on the mesh, {off} (max) off it")
+            result["vs_untextured"] = {"mean_abs_diff_on_mesh": on,
+                                       "max_abs_diff_off_mesh": off}
+    result["kernel_checks"] = kernel_checks(name, checked)
+    rows = shape_rows(name, keep, run["launches_by_rays"], CONFIG_FRAMES)
     return result, img, rows
 
 
@@ -3407,7 +3715,7 @@ def golden_bvh_settings(device):
     terminate paths, so NEE runs at every vertex; counted rays."""
     import dataclasses
 
-    from tpu_pbrt_torch.profile_frame import make_app
+    from tpu_pbrt_torch.bench_configs import make_app
 
     app = make_app("golden", SMALL_W, SMALL_H, device=device)
     return dataclasses.replace(app.pt_settings, external_di=False,
@@ -3423,6 +3731,7 @@ def bvh_frame(name: str, device):
     `golden_bvh`: the golden scene (2,056 triangles, 82 lights) at the
     golden App's path-trace settings; `animated_bvh`: the skinned tube
     refit every frame."""
+    from tpu_pbrt_torch import bench_configs
     from tpu_pbrt_torch.models import helmet
     from tpu_pbrt_torch.models.cornell import make_cornell_camera
     from tpu_pbrt_torch.models.golden import (make_golden_camera,
@@ -3443,7 +3752,7 @@ def bvh_frame(name: str, device):
         scene, settings = make_golden_scene(), golden_bvh_settings(device)
         camera = make_golden_camera(WIDTH, HEIGHT)
     else:
-        scene, settings = helmet.make_scene(), helmet.settings()
+        scene, settings = bench_configs.mesh_setup("helmet")[:2]
         camera = (make_cornell_camera(WIDTH, HEIGHT) if name == "helmet_bvh"
                   else helmet.make_camera(WIDTH, HEIGHT))
     renderer = Renderer(scene, WIDTH, HEIGHT, settings, device=device,
@@ -3643,9 +3952,9 @@ def main() -> int:
     if args.fetch_times is not None:
         return fetch_times(args.fetch_times)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tpu_pbrt_torch import bench_configs
     from tpu_pbrt_torch.models import cutout, helmet
-    from tpu_pbrt_torch.models.cornell import (make_cornell_box,
-                                               make_cornell_camera)
+    from tpu_pbrt_torch.models.cornell import make_cornell_camera
     from tpu_pbrt_torch.models.scene import environment_radiance
     from tpu_pbrt_torch.ops import cuda
     from tpu_pbrt_torch.ops import trace_shade_fused as tsf
@@ -3693,11 +4002,8 @@ def main() -> int:
     print(json.dumps({"native": native_phase()}), flush=True)
 
     # --- the main path: Cornell 1080p -------------------------------------
-    cornell = make_cornell_box()
-    settings = PathTraceSettings(bounces=8, samples_per_pixel=1,
-                                 count_rays=True,
-                                 compaction_schedule=(4, 5, 6, 7))
-    renderer = Renderer(cornell, WIDTH, HEIGHT, settings, device=device)
+    renderer = bench_configs.make("cornell", device=device).target
+    cornell, settings = renderer.scene, renderer.settings
     cam_rays = generate_rays(camera.data(device=device), WIDTH, HEIGHT)
     kres.update(check_cornell_kernels(renderer, cam_rays, device))
     print(json.dumps({"kernel_checks": {k: kres[k] for k in
@@ -3705,6 +4011,7 @@ def main() -> int:
           flush=True)
     paths["cornell"], img = run_path("cornell", renderer, camera)
     check_cornell_image("cornell", img)
+    cornell_img = img
     print(json.dumps({"main_path": paths["cornell"]}), flush=True)
     pngs["cornell"] = save_png("cornell_1080p.png", img)
 
@@ -3728,9 +4035,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- the big-scene path: the 25,280-triangle helmet -------------------
-    scene = helmet.make_scene()
-    renderer = Renderer(scene, WIDTH, HEIGHT, helmet.settings(),
-                        device=device)
+    renderer = bench_configs.make("helmet", device=device).target
+    scene = renderer.scene
     if renderer.tracer.kind != "resident":
         fail(f"helmet tracer kind {renderer.tracer.kind}, not resident")
     cam_rays = generate_rays(camera.data(device=device), WIDTH, HEIGHT)
@@ -3769,11 +4075,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- the textured helmet: atlas, mip selection, the 50-column fetch ---
-    scene_t, textures, tex_srgb = helmet.make_textured_scene()
-    renderer = Renderer(scene_t, WIDTH, HEIGHT,
-                        helmet.settings(True, HEIGHT), device=device,
-                        textures=textures, texture_srgb=tex_srgb)
-    trc = renderer.tracer
+    renderer = bench_configs.make("helmet-textured", device=device).target
+    scene_t, trc = renderer.scene, renderer.tracer
     if (trc.kind != "resident" or not trc.textured or trc.alpha_test
             or trc.supports_fused_shade()):
         fail(f"textured helmet: tracer kind {trc.kind}, textured "
@@ -3968,9 +4271,23 @@ def main() -> int:
     # --- the CLI, as a user runs it ---------------------------------------
     print(json.dumps({"cli": cli_path()}), flush=True)
 
-    # --- helmet-100k: the walk alone at 101,760 triangles -----------------
-    print(json.dumps({"helmet_100k": check_helmet_100k(device)}), flush=True)
-    torch.cuda.empty_cache()
+    # --- bench.py's configurations first run on the card here ------------
+    for name in CONFIG_KERNELS:
+        if name == "app-native":
+            paths[name], img, rows = full_app_path(name, device)
+            pngs[name] = os.path.join(out_dir, f"{name}_1080p.png")
+            write_png(pngs[name], to_srgb8(torch.as_tensor(img)).numpy())
+        else:
+            paths[name], img, rows = config_path(
+                name, device, cornell=cornell_img,
+                untextured=sphere_img if name == "sphere-textured" else None)
+            pngs[name] = save_png(f"{name}_1080p.png", img)
+        if name == "sphere":
+            sphere_img = img
+        app_rows += rows
+        print(json.dumps({name: paths[name]}), flush=True)
+        torch.cuda.empty_cache()
+    del cornell_img, sphere_img
 
     # --- small frames through the kernels vs the plain versions ----------
     small = {"cornell": check_small_frame(
@@ -4015,8 +4332,13 @@ def main() -> int:
     for name in ("helmet_bvh", "cornell_bvh"):
         if small[name]["tracer"] != "bvh":
             fail(f"small frame {name}: tracer {small[name]['tracer']}")
-    for name in ("app_nodi", "app", "manylight", "golden"):
+    for name in ("app_nodi", "app", "manylight", "golden", "app-native"):
         small[name] = check_small_app(name)
+    # bench.py's configurations built by `bench_configs.make` at 64x48;
+    # the meshes under a camera that frames them
+    for name in CONFIG_KERNELS:
+        if name != "app-native":
+            small[name] = check_small_config(name)
     for option, (base, _, _) in APP_OPTIONS.items():
         small[f"app_option_{option}"] = check_small_app(base, option=option)
     small["animated"] = check_small_scene("animated", animated_renderer,

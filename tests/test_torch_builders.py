@@ -254,8 +254,9 @@ def test_textured_helmet_scene_matches_reference(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """Every module of the port and chip_smoke.py, parsed with `ast`: no
-    import of jax, jaxlib or tpu_pbrt, at any depth of the file."""
+    """Every module of the port (`bench_configs.py` among them) and
+    chip_smoke.py, parsed with `ast`: no import of jax, jaxlib or
+    tpu_pbrt, at any depth of the file."""
     import ast
     import os
 
@@ -264,6 +265,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     for root, _, names in os.walk(os.path.join(repo, "tpu_pbrt_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 30
+    assert os.path.join(repo, "tpu_pbrt_torch", "bench_configs.py") in files
     banned = {"jax", "jaxlib", "tpu_pbrt"}
     for path in files:
         with open(path) as f:

@@ -18,6 +18,12 @@ App ticked three times on the card agrees with the CPU's (the tolerance of
 `tests/test_torch_app.py`). For the mesh (`parallel/`): the collectives
 across four bands of the card, the sharded frame on the card against the
 CPU, and a kernel launched from a shard thread on its tensors' stream.
+For bench.py's configurations (`tpu_pbrt_torch/bench_configs.py`): every
+tensor of each name's renderer or App on the card, a 64x48 frame of each
+configuration first run on the card in full (`cornell-nofold`,
+`cornell-bxdf`, `sphere`, `sphere-textured`, `helmet-100k`) against the
+CPU (G-buffer ids exact, means within 1e-3 relative), and an
+`app-native` App ticked on the card against the CPU.
 
 These need an NVIDIA GPU and nvcc; elsewhere they skip. On the card (no
 JAX there, so without the JAX-pinning conftest):
@@ -1078,3 +1084,120 @@ def test_bvh_walk_on_refit_tables_adversarial(dev):
             torch.as_tensor(t_max, device=dev))
     assert _assert_bvh_kernel_exact(bvh, slab).mask.any()
     assert _assert_bvh_kernel_exact(bvh, _walk_rays(5000, 3, dev)).mask.any()
+
+
+# --- bench.py's configurations (`tpu_pbrt_torch.bench_configs`) ----------
+
+def _tensors(obj, seen):
+    """Every tensor reachable from obj through modules, dataclasses,
+    named tuples, lists and dicts."""
+    import dataclasses
+
+    if id(obj) in seen:
+        return
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        yield obj
+        return
+    if isinstance(obj, torch.nn.Module):
+        yield from obj.buffers()
+        yield from obj.parameters()
+        children = list(vars(obj).values())
+    elif isinstance(obj, (list, tuple)):
+        children = obj
+    elif isinstance(obj, dict):
+        children = list(obj.values())
+    elif dataclasses.is_dataclass(obj) or hasattr(obj, "__dict__"):
+        children = list(vars(obj).values())
+    else:
+        return
+    for child in children:
+        yield from _tensors(child, seen)
+
+
+@pytest.mark.parametrize("name", ["cornell", "cornell-nofold", "cornell-bxdf",
+                                  "sphere", "sphere-textured", "helmet",
+                                  "helmet-textured", "helmet-100k", "app",
+                                  "app-native", "manylight", "animated"])
+def test_bench_config_on_card_holds_no_host_tensor(dev, name):
+    """`bench_configs.make(name, device="cuda")` at 64x48: every tensor of
+    the renderer or App it returns lies on the card."""
+    from tpu_pbrt_torch import bench_configs
+
+    cfg = bench_configs.make(name, device=dev, width=64, height=48)
+    found = list(_tensors(cfg.target, set()))
+    assert len(found) > 5
+    off = [tuple(t.shape) for t in found if not t.is_cuda]
+    assert not off, off
+
+
+_CONFIG_KERNELS = {
+    "cornell-nofold": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
+                       "fetch_rows"),
+    "cornell-bxdf": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
+                     "fetch_rows"),
+    "sphere": ("resident_closest_hit", "resident_any_hit", "fetch_bounce",
+               "fetch_rows"),
+    "sphere-textured": ("resident_closest_hit", "resident_any_hit",
+                        "fetch_rows"),
+    "helmet-100k": ("resident_closest_hit", "resident_any_hit",
+                    "fetch_bounce", "fetch_rows"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CONFIG_KERNELS))
+def test_bench_config_frame_on_card_matches_cpu(dev, name):
+    """A 64x48 frame of the configuration (`bench_configs.make`, its own
+    camera) through the kernels on the card and through the plain versions
+    on the CPU: G-buffer tri ids exact, frame means within 1e-3 relative;
+    the card's frame launches the configuration's kernels."""
+    from tpu_pbrt_torch import bench_configs
+    from tpu_pbrt_torch.render.renderer import _render_frame
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        cfg = bench_configs.make(name, device=d, width=64, height=48)
+        r = cfg.target
+        cuda.reset_launches()
+        img, _, gb = _render_frame(
+            r.tracer, r.env, r.light_count, cfg.camera.data(device=d), 7,
+            width=64, height=48, settings=r.settings, with_gbuffer=True)
+        if d.type == "cuda":
+            for k in _CONFIG_KERNELS[name]:
+                assert cuda.KERNELS[k].launches > 0, k
+        out[d.type] = (img.cpu().numpy(), gb.tri.cpu().numpy())
+    (g, gt), (c, ct) = out["cuda"], out["cpu"]
+    assert np.isfinite(g).all()
+    np.testing.assert_array_equal(gt, ct)
+    assert (gt >= 0).any()
+    assert abs(g.mean() - c.mean()) <= 1e-3 * abs(c.mean())
+
+
+def test_app_native_on_card_matches_cpu(dev):
+    """`app-native` (internal = output resolution) at 64x48 with the gate
+    settings of `test_app_on_card_matches_cpu` (3 bounces, one fold,
+    ReSTIR DI and SHARC off): three ticks on the card against the CPU, by
+    that test's tolerance."""
+    from tpu_pbrt_torch import bench_configs
+    from tpu_pbrt_torch.render.app import App
+
+    def ticks(device):
+        s = bench_configs.app_settings(64, 48, path="app-native", bounces=3,
+                                       folds=(2,))
+        s.raytracing.restir_di = False
+        s.raytracing.sharc = False
+        app = App(*bench_configs.app_scene("app-native", 64, 48), s.check(),
+                  device=device)
+        assert (app.render_w, app.render_h) == (64, 48)
+        return [app.tick()[0].cpu().numpy() for _ in range(3)]
+
+    cuda.reset_launches()
+    on_card = ticks(dev)
+    for k in ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
+              "fetch_rows"):
+        assert cuda.KERNELS[k].launches > 0, k
+    for g, c in zip(on_card, ticks("cpu")):
+        assert g.shape == (48, 64, 3) and np.isfinite(g).all()
+        d = np.abs(g - c)
+        assert d.mean() <= 1e-3
+        assert (d.max(-1) <= 1e-2).mean() >= 0.99

@@ -270,7 +270,18 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
 
 # --- the big-scene path and the fused configuration ----------------------
 
-def _jax_helmet_scene(nu, nv, tmp_path):
+@functools.lru_cache(maxsize=None)
+def _jit_frame(js):
+    """The reference's 64x48 frame under the settings `js`, jitted once for
+    the module: the reduced helmet's and the reduced sphere's tables
+    (2,160 triangles each, with or without the same checker map) have the
+    same shapes, so their frames share one compile."""
+    return jax.jit(lambda trc, scene, c: jrenderer._render_frame(
+        trc, scene, c, np.uint32(FRAME), width=W, height=H, settings=js,
+        with_gbuffer=True))
+
+
+def _jax_helmet_scene(nu, nv, tmp_path, shape="helmet"):
     """The reference's scene: bench.py's authored .glb through
     tpu_pbrt.models.gltf, as bench.py's `_sphere_setup` builds it."""
     import bench
@@ -279,8 +290,8 @@ def _jax_helmet_scene(nu, nv, tmp_path):
     from tpu_pbrt.models.mesh import build_geometry
     from tpu_pbrt.models.scene import make_environment, make_scene
 
-    path = str(tmp_path / "helmet.glb")
-    bench._write_sphere_glb(path, False, "helmet", nu=nu, nv=nv)
+    path = str(tmp_path / f"{shape}.glb")
+    bench._write_sphere_glb(path, False, shape, nu=nu, nv=nv)
     model = jgltf.load(path)
     return make_scene(build_geometry(jgltf.to_geometry_meshes(model)),
                       make_table(model.materials), make_environment())
@@ -304,34 +315,37 @@ def _assert_frames_agree(want, got):
     assert within[hit].mean() >= 0.99, within[hit].mean()
 
 
-def _helmet_frames(tmp_path, camera):
-    """The reduced helmet (40 x 28 grid, 2,160 triangles) at 64x48 with the
-    helmet config's settings, through the reference's culled tracer and
-    the port's resident walk, under `camera` (the port's models/cornell or
-    models/helmet camera; the reference gets a Camera with its fields)."""
+def _helmet_frames(tmp_path, camera, shape="helmet"):
+    """The reduced helmet (40 x 28 grid, 2,160 triangles; or with `shape`
+    "sphere" the UV sphere of bench.py's `sphere` configuration on the same
+    grid) at 64x48 with the config's settings, through the reference's
+    culled tracer and the port's resident walk, under `camera` (the port's
+    models/cornell or models/helmet camera; the reference gets a Camera
+    with its fields)."""
     from tpu_pbrt.render import camera as jcamera
-    from tpu_pbrt_torch.models import helmet
+    from tpu_pbrt_torch import bench_configs
 
     kw = dict(bounces=4, samples_per_pixel=1, count_rays=True,
               compaction_schedule=(1, 2, 3), cone_spread=0.0)
     js = JSettings(**kw)
-    jr = jrenderer.Renderer(_jax_helmet_scene(40, 28, tmp_path), W, H, js)
+    jr = jrenderer.Renderer(_jax_helmet_scene(40, 28, tmp_path, shape), W, H,
+                            js)
     assert jr.tracer.kind == "culled"
     tcam = camera(W, H)
     jcam = jcamera.Camera(position=tcam.position.copy(),
                           rotation=tcam.rotation.copy(),
                           vertical_fov_deg=tcam.vertical_fov_deg,
                           aspect=tcam.aspect)
-    want = jax.jit(lambda trc, scene, c: jrenderer._render_frame(
-        trc, scene, c, np.uint32(FRAME), width=W, height=H, settings=js,
-        with_gbuffer=True))(jr.tracer, jr.scene, jcam.data())
-    tr = trenderer.Renderer(helmet.make_scene("helmet", 40, 28), W, H,
-                            helmet.settings(), device="cpu")
+    want = _jit_frame(js)(jr.tracer, jr.scene, jcam.data())
+    scene, settings, _, _ = bench_configs.mesh_setup(shape, H, (40, 28))
+    tr = trenderer.Renderer(scene, W, H, settings, device="cpu")
     assert tr.tracer.kind == "resident"
     got = trenderer._render_frame(
         tr.tracer, tr.env, tr.light_count, tcam.data(device="cpu"),
         FRAME, width=W, height=H, settings=tr.settings, with_gbuffer=True)
     _assert_frames_agree(want, got)
+    if shape == "sphere":
+        assert float(got[1]) == float(want[1])
     return got
 
 
@@ -340,6 +354,18 @@ def test_helmet_frame_matches_reference(tmp_path):
     the port's resident walk against the reference's culled tracer. The
     mesh is visible and differs from the sky."""
     got = _helmet_frames(tmp_path, tcornell.make_cornell_camera)
+    valid = got[2].valid.numpy().reshape(H, W)
+    assert 0.005 < valid.mean() < 0.5
+    img = got[0].numpy()
+    assert np.abs(img[valid] - img[~valid].mean((0,))).max() > 0.05
+
+
+def test_sphere_frame_matches_reference(tmp_path):
+    """bench.py's `sphere` configuration (`bench_configs.mesh_setup`: the
+    closed UV sphere) on the reduced grid under the bench's camera: the
+    port's resident walk against the reference's culled tracer; counted
+    rays equal. The mesh is visible and differs from the sky."""
+    got = _helmet_frames(tmp_path, tcornell.make_cornell_camera, "sphere")
     valid = got[2].valid.numpy().reshape(H, W)
     assert 0.005 < valid.mean() < 0.5
     img = got[0].numpy()
@@ -388,9 +414,7 @@ def _jax_frame(jscene_, jtrc, js, tcam):
                           rotation=tcam.rotation.copy(),
                           vertical_fov_deg=tcam.vertical_fov_deg,
                           aspect=tcam.aspect)
-    return jax.jit(lambda trc, scene, c: jrenderer._render_frame(
-        trc, scene, c, np.uint32(FRAME), width=W, height=H, settings=js,
-        with_gbuffer=True))(jtrc, jscene_, jcam.data())
+    return _jit_frame(js)(jtrc, jscene_, jcam.data())
 
 
 def _port_frame(tr, tcam):
@@ -399,8 +423,8 @@ def _port_frame(tr, tcam):
         width=W, height=H, settings=tr.settings, with_gbuffer=True)
 
 
-def test_textured_helmet_frame_matches_reference(tmp_path):
-    """The reduced textured helmet (40 x 28 grid, the 256 x 256 checker
+def _textured_frames(tmp_path, shape):
+    """The reduced textured mesh (40 x 28 grid, the 256 x 256 checker
     base-color map with its mip chain) at 64x48 under the camera that
     frames it, the bench's settings with the ray-cone spread of a 48-row
     frame: the reference's culled tracer against the port's resident walk,
@@ -414,8 +438,8 @@ def test_textured_helmet_frame_matches_reference(tmp_path):
     from tpu_pbrt.ops import tracer as jtracer
     from tpu_pbrt_torch.models import helmet
 
-    path = str(tmp_path / "helmet_textured.glb")
-    bench._write_sphere_glb(path, True, "helmet", nu=40, nv=28)
+    path = str(tmp_path / f"{shape}_textured.glb")
+    bench._write_sphere_glb(path, True, shape, nu=40, nv=28)
     jm = jgltf.load(path)
     jsc = make_scene(build_geometry(jgltf.to_geometry_meshes(jm)),
                      make_table(jm.materials), make_environment(),
@@ -424,7 +448,7 @@ def test_textured_helmet_frame_matches_reference(tmp_path):
                                    texture_srgb=jm.texture_srgb)
     assert jtrc.kind == "culled" and jtrc.textured and not jtrc.alpha_test
 
-    scene, textures, srgb = helmet.make_textured_scene("helmet", 40, 28)
+    scene, textures, srgb = helmet.make_textured_scene(shape, 40, 28)
     ts = helmet.settings(True, H)
     assert ts.cone_spread > 0
     tcam = helmet.make_camera(W, H)
@@ -446,6 +470,20 @@ def test_textured_helmet_frame_matches_reference(tmp_path):
             np.asarray(getattr(want[2].base_color, ax))[same], rtol=0,
             atol=1e-4)
     assert float(got[2].base_color.x[torch.as_tensor(same)].std()) > 0.05
+    return want, got
+
+
+def test_textured_helmet_frame_matches_reference(tmp_path):
+    """The reduced textured helmet (`_textured_frames`)."""
+    _textured_frames(tmp_path, "helmet")
+
+
+def test_textured_sphere_frame_matches_reference(tmp_path):
+    """bench.py's `sphere-textured` configuration on the reduced grid
+    (`_textured_frames`; its frame shares the helmet's compile): counted
+    rays equal."""
+    want, got = _textured_frames(tmp_path, "sphere")
+    assert float(got[1]) == float(want[1])
 
 
 def test_cutout_frame_matches_reference():

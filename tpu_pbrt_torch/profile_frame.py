@@ -3,6 +3,7 @@
     python -m tpu_pbrt_torch.profile_frame [cornell] [cornell_fused] [helmet]
                                            [helmet_textured] [cornell_540]
                                            [app] [manylight] [app_nodi]
+                                           [NAME ...]
     python -m tpu_pbrt_torch.profile_frame --alternate ROUNDS
 
 For each named path (the first four by default) it renders two warm-up
@@ -32,6 +33,10 @@ ReSTIR DI and SHARC off. `cornell_540` is a `Renderer` frame at the App's
 internal resolution with the App's path-trace settings: the App tick
 without its image-space passes.
 
+Any other frame or App name of `bench_configs.NAMES` (`cornell-nofold`,
+`cornell-bxdf`, `sphere`, `sphere-textured`, `helmet-100k`, `app-native`)
+is profiled the same way, built by `bench_configs.make`.
+
 `--alternate ROUNDS` compares the Cornell frame unfused and fused on one
 renderer: after two warm-up frames of each it counts each configuration's
 host syncs in one frame (`torch.cuda.set_sync_debug_mode`), then times
@@ -57,15 +62,12 @@ import warnings
 
 import torch
 
+from .bench_configs import APP_PATHS, app_settings, make_app
+
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, TIMED, PROFILED = 2, 4, 2
-APP_FOLDS = (4, 5, 6)
 APP_STAGES = ("gbuffer", "regir", "restir", "sharc_update", "sharc_resolve",
               "pathtrace", "denoise", "taa", "bloom_tonemap", "skin_refit")
-# the App paths: the full frame graph on the Cornell box, on the 64-light
-# room and on the golden scene, and the Cornell App without ReSTIR DI and
-# SHARC
-APP_PATHS = ("app", "manylight", "golden", "app_nodi")
 
 # substrings of the hand-written kernels' symbol names (csrc/*.cu)
 HAND_WRITTEN = ("dense_closest_hit_kernel", "dense_closest_hit_shade_kernel",
@@ -73,70 +75,8 @@ HAND_WRITTEN = ("dense_closest_hit_kernel", "dense_closest_hit_shade_kernel",
                 "fetch_rows_", "resident_walk_kernel", "bvh_walk")
 
 
-def app_settings(width: int = WIDTH, height: int = HEIGHT,
-                 bounces: int | None = None, folds=None,
-                 path: str = "app_nodi", sharc_log2: int | None = None):
-    """An App path's settings: the given folds (by default APP_FOLDS, and
-    none for `golden`, which runs `GraphicsSettings()` as it is), the
-    defaults otherwise (8 bounces, scale 0.5, ReSTIR DI, SHARC at 2^22,
-    denoiser 4 iterations, TAA, bloom 0.05, ACES); `app_nodi` turns ReSTIR
-    DI and SHARC off, `manylight` sets bench.py's ReGIR cell size (1.5)."""
-    from .utils import config
-
-    if path not in APP_PATHS:
-        raise ValueError(f"unknown App path {path!r}")
-    s = config.GraphicsSettings(width=width, height=height)
-    if path == "app_nodi":
-        s.raytracing.restir_di = False
-        s.raytracing.sharc = False
-    if path == "manylight":
-        s.raytracing.regir = True
-        s.raytracing.regir_cell_size = 1.5
-    if folds is None:
-        folds = () if path == "golden" else APP_FOLDS
-    s.raytracing.compaction_schedule = tuple(folds)
-    if bounces is not None:
-        s.raytracing.bounces = bounces
-    if sharc_log2 is not None:
-        s.raytracing.sharc_capacity_log2 = sharc_log2
-    return s.check()
-
-
-def app_scene(path: str, width: int = WIDTH, height: int = HEIGHT):
-    """(scene, camera) of an App path: the Cornell box and its camera, for
-    `manylight` the 64-light room seen from (0, 3, 9) at yaw 180, pitch 15
-    (bench.py's manylight camera), for `golden` the golden scene and its
-    camera (`models/golden.py`)."""
-    import numpy as np
-
-    from .models.cornell import make_cornell_box, make_cornell_camera
-    from .models.golden import make_golden_camera, make_golden_scene
-    from .models.manylight import make_many_light_room
-    from .render.camera import Camera
-
-    if path == "golden":
-        return make_golden_scene(), make_golden_camera(width, height)
-    if path != "manylight":
-        return make_cornell_box(), make_cornell_camera(width, height)
-    cam = Camera(position=np.asarray([0.0, 3.0, 9.0], np.float32))
-    cam.look(180.0, 15.0)
-    return make_many_light_room(n_side=8), cam
-
-
-def make_app(path: str, width: int = WIDTH, height: int = HEIGHT, *,
-             device, **settings):
-    """The App of an App path on `device`; `settings` go to
-    `app_settings`."""
-    from .render.app import App
-
-    scene, cam = app_scene(path, width, height)
-    return App(scene, cam, app_settings(width, height, path=path,
-                                        **settings), device=device)
-
-
 def _renderer(name: str):
-    from .models import helmet
-    from .models.cornell import make_cornell_box
+    from . import bench_configs
     from .ops import trace_shade_fused
     from .passes.pathtrace import PathTraceSettings
     from .render.renderer import Renderer
@@ -144,27 +84,20 @@ def _renderer(name: str):
     trace_shade_fused.TRACE_FUSED = name == "cornell_fused"
     if name == "cornell_540":
         rt = app_settings().raytracing
-        return Renderer(make_cornell_box(), WIDTH // 2, HEIGHT // 2,
-                        PathTraceSettings(
+        return Renderer(bench_configs.cornell_scene("cornell"), WIDTH // 2,
+                        HEIGHT // 2, PathTraceSettings(
                             bounces=rt.bounces,
                             samples_per_pixel=rt.samples_per_pixel,
                             russian_roulette=rt.russian_roulette,
                             compaction_schedule=rt.compaction_schedule),
                         device="cuda")
-    if name == "helmet_textured":
-        scene, textures, srgb = helmet.make_textured_scene()
-        return Renderer(scene, WIDTH, HEIGHT, helmet.settings(True, HEIGHT),
-                        device="cuda", textures=textures, texture_srgb=srgb)
-    if name == "helmet":
-        scene, settings = helmet.make_scene(), helmet.settings()
-    elif name not in ("cornell", "cornell_fused"):
+    config = {"cornell_fused": "cornell",
+              "helmet_textured": "helmet-textured"}.get(name, name)
+    if (config not in bench_configs.NAMES or config == "animated"
+            or config in bench_configs.APP_PATHS):
         raise ValueError(f"unknown path {name!r}")
-    else:
-        scene = make_cornell_box()
-        settings = PathTraceSettings(bounces=8, samples_per_pixel=1,
-                                     count_rays=True,
-                                     compaction_schedule=(4, 5, 6, 7))
-    return Renderer(scene, WIDTH, HEIGHT, settings, device="cuda")
+    return bench_configs.make(config, device="cuda", width=WIDTH,
+                              height=HEIGHT).target
 
 
 def _union_us(intervals) -> float:
