@@ -8,7 +8,7 @@ It builds the hand-written CUDA kernels from `tpu_pbrt_torch/csrc/` and
 the native host builders (`tpu_pbrt_torch/native/`, which must build here;
 their four functions are held bit-equal to their numpy versions on the
 textured helmet's atlas and a 2048x2048 texture, host ms both ways), and
-drives six paths through `Renderer`, two through `AnimatedRenderer`, one
+drives seven paths through `Renderer`, two through `AnimatedRenderer`, one
 through `DynamicRenderer`, four through the App (and the App's two
 debug views), the main path's frame and the App sharded over four bands
 of the card (`tpu_pbrt_torch/parallel/`), the CLI, and six of bench.py's
@@ -23,7 +23,11 @@ with the kernels' launch counts set to 0 just before and read just after:
   closest-hit-and-shade kernel;
 * the big-scene path: the authored 25,280-triangle helmet mesh through the
   glTF ingest, metallic 0.8 / roughness 0.4, default sky, 1 SPP,
-  4 bounces, folds at 1-3 (the resident-walk kernel's closest and any hit);
+  4 bounces, folds at 1-3, through the reference's default big-scene
+  tracer, `culled` (the walk kernel's exact-key mode, closest and any
+  hit); then the same frame through the resident walk forced onto it
+  (`helmet_resident`: the walk kernel's resident mode), which must agree
+  with it within 1e-3 mean;
 * the textured helmet (`helmet-textured`): the same mesh with its 256x256
   checker base-color map and full mip chain, ray-cone mip selection
   (`cone_spread` = one pixel's angle), every bounce's fetch through the row
@@ -35,7 +39,7 @@ with the kernels' launch counts set to 0 just before and read just after:
   the kernel against the plain walk on held sets (2^16 rays of the bench
   camera's and of a framing camera's 1080p rays, 2^16 bounce rays from the
   mesh, 2^19 shadow segments around it), the camera rays' ids against the
-  resident walk's (>= 99.9% of hit lanes equal or an F3 key tie), one
+  culled tracer's (>= 99.9% of hit lanes equal or a key tie), one
   frame with every walk launch held on its held lanes, host syncs, then
   the timed frames;
 * `helmet_bvh_framed`: the same tracer seen by the helmet's own framing
@@ -73,9 +77,9 @@ with the kernels' launch counts set to 0 just before and read just after:
 * `animated`, bench.py's animated configuration: the 64 x 40 skinned tube
   (5,120 triangles, `models/tube.py`) through `AnimatedRenderer`, 4
   bounces, 1 SPP, counted rays, the Cornell camera; every frame skins
-  with both palettes, refreshes the shade table and refits the resident
-  walk's tables on the card, then renders through the resident walk on
-  the refit tables, kernel 3 and kernel 4;
+  with both palettes, refreshes the shade table and refits the culled
+  tracer's tables on the card, then renders through its walk on the
+  refit tables, kernel 3 and kernel 4;
 * `animated_bvh`: the same skinned tube with the tracer forced to `bvh`:
   the LBVH refit on the card every frame (no host read; the refit tables
   bit-equal to the CPU's), the walk kernel on the refit tables against the
@@ -87,7 +91,7 @@ with the kernels' launch counts set to 0 just before and read just after:
   every frame;
 * `golden`: the App at `GraphicsSettings()` on the golden scene (2,056
   triangles, 82 lights: ReGIR on; ReSTIR DI, SHARC at 2^22, denoise, TAA,
-  bloom, ACES), 960 x 540 internal, through the resident walk;
+  bloom, ACES), 960 x 540 internal, through the culled tracer;
 * the App's two debug views (`sharc_voxels`, `regir_cells`) on the
   Cornell box, one warm-up and three timed ticks each;
 * `cornell_sharded`: the main path's frame through
@@ -110,11 +114,11 @@ with the kernels' launch counts set to 0 just before and read just after:
   `tpu_pbrt_torch.bench_configs.make` (nothing cut), the cheapest first:
   `cornell-nofold` (8 bounces, no folds: kernels 1-4 at the full pool on
   every bounce), `cornell-bxdf` (the metal tall and glass short block,
-  4 SPP, folds 4-6), `sphere` (the closed 25,280-triangle UV sphere: K5,
-  kernels 3 and 4), `sphere-textured` (its checker map, ray cones, the
-  row fetch on the 50-column sub-table), `helmet-100k` (101,760
-  triangles, 795 blocks: K5 with 6 key mantissa bits, the row fetch on
-  the 101,760 x 64 G-buffer table) and `app-native` (bench.py's app at
+  4 SPP, folds 4-6), `sphere` (the closed 25,280-triangle UV sphere: the
+  culled tracer's walk, kernels 3 and 4), `sphere-textured` (its checker
+  map, ray cones, the row fetch on the 50-column sub-table), `helmet-100k`
+  (101,760 triangles, 795 blocks: the culled walk, the row fetch on the
+  101,760 x 64 G-buffer table) and `app-native` (bench.py's app at
   super_resolution_scale 1.0: the App's passes at 1920x1080 internal).
   A frame configuration runs as the animated paths do (`drive_frames`:
   two warm-up frames, one frame with every kernel launch held against its
@@ -124,13 +128,15 @@ with the kernels' launch counts set to 0 just before and read just after:
   block pixels move from the Cornell frame's by more than twice what the
   others move, a mesh differs from the sky it hides, `sphere-textured`
   from the untextured sphere on the mesh and nowhere else. `helmet-100k`
-  first times the host build of the resident walk's tables (through
-  `native/`) and of the LBVH, compares K5's ids on the camera rays and
-  on the frame's first traced bounce with the exact LBVH walk's (counts:
-  ids equal, F3 ties, lanes where K5's winner lies more than 2^-11
-  relative beyond the LBVH's; >= 99.9% of the hit lanes equal or a tie),
-  and runs the walk alone on the bench camera's rays and 2^19 bounce and
-  shadow sets. `app-native` runs as `app` does. Every (kernel, shape) of
+  first times the host builds of the culled and the resident walk's
+  tables (through `native/`) and of the LBVH, compares the culled
+  tracer's ids on the camera rays and on the frame's first traced bounce
+  with the exact LBVH walk's (counts: ids equal, key ties, lanes where
+  the winner lies more than 2^-11 relative beyond the LBVH's, which must
+  be none: ROADMAP P6's gate; >= 99.9% of the hit lanes equal or a tie;
+  the resident walk's counts printed beside), and runs the walk alone in
+  both modes on the bench camera's rays and 2^19 bounce and shadow sets.
+  `app-native` runs as `app` does. Every (kernel, shape) of
   the held frame or tick is timed into a `kernels` entry
   `<kernel>/<config>_<shape>`;
 * `cli`: `python -m tpu_pbrt_torch` in a subprocess at its defaults
@@ -168,10 +174,12 @@ shape) of the checked tick timed beside its plain version and its bound
 launches are those the timed ticks made at that shape.
 
 Before each path it holds every kernel the path runs against its plain
-PyTorch version on the card at the path's shapes (for the resident walk
-also its block cull: no skipped block may have held a hit, and its
-triangle loops per warp must be fewer than the lane-blocks of a walk
-without the cull over 32). The two dense sweeps are held and timed on
+PyTorch version on the card at the path's shapes (for the walk kernel,
+in both modes at the helmet, also its block cull: no skipped block may
+have held a hit, and its triangle loops per warp must be fewer than the
+lane-blocks of a walk without the cull over 32; above HELD_BLOCKS blocks
+the oracle walk holds strided chunks, the kept-pair plain walk the whole
+pool). The two dense sweeps are held and timed on
 three ray sets each (all lanes live, one lane in eight dead, half the
 lanes dead; a dead lane must come back as a miss), on a one-triangle
 table beside the Cornell one, and held on the adversarial sets of
@@ -182,7 +190,8 @@ well (the helmet's 25,344 x 50 sub-table, the cutout frame's 128 x 50 and
 smallest folded one), and its entries in the `kernels` line count the
 launches the path's run made at that table width and slot count. The
 cutout test scene (a masked quad before an opaque one) goes through the
-dense tracer and through the resident walk forced onto it: holes pierced,
+dense tracer and through the resident and culled kinds forced onto it
+(under `culled` the re-trace starts past a cut t, ROADMAP F9): holes pierced,
 opaque texels stopped on, shadow rays through holes, misses, all-empty
 pools, ids and flags equal to the plain versions' on the CPU and, with the
 bits of t, to the plain versions' on the card. The cutout frame's own
@@ -199,8 +208,10 @@ pixels, and the full App paths' CPU run is fed them, see
 `animated` (a camera that frames the tube) and `dynamic` on the card
 against the CPU (`check_small_scene`: G-buffer tri ids equal, mean
 within 1e-3 relative, >= 99% of pixels within 1e-3, motion vectors within
-1e-4), 64x48 frames of the reduced helmet and of the Cornell box forced
-to `bvh` (real shadow rays with emitters through the any-hit walk), of
+1e-4), 64x48 frames of the reduced helmet (culled, and forced to
+`resident` and to `bvh`), of the cutout frame under the dense, resident,
+culled and blocked kinds, and of the Cornell box forced to `bvh` (real
+shadow rays with emitters through the any-hit walk), of
 the five frame configurations above at 64x48 (`check_small_config`; the
 meshes under `helmet.make_camera`) and a 64x48 `app-native` App, and
 a 64x48 App for each option of `APP_OPTIONS` (the Reinhard tonemap,
@@ -229,6 +240,15 @@ the checkouts DIR... (an earlier version unpacked with `git archive`
 into the git-ignored `_checkout/`) timed on the same inputs in turns,
 and each frame rendered through each version's kernels in the same
 turns (wall ms, device ms, launches, idle share).
+
+    python3 chip_smoke.py --walk-times
+
+runs only the walk kernel in both modes at the pools the `helmet` and
+`helmet-100k` frames launch on (`walk_times`): every walk launch of one
+frame through the culled tracer, held in both modes (the exact-key mode
+on the culled tables, the resident mode on the resident tables, the same
+sorted rays) with counts and bounds, and timed in turns; then the frames
+through either tracer in turns.
 
     python3 chip_smoke.py --fetch-times DIR
 
@@ -298,30 +318,47 @@ BVH_HELD = 1 << 16
 # shadow set: the helmet has no emitter, so its frames' shadow lanes are
 # empty)
 BVH_SHADOW = 1 << 19
+# above this many blocks the oracle walk (every block for every lane) holds
+# a strided subset of a pool's chunks, not all of them (`held_chunks`)
+HELD_BLOCKS = 400
 # the 1080p frames that run the LBVH walk (`bvh_frame`)
 BVH_FRAMES = ("helmet_bvh", "helmet_bvh_framed", "golden_bvh",
               "animated_bvh")
 
+# the tracer kinds forced onto the cutout scenes (each takes the re-trace
+# loop around its closest hit)
+CUTOUT_KINDS = ("dense", "resident", "culled", "blocked")
 # the path whose run supplies each kernel's launch count
 KERNEL_PATH = {
     "dense_closest_hit": "cornell", "dense_any_hit": "cornell",
     "fetch_bounce": "cornell", "fetch_rows": "cornell",
     "dense_closest_hit_shade": "cornell_fused",
-    "resident_closest_hit": "helmet", "resident_any_hit": "helmet",
+    "exact_closest_hit": "helmet", "exact_any_hit": "helmet",
+    "resident_closest_hit": "helmet_resident",
+    "resident_any_hit": "helmet_resident",
     "bvh_closest_hit": "helmet_bvh", "bvh_any_hit": "helmet_bvh",
 }
+# the kernel of each walk mode and query: (exact, occlusion) -> name
+WALK_KERNEL = {(False, False): "resident_closest_hit",
+               (False, True): "resident_any_hit",
+               (True, False): "exact_closest_hit",
+               (True, True): "exact_any_hit"}
+WALK_KERNELS = tuple(WALK_KERNEL.values())
+EXACT = ("exact_closest_hit", "exact_any_hit", "fetch_bounce", "fetch_rows")
 PATH_KERNELS = {
     "cornell": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
                 "fetch_rows"),
     "cornell_fused": ("dense_closest_hit_shade", "dense_closest_hit",
                       "dense_any_hit", "fetch_bounce", "fetch_rows"),
-    "helmet": ("resident_closest_hit", "resident_any_hit", "fetch_bounce",
-               "fetch_rows"),
+    # the big scenes: the culled tracer, the walk kernel's exact-key mode
+    "helmet": EXACT,
+    # the same frame through the resident walk (`kind="resident"`)
+    "helmet_resident": ("resident_closest_hit", "resident_any_hit",
+                        "fetch_bounce", "fetch_rows"),
     # textured: every bounce's fetch is the row fetch on the 50-column
     # sub-table; alpha-tested: shadow rays are closest hits too, and the
     # alpha test fetches from the 19-column sub-table
-    "helmet_textured": ("resident_closest_hit", "resident_any_hit",
-                        "fetch_rows"),
+    "helmet_textured": ("exact_closest_hit", "exact_any_hit", "fetch_rows"),
     "cutout": ("dense_closest_hit", "fetch_rows"),
     # the App frame graph without ReSTIR DI and SHARC: the Cornell path's
     # kernels at the internal resolution, then denoise, TAA, bloom and
@@ -337,10 +374,9 @@ PATH_KERNELS = {
     # (4096 x 32)
     "manylight": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
                   "fetch_rows"),
-    # the skinned tube, refit every frame: the resident walk on the refit
+    # the skinned tube, refit every frame: the culled tracer on the refit
     # tables (the scene has no emitter: every shadow lane is empty)
-    "animated": ("resident_closest_hit", "resident_any_hit", "fetch_bounce",
-                 "fetch_rows"),
+    "animated": EXACT,
     # rigid instances and a moving lamp: kernels 1-4 on the refit rows and
     # the refreshed sub-table
     "dynamic": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
@@ -359,9 +395,8 @@ PATH_KERNELS = {
     "golden_bvh": ("bvh_closest_hit", "bvh_any_hit", "fetch_bounce",
                    "fetch_rows"),
     # the App at its defaults on the golden scene (2,056 triangles): the
-    # resident walk where the Cornell Apps sweep
-    "golden": ("resident_closest_hit", "resident_any_hit", "fetch_bounce",
-               "fetch_rows"),
+    # culled tracer where the Cornell Apps sweep
+    "golden": EXACT,
     # the main path's frame over MESH_BANDS bands of the card: no G-buffer
     # (each band traces its own primaries), so no row fetch
     "cornell_sharded": ("dense_closest_hit", "dense_any_hit",
@@ -379,12 +414,9 @@ CONFIG_KERNELS = {
                        "fetch_rows"),
     "cornell-bxdf": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
                      "fetch_rows"),
-    "sphere": ("resident_closest_hit", "resident_any_hit", "fetch_bounce",
-               "fetch_rows"),
-    "sphere-textured": ("resident_closest_hit", "resident_any_hit",
-                        "fetch_rows"),
-    "helmet-100k": ("resident_closest_hit", "resident_any_hit",
-                    "fetch_bounce", "fetch_rows"),
+    "sphere": EXACT,
+    "sphere-textured": ("exact_closest_hit", "exact_any_hit", "fetch_rows"),
+    "helmet-100k": EXACT,
     "app-native": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
                    "fetch_rows"),
 }
@@ -1008,20 +1040,26 @@ def rule_probe_cases(device) -> dict:
 @contextlib.contextmanager
 def plain_wrappers():
     """Inside, the wrappers of the kernels a `Tracer`'s queries launch (the
-    dense and the resident closest hit, the row fetch) are their plain
-    versions, so the same `Tracer` code runs without a kernel on the card."""
+    closest hit of every tracer kind but `bvh`, the row fetch) are their
+    plain versions, so the same `Tracer` code runs without a kernel on the
+    card."""
     from tpu_pbrt_torch.ops import shade_table as st
+    from tpu_pbrt_torch.ops import traverse_blocked as tbl
+    from tpu_pbrt_torch.ops import traverse_culled as tcl
     from tpu_pbrt_torch.ops import traverse_dense as td
     from tpu_pbrt_torch.ops import traverse_resident as trs
 
-    saved = (td.closest_hit_cuda, trs.closest_hit_cuda, st.fetch_rows_cuda)
-    td.closest_hit_cuda = td.closest_hit_plain
-    trs.closest_hit_cuda = trs.closest_hit_plain
+    mods = (td, trs, tcl, tbl)
+    saved = [m.closest_hit_cuda for m in mods], st.fetch_rows_cuda
+    for m in mods:
+        m.closest_hit_cuda = m.closest_hit_plain
     st.fetch_rows_cuda = st.fetch_rows_plain
     try:
         yield
     finally:
-        td.closest_hit_cuda, trs.closest_hit_cuda, st.fetch_rows_cuda = saved
+        for m, f in zip(mods, saved[0]):
+            m.closest_hit_cuda = f
+        st.fetch_rows_cuda = saved[1]
 
 
 def check_alpha_loop(trc, sets: dict, name: str) -> dict:
@@ -1082,8 +1120,9 @@ def _cutout_rays(n: int, seed: int):
 def check_cutout_tracers(device) -> dict:
     """The cutout test scene (a masked quad, transparent where x < 0, before
     an opaque one) through `Tracer.closest_hit` / `any_hit` on the card,
-    for the dense kind (kernel 1 in the re-trace loop) and the resident kind
-    forced onto the same scene (the walk kernel): rays along +z pierce the
+    for the dense kind (kernel 1 in the re-trace loop) and the resident and
+    culled kinds forced onto the same scene (the walk kernel, in its
+    resident and exact-key modes): rays along +z pierce the
     hole or stop on the opaque half, a shadow segment passes the hole, a
     miss stays a miss, an all-empty pool is all misses without a NaN; and
     on 2^17 seeded rays ids, masks and occlusion flags equal those of the
@@ -1113,8 +1152,11 @@ def check_cutout_tracers(device) -> dict:
                 Vec3(z, z, torch.ones_like(z)))
 
     out = {}
-    kernels = {"dense": "dense_closest_hit", "resident":
-               "resident_closest_hit"}
+    # (not `blocked`: its reach cap, ROADMAP F10, drops the back quad from
+    # a lone ray's tile; its cutout frames are held in the small frames)
+    kernels = {"dense": "dense_closest_hit",
+               "resident": "resident_closest_hit",
+               "culled": "exact_closest_hit"}
     for kind, kernel in kernels.items():
         trc = build_for_scene(scene, tex, srgb, device=device, kind=kind)
         cpu = build_for_scene(scene, tex, srgb, device="cpu", kind=kind)
@@ -1188,13 +1230,14 @@ def check_cutout_tracers(device) -> dict:
     return out
 
 
-def resident_needed_tests(res, rays, best, occlusion: bool) -> int:
-    """The ray-triangle tests the resident walk's function needs on this
-    run's data, at its 128-triangle block grain: for each lane, every block
-    whose AABB meets the lane's final segment [t0, t_end], where t_end is
-    the top of the lane's final key bin (a hit), else its far bound teff;
-    an occluded lane needs one test (its blocker). rays (Rp, 8) sorted,
-    best the walk's result on them."""
+def walk_needed_tests(res, rays, best, occlusion: bool,
+                      exact: bool = False) -> int:
+    """The ray-triangle tests the walk's function needs on this run's data,
+    at its 128-triangle block grain: for each lane, every block whose AABB
+    meets the lane's final segment [t0, t_end], where t_end is its hit's t
+    (the exact-key mode) or the top of its final key bin (resident mode),
+    else its far bound teff; an occluded lane needs one test (its
+    blocker). rays (Rp, 8) sorted, best the walk's result on them."""
     import torch
     from tpu_pbrt_torch.ops import traverse_resident as trs
 
@@ -1206,12 +1249,15 @@ def resident_needed_tests(res, rays, best, occlusion: bool) -> int:
     lo, hi = lo[real], hi[real]
     o, d = rays[:, 0:3], rays[:, 3:6]
     t0, t1 = rays[:, 6], rays[:, 7]
-    keep = -(1 << trs.idx_bits(res.tris.shape[0]))
     if occlusion:
         occluded = best > 0
         t_end = torch.where(occluded, -math.inf, t1)
         extra = int((occluded & (t1 > t0)).sum())
+    elif exact:
+        t_end = torch.minimum(t1, trs.exact_t(best))
+        extra = 0
     else:
+        keep = -(1 << trs.idx_bits(res.tris.shape[0]))
         top = (best | ~keep).view(torch.float32)
         t_end = torch.where(best == trs.SENTINEL, t1, torch.minimum(t1, top))
         extra = 0
@@ -1228,103 +1274,149 @@ def resident_needed_tests(res, rays, best, occlusion: bool) -> int:
     return pairs * trs.BLOCK + extra
 
 
-def walk_check(res, rays_in, occlusion: bool, name: str,
-               time_plain: bool = True) -> dict:
-    """One resident walk on sorted rays: the kernel against the plain walk,
-    keys or flags bit for bit; fails if the block cull skipped a (lane,
-    block) pair that held a hit, or if the kernel's triangle loops
-    (`warp_blocks`) are not below the uncut walk's lane-blocks / 32. Its
-    time is of the walk alone, by CUDA events."""
+def held_chunks(res, rays, octs, reach=None):
+    """The chunks of a sorted pool the oracle walk holds: all of them, or
+    above HELD_BLOCKS blocks every k-th, at most BVH_HELD lanes (a chunk's
+    walk reads only its own lanes, so a held chunk's result is the whole
+    pool's there). Returns (chunk index or None, rays, octs, reach)."""
     import torch
     from tpu_pbrt_torch.ops import traverse_resident as trs
 
-    kname = "resident_any_hit" if occlusion else "resident_closest_hit"
-    rays, _, octs = trs.sort_rays(res, *rays_in)
-    got = trs.walk_cuda(res, rays, octs, occlusion)
-    want, counts = trs.walk_plain(res, rays, octs, occlusion)
-    torch.cuda.synchronize()
+    nch = octs.shape[0]
+    held = BVH_HELD // trs.CHUNK
+    if res.tris.shape[0] <= HELD_BLOCKS or nch <= held:
+        return None, rays, octs, reach
+    idx = torch.arange(0, nch, nch // held, device=octs.device)[:held]
+    sel = rays.view(nch, trs.CHUNK, 8)[idx].reshape(-1, 8)
+    if reach is not None:
+        reach = (reach[0], reach[1].view(nch, trs.CHUNK)[idx].reshape(-1))
+    return idx, sel, octs[idx], reach
+
+
+def hold_walk(res, rays, octs, occlusion: bool, exact: bool, reach, got,
+              what: str):
+    """The walk kernel's result `got` on a sorted pool against the plain
+    walk: the whole pool bit for bit against the plain walk's kept-pair
+    sweep (`sweep_all=False`, the plain version the wrapper takes on the
+    CPU; its one call timed), and the held chunks (`held_chunks`) against
+    the oracle that sweeps every block, which must find no skipped (lane,
+    block) pair that held a hit. Returns (plain ms, the full pool's
+    WalkCounts, the held chunks' missed_hits)."""
+    import torch
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+
+    plain = []
+    pl = once_ms(lambda: plain.append(trs.walk_plain(
+        res, rays, octs, occlusion, exact, reach, sweep_all=False)))
+    want, counts = plain[0]
     if not torch.equal(got, want):
-        fail(f"{kname} ({name}): {int((got != want).sum())} walk "
+        fail(f"{what}: {int((got != want).sum())} walk "
              f"{'flags' if occlusion else 'keys'} differ")
-    if counts.missed_hits != 0:
-        fail(f"{kname} ({name}): the cull skipped {counts.missed_hits} "
-             f"(lane, block) pairs that held a hit")
+    idx, hr, ho, hreach = held_chunks(res, rays, octs, reach)
+    want, oracle = trs.walk_plain(res, hr, ho, occlusion, exact, hreach)
+    if idx is not None:
+        got = got.view(-1, trs.CHUNK)[idx].reshape(-1)
+    if not torch.equal(got, want):
+        fail(f"{what}: the held chunks differ from the oracle walk")
+    if oracle.missed_hits != 0:
+        fail(f"{what}: the cull skipped {oracle.missed_hits} (lane, block) "
+             f"pairs that held a hit")
+    return pl, counts, oracle.missed_hits
+
+
+def walk_check(res, rays_in, occlusion: bool, name: str,
+               exact: bool = False) -> dict:
+    """One walk on sorted rays (`exact`: the exact-key mode, on culled or
+    blocked tables): the kernel against the plain walk (`hold_walk`); fails
+    if the block cull skipped a (lane, block) pair that held a hit, or if
+    the kernel's triangle loops (`warp_blocks`) are not below the uncut
+    walk's lane-blocks / 32. Its time is of the walk alone, by CUDA
+    events."""
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+
+    kname = WALK_KERNEL[exact, occlusion]
+    rays, _, octs = trs.sort_rays(res, *rays_in)
+    got = trs.walk_cuda(res, rays, octs, occlusion, exact)
+    pl, counts, missed = hold_walk(res, rays, octs, occlusion, exact, None,
+                                   got, f"{kname} ({name})")
     if counts.warp_blocks * trs.WARP >= counts.work:
         fail(f"{kname} ({name}): warp_blocks {counts.warp_blocks} not below "
              f"lane_blocks / 32 = {counts.work / trs.WARP}")
     rp, nb = rays.shape[0], res.tris.shape[0]
-    tests = resident_needed_tests(res, rays, got, occlusion)
+    tests = walk_needed_tests(res, rays, got, occlusion, exact)
     table_bytes = (res.tris.numel() + res.boxes.numel() + 2 * 8 * nb) * 4
-    out = dict(
-        rays=rays_in[0].x.shape[0], **counts._asdict(), needed_tests=tests,
-        ms=time_ms(lambda: trs.walk_cuda(res, rays, octs, occlusion)),
-        **bound(rp * 32 + rp * 4 + (rp // trs.CHUNK) * 4 + table_bytes,
-                tests * FLOPS_TEST_SCALED))
-    if time_plain:
-        out["plain_ms"] = plain_ms(lambda: trs.walk_plain(res, rays, octs,
-                                                          occlusion))
-    return out
+    return dict(
+        rays=rays_in[0].x.shape[0],
+        **{**counts._asdict(), "missed_hits": missed},
+        needed_tests=tests, plain_ms=pl,
+        ms=time_ms(lambda: trs.walk_cuda(res, rays, octs, occlusion, exact)),
+        **bound(rp * 32 + rp * (8 if exact and not occlusion else 4)
+                + (rp // trs.CHUNK) * 4 + table_bytes,
+                tests * (FLOPS_TEST_DIV if exact else FLOPS_TEST_SCALED)))
 
 
-def check_resident_kernels(renderer, scene, cam_rays, device) -> dict:
-    """The resident walk's closest hit on the helmet's 1080p camera rays
-    and on seeded bounce rays from the mesh, and its any hit on seeded
-    shadow rays: entry points against their plain versions (keys, ids and
-    occlusion exact, and timed with the sort), then the walk alone
-    (`walk_check`)."""
+def check_walk_kernels(acc, mod, exact: bool, geometry, cam_rays,
+                       device) -> dict:
+    """A big-scene tracer's walk kernels at the helmet (`acc` its tables,
+    `mod` its module: `traverse_culled` in the exact-key mode, or
+    `traverse_resident`): the closest hit on the 1080p camera rays and on
+    seeded bounce rays from the mesh, the any hit on seeded shadow rays;
+    entry points against their plain versions (ids, bits of t, flags
+    exact; timed with the sort), then the walk alone (`walk_check`)."""
     import torch
-    from tpu_pbrt_torch.ops import traverse_resident as trs
 
-    res = renderer.tracer.accel
+    kc, ka = WALK_KERNEL[exact, False], WALK_KERNEL[exact, True]
 
     def check_closest(rays_in, name):
-        got = trs.closest_hit_cuda(res, *rays_in)
-        want = trs.closest_hit_plain(res, *rays_in)
+        got = mod.closest_hit_cuda(acc, *rays_in)
+        want = mod.closest_hit_plain(acc, *rays_in)
         torch.cuda.synchronize()
         if not torch.equal(got.tri, want.tri):
-            fail(f"resident_closest_hit ({name}): "
-                 f"{int((got.tri != want.tri).sum())} tri ids differ")
+            fail(f"{kc} ({name}): {int((got.tri != want.tri).sum())} tri ids "
+                 f"differ")
         if not torch.equal(got.t.view(torch.int32), want.t.view(torch.int32)):
-            fail(f"resident_closest_hit ({name}): key t differs bitwise")
+            fail(f"{kc} ({name}): t differs bitwise")
         frac = float(got.mask.float().mean())
         if not 0.0 < frac < 1.0:
-            fail(f"resident_closest_hit ({name}): hit fraction {frac}")
+            fail(f"{kc} ({name}): hit fraction {frac}")
         return dict(
             hit_fraction=frac, max_abs_err=max_abs(got.t, want.t),
-            entry_ms=time_ms(lambda: trs.closest_hit_cuda(res, *rays_in)),
-            library_ms=None, **walk_check(res, rays_in, False, name))
+            entry_ms=time_ms(lambda: mod.closest_hit_cuda(acc, *rays_in)),
+            library_ms=None, **walk_check(acc, rays_in, False, name, exact))
 
     cam = check_closest(cam_rays, "camera")
-    bounce = check_closest(mesh_rays(scene.geometry, SUBSET, device, SEED),
+    bounce = check_closest(mesh_rays(geometry, SUBSET, device, SEED),
                            "bounce subset")
 
     # any hit: segments between random points of the helmet's bounding box
     seg = segment_rays(SUBSET, device, SEED + 2, [-1.6] * 3, [1.6] * 3)
-    got = trs.any_hit_cuda(res, *seg)
-    want = trs.any_hit_plain(res, *seg)
+    got = mod.any_hit_cuda(acc, *seg)
+    want = mod.any_hit_plain(acc, *seg)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        fail(f"resident_any_hit: {int((got != want).sum())} lanes differ")
+        fail(f"{ka}: {int((got != want).sum())} lanes differ")
     frac = float(got.float().mean())
     if not 0.0 < frac < 1.0:
-        fail(f"resident_any_hit: degenerate occluded fraction {frac}")
+        fail(f"{ka}: degenerate occluded fraction {frac}")
     anyh = dict(
         occluded_fraction=frac, max_abs_err=max_abs(got, want),
         tolerance="exact",
-        entry_ms=time_ms(lambda: trs.any_hit_cuda(res, *seg)),
-        library_ms=None, **walk_check(res, seg, True, "shadow subset"))
+        entry_ms=time_ms(lambda: mod.any_hit_cuda(acc, *seg)),
+        library_ms=None, **walk_check(acc, seg, True, "shadow subset", exact))
     cam["tolerance"] = "bit-exact key and tri"
     cam["bounce_subset"] = bounce
-    return {"resident_closest_hit": cam, "resident_any_hit": anyh}
+    return {kc: cam, ka: anyh}
 
 
-def check_helmet_100k(res, geometry, device) -> dict:
-    """The resident walk at `helmet-100k` (bench.py's 320 x 160 grid:
-    101,760 triangles, 795 blocks, 6 key mantissa bits) on the frame's
-    tables `res`, walk only: closest hit on the bench camera's 1080p rays
-    and on 2^19 bounce rays from the mesh, any hit on 2^19 seeded segments;
-    each bit-exact against one plain walk, with kernel time, counts and
-    bound. The plain walk is not timed here."""
+def check_helmet_100k(res, cul, geometry, device) -> dict:
+    """The walk alone at `helmet-100k` (bench.py's 320 x 160 grid: 101,760
+    triangles, 795 blocks) in both modes: the resident tables `res` (17
+    slot bits, 6 key mantissa bits) and the frame's culled tables `cul`
+    (the exact-key mode): closest hit on the bench camera's 1080p rays and
+    on 2^19 bounce rays from the mesh, any hit on 2^19 seeded segments;
+    each held by `hold_walk` (the whole pool against the kept-pair plain
+    walk, strided held chunks against the oracle), with kernel time,
+    counts and bound."""
     from tpu_pbrt_torch.models.cornell import make_cornell_camera
     from tpu_pbrt_torch.ops import traverse_resident as trs
     from tpu_pbrt_torch.render.camera import generate_rays
@@ -1332,20 +1424,19 @@ def check_helmet_100k(res, geometry, device) -> dict:
     nb = res.tris.shape[0]
     cam = generate_rays(make_cornell_camera(WIDTH, HEIGHT).data(device=device),
                         WIDTH, HEIGHT)
-    return {
-        "triangles": res.num, "blocks": nb,
-        "key_mantissa_bits": 23 - trs.idx_bits(nb),
-        "camera": walk_check(res, cam, False, "helmet-100k camera",
-                             time_plain=False),
-        "bounce_subset": walk_check(res, mesh_rays(geometry, SUBSET, device,
-                                                   SEED),
-                                    False, "helmet-100k bounce subset",
-                                    time_plain=False),
-        "shadow_subset": walk_check(
-            res, segment_rays(SUBSET, device, SEED + 2, [-1.6] * 3,
-                              [1.6] * 3),
-            True, "helmet-100k shadow subset", time_plain=False),
-    }
+    bounce = mesh_rays(geometry, SUBSET, device, SEED)
+    seg = segment_rays(SUBSET, device, SEED + 2, [-1.6] * 3, [1.6] * 3)
+    out = {"triangles": res.num, "blocks": nb,
+           "key_mantissa_bits": 23 - trs.idx_bits(nb)}
+    for mode, acc, exact in (("resident", res, False), ("exact", cul, True)):
+        out[mode] = {
+            "camera": walk_check(acc, cam, False, "helmet-100k camera",
+                                 exact),
+            "bounce_subset": walk_check(acc, bounce, False,
+                                        "helmet-100k bounce subset", exact),
+            "shadow_subset": walk_check(acc, seg, True,
+                                        "helmet-100k shadow subset", exact)}
+    return out
 
 
 def run_path(name: str, renderer, camera) -> tuple[dict, np.ndarray]:
@@ -1505,12 +1596,13 @@ def check_small_config(name: str) -> dict:
 
 @contextlib.contextmanager
 def checked_wrappers(record: dict, keep: dict | None = None):
-    """Inside, every launch of kernels 1-4, of the resident walk and of the
-    LBVH walk through its wrapper (as the path's own code makes it) is held
-    against the plain version on the same inputs, by the rules of
-    `check_closest`, `check_any`, `check_bounce_block`, the row fetch's
-    bit-exactness, the resident walk's (keys or flags bit for bit, no
-    skipped block that held a hit) and `bvh_check` (on the launch's held
+    """Inside, every launch of kernels 1-4, of the walk kernel (either mode)
+    and of the LBVH walk through its wrapper (as the path's own code makes
+    it) is held against the plain version on the same inputs, by the rules
+    of `check_closest`, `check_any`, `check_bounce_block`, the row fetch's
+    bit-exactness, the walk's (keys or flags bit for bit against the oracle
+    walk, on strided held chunks above HELD_BLOCKS blocks; no skipped block
+    that held a hit) and `bvh_check` (on the launch's held
     lanes: t, u, v, ids or flags bit for bit); `record` gets {kernel:
     {rays: {"launches": n, "max_abs_err": e}}} (for the row fetch keyed
     "<columns>x<slots>", for the resident walk by its sorted, chunk-padded
@@ -1578,17 +1670,20 @@ def checked_wrappers(record: dict, keep: dict | None = None):
              (table, slot))
         return got
 
-    def walk(tris, rays, octs, occlusion):
-        got = saved[4](tris, rays, octs, occlusion)
-        want, counts = trs.walk_plain(tris, rays, octs, occlusion)
-        kname = "resident_any_hit" if occlusion else "resident_closest_hit"
-        if not torch.equal(got, want):
+    def walk(tris, rays, octs, occlusion, exact=False, reach=None):
+        got = saved[4](tris, rays, octs, occlusion, exact, reach)
+        kname = WALK_KERNEL[exact, occlusion]
+        idx, hr, ho, hreach = held_chunks(tris, rays, octs, reach)
+        want, counts = trs.walk_plain(tris, hr, ho, occlusion, exact, hreach)
+        held = got if idx is None else got.view(-1, trs.CHUNK)[idx].reshape(
+            -1)
+        if not torch.equal(held, want):
             fail(f"{kname} at {rays.shape[0]} sorted rays: "
-                 f"{int((got != want).sum())} walk results differ")
+                 f"{int((held != want).sum())} walk results differ")
         if counts.missed_hits != 0:
             fail(f"{kname} at {rays.shape[0]} sorted rays: the cull skipped "
                  f"{counts.missed_hits} (lane, block) pairs that held a hit")
-        note(kname, rays.shape[0], 0.0, (tris, rays, octs))
+        note(kname, rays.shape[0], 0.0, (tris, rays, octs, exact, reach))
         return got
 
     def bvh_walk(occlusion):
@@ -1789,27 +1884,23 @@ def shape_rows(name: str, keep: dict, by_tag: dict, ticks: int) -> list:
             ms, pl, err = held["ms"], held["plain_ms"], 0.0
             bd = held
             tag = str(shape)
-        elif kernel.startswith("resident"):
-            res, srt, octs = args
-            occl = kernel == "resident_any_hit"
-            got = trs.walk_cuda(res, srt, octs, occl)
-            plain = []
-            # one plain walk, timed and held (it sweeps every block: at
-            # helmet-100k's 795 blocks a call takes seconds)
-            pl = once_ms(lambda: plain.append(trs.walk_plain(res, srt, octs,
-                                                             occl)))
-            want, counts = plain[0]
-            if not torch.equal(got, want) or counts.missed_hits:
-                fail(f"{kernel} {name} {shape}: walk differs or the cull "
-                     f"skipped {counts.missed_hits} hits")
-            ms = time_ms(lambda: trs.walk_cuda(res, srt, octs, occl))
+        elif kernel in WALK_KERNELS:
+            res, srt, octs, exact, reach = args
+            occl = kernel.endswith("any_hit")
+            got = trs.walk_cuda(res, srt, octs, occl, exact, reach)
+            # the plain walk once, timed and held (`hold_walk`)
+            pl = hold_walk(res, srt, octs, occl, exact, reach, got,
+                           f"{kernel} {name} {shape}")[0]
+            ms = time_ms(lambda: trs.walk_cuda(res, srt, octs, occl, exact,
+                                               reach))
             err = 0.0
             rp, nb = srt.shape[0], res.tris.shape[0]
             table_bytes = (res.tris.numel() + res.boxes.numel()
                            + 2 * 8 * nb) * 4
-            bd = bound(rp * 32 + rp * 4 + (rp // trs.CHUNK) * 4
-                       + table_bytes, resident_needed_tests(
-                           res, srt, got, occl) * FLOPS_TEST_SCALED)
+            bd = bound(rp * 32 + rp * (8 if exact and not occl else 4)
+                       + (rp // trs.CHUNK) * 4 + table_bytes,
+                       walk_needed_tests(res, srt, got, occl, exact)
+                       * (FLOPS_TEST_DIV if exact else FLOPS_TEST_SCALED))
             tag = str(shape)
         elif kernel == "dense_closest_hit":
             tris, *rays = args
@@ -1865,8 +1956,8 @@ def shape_rows(name: str, keep: dict, by_tag: dict, ticks: int) -> list:
                      "table": (list(args[0].shape) if kernel == "fetch_rows"
                                else None),
                      "triangles": (args[0].num
-                                   if kernel.startswith(("resident", "bvh"))
-                                   else None),
+                                   if kernel in WALK_KERNELS
+                                   or kernel.startswith("bvh") else None),
                      "launches": n, "launches_per_tick": n / ticks,
                      "max_abs_err": err, "ms": ms, "plain_ms": pl,
                      "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
@@ -2538,10 +2629,9 @@ def check_refit_on_card(renderer, lights: bool):
 
 
 def _accel_module(kind: str):
-    from tpu_pbrt_torch.ops import traverse, traverse_dense, traverse_resident
+    from tpu_pbrt_torch.ops import tracer
 
-    return {"dense": traverse_dense, "resident": traverse_resident,
-            "bvh": traverse}[kind]
+    return tracer._ACCEL[kind][1]
 
 
 def drive_frames(name: str, frame, device, keep: dict, frames: int,
@@ -2681,9 +2771,10 @@ def dynamic_renderer(width: int, height: int, device):
 
 def animated_path(device) -> tuple[dict, np.ndarray, list, list]:
     """The skinned tube at 1080p through the bench's Cornell camera: the
-    refit on the card against the CPU's, the resident walk on the refit
-    tables (camera rays, 2^19 bounce rays from the posed mesh, 2^19 shadow
-    segments around it; kernel vs plain walk bit for bit, `missed_hits` 0),
+    refit on the card against the CPU's, the culled tracer's walk (the
+    exact-key mode) on the refit tables (camera rays, 2^19 bounce rays from
+    the posed mesh, 2^19 shadow segments around it; kernel vs plain walk
+    bit for bit, `missed_hits` 0),
     then `run_scene_path`. Returns (result, frame, walk rows, shape
     rows)."""
     import types
@@ -2692,7 +2783,7 @@ def animated_path(device) -> tuple[dict, np.ndarray, list, list]:
     from tpu_pbrt_torch.render.camera import generate_rays
 
     renderer = animated_renderer(WIDTH, HEIGHT, device)
-    if renderer.tracer.kind != "resident" or renderer.tracer.num_tris != 5120:
+    if renderer.tracer.kind != "culled" or renderer.tracer.num_tris != 5120:
         fail(f"animated: tracer {renderer.tracer.kind} with "
              f"{renderer.tracer.num_tris} triangles")
     refit, posed, res = check_refit_on_card(renderer, lights=False)
@@ -2704,12 +2795,13 @@ def animated_path(device) -> tuple[dict, np.ndarray, list, list]:
     lo = np.min([p.min(0) for p in posed], 0) - 0.2
     hi = np.max([p.max(0) for p in posed], 0) + 0.2
     walks = {
-        "camera": walk_check(res, cam_rays, False, "animated camera"),
+        "camera": walk_check(res, cam_rays, False, "animated camera", True),
         "bounce_subset": walk_check(res, mesh_rays(mesh, SUBSET, device,
                                                    SEED + 7), False,
-                                    "animated bounce subset"),
+                                    "animated bounce subset", True),
         "shadow_subset": walk_check(res, segment_rays(
-            SUBSET, device, SEED + 8, lo, hi), True, "animated shadow subset"),
+            SUBSET, device, SEED + 8, lo, hi), True, "animated shadow subset",
+            True),
     }
     del cam_rays
     keep = {}
@@ -2722,8 +2814,7 @@ def animated_path(device) -> tuple[dict, np.ndarray, list, list]:
     tags = result["launches_by_rays"]
     walk_rows = []
     for shape, w in walks.items():
-        kernel = ("resident_any_hit" if shape == "shadow_subset"
-                  else "resident_closest_hit")
+        kernel = WALK_KERNEL[True, shape == "shadow_subset"]
         rp = -(-w["rays"] // 256) * 256
         walk_rows.append({
             "name": f"{kernel}/animated_refit_{shape}", "kernel": kernel,
@@ -2802,7 +2893,7 @@ def golden_path(device) -> tuple[dict, np.ndarray, list]:
     rt = app.settings.raytracing
     if ((app.render_w, app.render_h) != (WIDTH // 2, HEIGHT // 2)
             or app.pt_settings.compaction_schedule
-            or app.tracer.kind != "resident" or app.tracer.num_tris != 2056
+            or app.tracer.kind != "culled" or app.tracer.num_tris != 2056
             or not (rt.restir_di and rt.sharc) or app.light_count != 82
             or app.regir_settings is None
             or app.sharc_settings.capacity_log2 != 22):
@@ -3075,7 +3166,6 @@ def helmet_bvh_path(camera, device) -> tuple[dict, np.ndarray, list, dict]:
     import torch
     from tpu_pbrt_torch import bench_configs
     from tpu_pbrt_torch.models import helmet
-    from tpu_pbrt_torch.ops import traverse_resident as trs
     from tpu_pbrt_torch.ops.tracer import build_for_scene
     from tpu_pbrt_torch.profile_frame import sync_sites
     from tpu_pbrt_torch.render.camera import generate_rays
@@ -3106,12 +3196,12 @@ def helmet_bvh_path(camera, device) -> tuple[dict, np.ndarray, list, dict]:
         share = c.get("hit_share", c.get("occluded_share"))
         if not 0.0 < share < 1.0:
             fail(f"helmet_bvh {s}: degenerate share {share}")
-    # the camera rays against the resident walk (K5) in the same call: on
-    # >= 99.9% of the hit lanes the ids are equal or an F3 tie (K5's key
-    # drops t's low idx_bits mantissa bits, and within one key bin the
-    # lower slot wins: the LBVH's exact t then quantizes to K5's key t)
+    # the camera rays against the culled tracer in the same call: on >=
+    # 99.9% of the hit lanes the ids are equal or a key tie (culled's t
+    # drops its low 12 mantissa bits: where two hits tie exactly, the LBVH's
+    # exact t cuts to the culled t)
     res = build_for_scene(scene, device=device)
-    keep_bits = -(1 << trs.idx_bits(res.accel.tris.shape[0]))
+    keep_bits = key_keep(res)
     cmp = {}
     for cam_name, rays in (("bench_camera", cam_rays), ("framed_camera",
                                                         framed)):
@@ -3128,7 +3218,7 @@ def helmet_bvh_path(camera, device) -> tuple[dict, np.ndarray, list, dict]:
             "hit_differs": int((a.mask != b.mask).sum()),
             "equal_or_tie": 1.0 - unexplained / max(int(hit.sum()), 1)}
         if cmp[cam_name]["equal_or_tie"] < 0.999:
-            fail(f"helmet_bvh vs resident on {cam_name}: {cmp[cam_name]}")
+            fail(f"helmet_bvh vs culled on {cam_name}: {cmp[cam_name]}")
     del res, cam_rays, framed
     torch.cuda.empty_cache()
     renderer = Renderer(scene, WIDTH, HEIGHT, settings, device=device,
@@ -3141,7 +3231,7 @@ def helmet_bvh_path(camera, device) -> tuple[dict, np.ndarray, list, dict]:
     result, img = run_path("helmet_bvh", renderer, camera)
     result.update(build_seconds=build_s, levels=bvh.levels,
                   host_syncs_per_frame=len(syncs), host_sync_sites=syncs,
-                  held_sets=checks, vs_resident=cmp,
+                  held_sets=checks, vs_culled=cmp,
                   kernel_checks=kernel_checks("helmet_bvh", checked),
                   device=bvh_frame_times(
                       lambda f: renderer.render_with_stats(camera, f), 200))
@@ -3322,71 +3412,93 @@ def _exact_t(tris, rays, tri):
     return torch.where(tri >= 0, t, math.inf)
 
 
-def k5_vs_lbvh(renderer, bvh_tracer, rays) -> dict:
-    """The resident walk's (K5's) ids against the exact LBVH walk's on the
-    same rays: on the lanes either hits, (a) ids equal, (b) F3 ties (ids
-    differ and the LBVH's exact t, cut to K5's key bits, is K5's key t:
-    within one key bin the lower slot wins), (c) lanes where K5's winner's
-    exact t exceeds the LBVH winner's by more than 2^-11 relative, where a
-    key of 11 mantissa bits (the reference's default `culled` tracer)
-    would have chosen otherwise. Fails unless (a) + (b) cover >= 99.9% of
-    the lanes either hits."""
-    import torch
+def key_keep(tracer) -> int:
+    """The mask of t's bits a big-scene tracer's hit t keeps: culled's
+    12-bit cut, the resident walk's idx_bits, all bits otherwise."""
+    from tpu_pbrt_torch.ops import traverse_culled as tcl
     from tpu_pbrt_torch.ops import traverse_resident as trs
 
-    g = renderer.scene.geometry
-    p = torch.as_tensor(np.asarray(g.positions, np.float32),
-                        device=renderer.device)
-    i = torch.as_tensor(np.asarray(g.indices, np.int64),
-                        device=renderer.device)
+    if tracer.kind == "culled":
+        return -(1 << tcl.IDX_BITS)
+    if tracer.kind == "resident":
+        return -(1 << trs.idx_bits(tracer.accel.tris.shape[0]))
+    return -1
+
+
+def walk_vs_lbvh(tracer, geometry, bvh_tracer, rays) -> dict:
+    """A big-scene tracer's ids (culled, or the resident walk K5) against
+    the exact LBVH walk's on the same rays: on the lanes either hits, (a)
+    ids equal, (b) key ties (ids differ and the LBVH's exact t, cut to the
+    tracer's key bits, is the tracer's t: K5's lower slot in one key bin,
+    F3, or an exact tie), (c) lanes where the tracer's winner's exact t
+    exceeds the LBVH winner's by more than 2^-11 relative (P6: K5 at few
+    key bits picks the farther triangle; culled's exact key never should).
+    Fails unless (a) + (b) cover >= 99.9% of the lanes either hits, and
+    for the culled tracer unless (c) is 0."""
+    import torch
+
+    p = torch.as_tensor(np.asarray(geometry.positions, np.float32),
+                        device=rays[0].x.device)
+    i = torch.as_tensor(np.asarray(geometry.indices, np.int64),
+                        device=p.device)
     v0 = p[i[:, 0]]
     tris = (v0, p[i[:, 1]] - v0, p[i[:, 2]] - v0)
-    a, b = renderer.tracer.closest_hit(*rays), bvh_tracer.closest_hit(*rays)
-    keep = -(1 << trs.idx_bits(renderer.tracer.accel.tris.shape[0]))
+    a, b = tracer.closest_hit(*rays), bvh_tracer.closest_hit(*rays)
+    keep = key_keep(tracer)
     hit = a.mask | b.mask
     both = a.mask & b.mask & (a.tri != b.tri)
     tie = both & ((b.t.view(torch.int32) & keep).view(torch.float32) == a.t)
     ta, tb = _exact_t(tris, rays, a.tri), _exact_t(tris, rays, b.tri)
     beyond = both & (ta > tb * (1.0 + 2.0 ** -11))
     n = max(int(hit.sum()), 1)
-    out = {"rays": int(a.tri.shape[0]),
+    out = {"tracer": tracer.kind, "rays": int(a.tri.shape[0]),
            "live_rays": int((rays[3] > rays[2]).sum()),
            "hit_lanes": int(hit.sum()),
            "a_ids_equal": int(((a.tri == b.tri) & hit).sum()),
-           "b_f3_ties": int(tie.sum()),
+           "b_key_ties": int(tie.sum()),
            "c_beyond_2^-11": int(beyond.sum()),
            "ids_differ_not_tie": int((both & ~tie).sum()),
            "hit_differs": int((a.mask != b.mask).sum())}
-    out["equal_or_tie"] = (out["a_ids_equal"] + out["b_f3_ties"]) / n
-    if out["equal_or_tie"] < 0.999:
-        fail(f"helmet-100k: K5 against the LBVH walk: {out}")
+    out["equal_or_tie"] = (out["a_ids_equal"] + out["b_key_ties"]) / n
+    if out["equal_or_tie"] < 0.999 or (tracer.kind == "culled"
+                                        and out["c_beyond_2^-11"]):
+        fail(f"{tracer.kind} against the LBVH walk: {out}")
     return out
 
 
 def helmet_100k_checks(renderer, camera, device) -> dict:
-    """`helmet-100k` beyond its frames: the host build of the resident
-    walk's tables (`traverse_resident.prepare`, through `native/`) and of
-    the LBVH, both timed by the host clock; K5's ids against the exact
-    LBVH walk on the camera rays and on the rays of the frame's first
-    traced bounce (`k5_vs_lbvh`); the walk alone (`check_helmet_100k`)."""
+    """`helmet-100k` beyond its frames: the host builds of the culled
+    tracer's tables (`traverse_culled.prepare`: the resident walk's Morton
+    sort and packing through `native/`, then its walk tables on the card),
+    of the resident walk's (`traverse_resident.prepare`) and of the LBVH,
+    each timed by the host clock; the P6 gate: the frame's culled tracer's
+    ids against the exact LBVH walk on the camera rays and on the rays of
+    the frame's first traced bounce (`walk_vs_lbvh`: no lane beyond 2^-11),
+    with the resident walk's (K5's) counts beside them; the walk alone in
+    both modes (`check_helmet_100k`)."""
     import torch
     from tpu_pbrt_torch import native
+    from tpu_pbrt_torch.ops import traverse_culled as tcl
     from tpu_pbrt_torch.ops import traverse_resident as trs
-    from tpu_pbrt_torch.ops.tracer import build_for_scene
+    from tpu_pbrt_torch.ops.tracer import Tracer, build_for_scene
     from tpu_pbrt_torch.render.camera import generate_rays
 
     g = renderer.scene.geometry
     p, i = np.asarray(g.positions, np.float32), np.asarray(g.indices)
+    corners = (p[i[:, 0]], p[i[:, 1]], p[i[:, 2]])
     if native.lib() is None:
         fail("helmet-100k: the native host builders did not build")
-    t0 = time.perf_counter()
-    trs.prepare(p[i[:, 0]], p[i[:, 1]], p[i[:, 2]], device=device)
-    torch.cuda.synchronize()
-    prepare_s = time.perf_counter() - t0
+    seconds = {}
+    for name, build in (("culled", tcl.prepare), ("resident", trs.prepare)):
+        t0 = time.perf_counter()
+        acc = build(*corners, device=device)
+        torch.cuda.synchronize()
+        seconds[f"{name}_prepare_host_seconds"] = time.perf_counter() - t0
+    res = Tracer(acc)
     t0 = time.perf_counter()
     bvh = build_for_scene(renderer.scene, device=device, kind="bvh")
     torch.cuda.synchronize()
-    bvh_s = time.perf_counter() - t0
+    seconds["bvh_build_seconds"] = time.perf_counter() - t0
     # the rays of the frame's first traced bounce (the G-buffer's primary
     # hits are bounce 0's): the second closest-hit query of a frame
     calls = []
@@ -3402,13 +3514,15 @@ def helmet_100k_checks(renderer, camera, device) -> dict:
     finally:
         del renderer.tracer.closest_hit
     cam_rays = generate_rays(camera.data(device=device), WIDTH, HEIGHT)
-    vs = {"camera": k5_vs_lbvh(renderer, bvh, cam_rays),
-          "bounce_1": k5_vs_lbvh(renderer, bvh, calls[1])}
+    vs = {f"{trc.kind}_{name}": walk_vs_lbvh(trc, g, bvh, rays)
+          for trc in (renderer.tracer, res)
+          for name, rays in (("camera", cam_rays), ("bounce_1", calls[1]))}
+    print(json.dumps({"p6_gate": vs}), flush=True)
     del calls, cam_rays, bvh
     torch.cuda.empty_cache()
-    return {"prepare_host_seconds": prepare_s, "bvh_build_seconds": bvh_s,
-            "k5_vs_lbvh": vs,
-            "walk_alone": check_helmet_100k(renderer.tracer.accel, g, device)}
+    return {**seconds, "vs_lbvh": vs,
+            "walk_alone": check_helmet_100k(res.accel, renderer.tracer.accel,
+                                            g, device)}
 
 
 def config_path(name: str, device, cornell: np.ndarray | None = None,
@@ -3431,7 +3545,7 @@ def config_path(name: str, device, cornell: np.ndarray | None = None,
     cfg = bench_configs.make(name, device=device, width=WIDTH, height=HEIGHT)
     build_s = time.perf_counter() - t0
     r, camera, s = cfg.target, cfg.camera, cfg.settings
-    kind = "dense" if name.startswith("cornell") else "resident"
+    kind = "dense" if name.startswith("cornell") else "culled"
     if r.tracer.kind != kind or r.tracer.textured != name.endswith(
             "-textured"):
         fail(f"{name}: tracer {r.tracer.kind}, textured {r.tracer.textured}")
@@ -3790,10 +3904,11 @@ def bvh_capture(record: list):
         tv.closest_hit_cuda, tv.any_hit_cuda = saved
 
 
-def bvh_frame_times(frame, first: int) -> dict:
+def bvh_frame_times(frame, first: int, kernel: str = "bvh_walk") -> dict:
     """A warm-up frame, FRAMES timed frames (host clock around frames
     ending in a synchronize), PROFILED frames under `torch.profiler`
-    (device ms, launches, busy time), all numbered from `first`."""
+    (device ms, launches, busy time, the walk `kernel`'s device ms), all
+    numbered from `first`."""
     import types
 
     import torch
@@ -3820,7 +3935,7 @@ def bvh_frame_times(frame, first: int) -> dict:
            "launches_per_frame": br.get("launches_per_tick"),
            "walk_device_ms_per_frame": sum(
                v for k, v in br.get("hand_written_ms_per_tick", {}).items()
-               if "bvh_walk" in k)}
+               if kernel in k)}
     if "busy_ms_per_tick" in br:
         out["device_idle_share"] = 1.0 - br["busy_ms_per_tick"] / median
     return out
@@ -3924,6 +4039,113 @@ def bvh_times(others: list) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def walk_capture(record: list):
+    """Inside, every launch of the walk kernel appends (tables, a copy of
+    its sorted rays, octants, occlusion, exact, reach) to `record`, in
+    launch order."""
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+
+    saved = trs.walk_cuda
+
+    def launch(tris, rays, octs, occlusion, exact=False, reach=None):
+        record.append((tris, rays.clone(), octs.clone(), occlusion, exact,
+                       reach))
+        return saved(tris, rays, octs, occlusion, exact, reach)
+
+    trs.walk_cuda = launch
+    try:
+        yield
+    finally:
+        trs.walk_cuda = saved
+
+
+def walk_times(device=None) -> int:
+    """The walk kernel in both its modes at the pools the `helmet` and
+    `helmet-100k` configurations' 1080p frames launch on (the bench camera,
+    1 SPP, 4 bounces, folds 1-3): one frame of each through its culled
+    tracer and one through the resident tracer, every walk launch
+    captured; on each launch's sorted rays the exact-key mode on the
+    culled tables and the resident mode on the resident tables of the same
+    triangles (both sort by the same bounds, so the pools are the same),
+    each held against its plain walk (`hold_walk`) with its counts, needed
+    tests and bound, and the two timed in turns (resident, exact, exact,
+    resident). Then the frames through each tracer in the same turns (wall
+    ms, device ms, launches, idle share). One JSON line a launch and one a
+    configuration."""
+    import torch
+    from tpu_pbrt_torch import bench_configs
+    from tpu_pbrt_torch.ops import cuda
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+    from tpu_pbrt_torch.ops.tracer import build_for_scene
+    from tpu_pbrt_torch.render.renderer import Renderer
+
+    device = device or torch.device("cuda")
+    print(gpu_line(), flush=True)
+    cuda.library()
+    print(json.dumps({"ptxas_walk": ptxas_usage(cuda.build_log,
+                                                "resident_walk_kernel")}),
+          flush=True)
+    turns = ("resident", "exact", "exact", "resident")
+    for name in ("helmet", "helmet-100k"):
+        cfg = bench_configs.make(name, device=device)
+        culled, camera = cfg.target, cfg.camera
+        if culled.tracer.kind != "culled":
+            fail(f"walk_times {name}: tracer {culled.tracer.kind}")
+        res = build_for_scene(culled.scene, device=device, kind="resident")
+        resident = Renderer(culled.scene, WIDTH, HEIGHT, culled.settings,
+                            device=device, tracer=res)
+        culled.render(camera, 0)
+        record = []
+        for frame_of, r in (("culled", culled), ("resident", resident)):
+            launches = []
+            with walk_capture(launches):
+                r.render_with_stats(camera, 1)
+            record += [(frame_of, i, *x) for i, x in enumerate(launches)]
+        tables = {"exact": culled.tracer.accel, "resident": res.accel}
+        for frame_of, i, _, rays, octs, occl, _, _ in record:
+            row = {"config": name, "frame": frame_of, "launch": i,
+                   "query": "any_hit" if occl else "closest_hit",
+                   "rays": rays.shape[0],
+                   "live": int((rays[:, 7] > rays[:, 6]).sum())}
+            for mode, acc in tables.items():
+                exact = mode == "exact"
+                got = trs.walk_cuda(acc, rays, octs, occl, exact)
+                pl, counts, _ = hold_walk(acc, rays, octs, occl, exact, None,
+                                          got, f"walk_times {name} {i} "
+                                               f"{mode}")
+                rp, nb = rays.shape[0], acc.tris.shape[0]
+                tests = walk_needed_tests(acc, rays, got, occl, exact)
+                row[mode] = {
+                    **counts._asdict(), "needed_tests": tests,
+                    "plain_ms": pl, **bound(
+                        rp * 32 + rp * (8 if exact and not occl else 4)
+                        + (rp // trs.CHUNK) * 4
+                        + (acc.tris.numel() + acc.boxes.numel()
+                           + 2 * 8 * nb) * 4,
+                        tests * (FLOPS_TEST_DIV if exact
+                                 else FLOPS_TEST_SCALED))}
+                row[mode].pop("missed_hits")
+            for mode in turns:
+                exact = mode == "exact"
+                row[mode].setdefault("ms", []).append(time_ms(
+                    lambda: trs.walk_cuda(tables[mode], rays, octs, occl,
+                                          exact)))
+            print(json.dumps({"walk_launch": row}), flush=True)
+        del record
+        frames = {}
+        for k, mode in enumerate(turns):
+            r = culled if mode == "exact" else resident
+            frames.setdefault(mode, []).append(bvh_frame_times(
+                lambda f: r.render_with_stats(camera, f), 100 * (k + 1),
+                "resident_walk_kernel"))
+        print(json.dumps({"walk_times": name, "frames": frames,
+                          "gpu": gpu_line()}), flush=True)
+        del cfg, culled, resident, res
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3934,6 +4156,10 @@ def main() -> int:
     parser.add_argument("--fetch-times", metavar="DIR", default=None,
                         help="only check and time the row fetch of the "
                              "checkout at DIR")
+    parser.add_argument("--walk-times", action="store_true",
+                        help="only check and time the walk kernel in both "
+                             "modes at the helmet's and helmet-100k's "
+                             "frame pools")
     parser.add_argument("--bvh-times", metavar="DIR", nargs="*",
                         default=None,
                         help="only check and time the LBVH walk at its "
@@ -3947,6 +4173,9 @@ def main() -> int:
     if args.bvh_times is not None:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return bvh_times(args.bvh_times)
+    if args.walk_times:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return walk_times()
     if args.dense_times is not None:
         return dense_times(args.dense_times)
     if args.fetch_times is not None:
@@ -3958,7 +4187,10 @@ def main() -> int:
     from tpu_pbrt_torch.models.scene import environment_radiance
     from tpu_pbrt_torch.ops import cuda
     from tpu_pbrt_torch.ops import trace_shade_fused as tsf
+    from tpu_pbrt_torch.ops import traverse_culled as tcl
+    from tpu_pbrt_torch.ops import traverse_resident as trs
     from tpu_pbrt_torch.ops.tonemap import to_srgb8, apply as tonemap
+    from tpu_pbrt_torch.ops.tracer import build_for_scene
     from tpu_pbrt_torch.passes.pathtrace import PathTraceSettings
     from tpu_pbrt_torch.render.camera import generate_rays
     from tpu_pbrt_torch.render.renderer import Renderer
@@ -4037,13 +4269,18 @@ def main() -> int:
     # --- the big-scene path: the 25,280-triangle helmet -------------------
     renderer = bench_configs.make("helmet", device=device).target
     scene = renderer.scene
-    if renderer.tracer.kind != "resident":
-        fail(f"helmet tracer kind {renderer.tracer.kind}, not resident")
+    if renderer.tracer.kind != "culled":
+        fail(f"helmet tracer kind {renderer.tracer.kind}, not culled")
     cam_rays = generate_rays(camera.data(device=device), WIDTH, HEIGHT)
-    kres.update(check_resident_kernels(renderer, scene, cam_rays, device))
-    print(json.dumps({"kernel_checks": {
-        k: kres[k] for k in ("resident_closest_hit", "resident_any_hit")}}),
-        flush=True)
+    # both walk modes at the helmet: the culled tracer's (the exact-key
+    # mode) and the resident walk's on its own tables
+    resident = build_for_scene(scene, device=device, kind="resident")
+    kres.update(check_walk_kernels(renderer.tracer.accel, tcl, True,
+                                   scene.geometry, cam_rays, device))
+    kres.update(check_walk_kernels(resident.accel, trs, False,
+                                   scene.geometry, cam_rays, device))
+    print(json.dumps({"kernel_checks": {k: kres[k] for k in WALK_KERNELS}}),
+          flush=True)
     cam_hit = renderer.tracer.closest_hit(*cam_rays)
     mask = cam_hit.mask
     # the G-buffer's fetch: the 64-column table at the camera rays' slots
@@ -4071,13 +4308,25 @@ def main() -> int:
     print(json.dumps({"helmet_path": paths["helmet"]}), flush=True)
     pngs["helmet"] = save_png("helmet_1080p.png", img)
     untextured = img
-    del renderer
+    # the same frame through the resident walk: the same image but on the
+    # lanes where its key of 8 mantissa bits picks another triangle (P6)
+    renderer = Renderer(scene, WIDTH, HEIGHT, renderer.settings,
+                        device=device, tracer=resident)
+    paths["helmet_resident"], img = run_path("helmet_resident", renderer,
+                                             camera)
+    paths["helmet_resident"]["mean_abs_diff_from_culled"] = float(
+        np.abs(img - untextured).mean())
+    if paths["helmet_resident"]["mean_abs_diff_from_culled"] > 1e-3:
+        fail(f"helmet_resident: {paths['helmet_resident']}")
+    print(json.dumps({"helmet_resident_path": paths["helmet_resident"]}),
+          flush=True)
+    del renderer, resident
     torch.cuda.empty_cache()
 
     # --- the textured helmet: atlas, mip selection, the 50-column fetch ---
     renderer = bench_configs.make("helmet-textured", device=device).target
     scene_t, trc = renderer.scene, renderer.tracer
-    if (trc.kind != "resident" or not trc.textured or trc.alpha_test
+    if (trc.kind != "culled" or not trc.textured or trc.alpha_test
             or trc.supports_fused_shade()):
         fail(f"textured helmet: tracer kind {trc.kind}, textured "
              f"{trc.textured}, alpha_test {trc.alpha_test}")
@@ -4229,7 +4478,7 @@ def main() -> int:
     pngs["dynamic"] = save_png("dynamic_1080p.png", img)
     torch.cuda.empty_cache()
 
-    # --- the App at its defaults on the golden scene (resident walk) ------
+    # --- the App at its defaults on the golden scene (culled tracer) ------
     paths["golden"], img, rows = golden_path(device)
     app_rows += rows
     print(json.dumps({"golden": paths["golden"]}), flush=True)
@@ -4300,8 +4549,11 @@ def main() -> int:
     small["helmet"] = check_small_frame(
         "helmet", helmet.make_scene("helmet", *SMALL_HELMET),
         helmet.settings(), helmet.make_camera, 0.2)
-    if small["helmet"]["tracer"] != "resident":
-        fail("the small helmet frame did not take the resident tracer")
+    if small["helmet"]["tracer"] != "culled":
+        fail("the small helmet frame did not take the culled tracer")
+    small["helmet_resident"] = check_small_frame(
+        "helmet_resident", helmet.make_scene("helmet", *SMALL_HELMET),
+        helmet.settings(), helmet.make_camera, 0.2, kind="resident")
     small_t = helmet.make_textured_scene("helmet", *SMALL_HELMET)
     small["helmet_textured"] = check_small_frame(
         "helmet_textured", small_t[0], helmet.settings(True, SMALL_H),
@@ -4309,13 +4561,14 @@ def main() -> int:
     small_cut = PathTraceSettings(
         bounces=3, samples_per_pixel=1, count_rays=True,
         compaction_schedule=(2,), cone_spread=helmet.cone_spread(SMALL_H))
-    for forced in ("dense", "resident"):
+    for forced in CUTOUT_KINDS:
         small[f"cutout_{forced}"] = check_small_frame(
             f"cutout_{forced}", cut_scene, small_cut, cutout.frame_camera,
             0.2, cut_tex, cut_srgb, kind=forced)
-    for name, want in (("helmet_textured", ("resident", True, False)),
-                       ("cutout_dense", ("dense", True, True)),
-                       ("cutout_resident", ("resident", True, True))):
+    for name, want in (("helmet_textured", ("culled", True, False)),
+                       ("helmet_resident", ("resident", False, False)),
+                       *((f"cutout_{k}", (k, True, True))
+                         for k in CUTOUT_KINDS)):
         got = tuple(small[name][k] for k in ("tracer", "textured",
                                              "alpha_test"))
         if got != want:

@@ -2,7 +2,9 @@
 `tests/test_alpha_mask.py` (a masked quad over an opaque one) rebuilt with
 the port's `build_geometry` and `make_table`, through the dense tracer and
 through the resident walk forced onto the same scene: `hit_transparent`, the re-trace loop of
-`Tracer.closest_hit`, and `any_hit` as the nearest opaque hit.
+`Tracer.closest_hit`, and `any_hit` as the nearest opaque hit; and the loop
+over the culled and blocked tracers against the reference's of the same
+kind.
 
 Triangle ids, hit masks, occlusion flags and `hit_transparent` are exact
 against the reference's dense tracer; hit t is the packed key's t, equal
@@ -10,6 +12,7 @@ within the coarser of the two keys' quanta.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -248,3 +251,52 @@ def test_convert_carries_atlas_and_alpha_test(reference):
     with pytest.raises(ValueError, match="atlas"):
         ttracer.Tracer(built.accel, built.shade_table, built.light_table,
                        built.light_cdf, None, alpha_test=True)
+
+
+def _jax_rays(o, d, t0, t1):
+    return (JVec3(*(jnp.asarray(c) for c in o)),
+            JVec3(*(jnp.asarray(c) for c in d)), jnp.asarray(t0),
+            jnp.asarray(t1))
+
+
+def _torch_rays(o, d, t0, t1):
+    return (TVec3(*(torch.as_tensor(c) for c in o)),
+            TVec3(*(torch.as_tensor(c) for c in d)), torch.as_tensor(t0),
+            torch.as_tensor(t1))
+
+
+@pytest.mark.parametrize("kind", ["culled", "blocked"])
+def test_alpha_loop_matches_reference(kind):
+    """The alpha re-trace loop over a culled or blocked tracer (the cutout
+    scene above, each kind forced): ids and
+    occlusion equal the reference's tracer of the same kind. Under
+    `culled` the loop's re-trace starts past the 12-bit-cut t, which can
+    lie before the pierced layer, so the reference stops on a transparent
+    layer where its dense tracer pierces it (ROADMAP F9); the port does the
+    same. Under `blocked` its reach cap (F10) leaves these rays alone:
+    their tile's reach spans the scene."""
+    jsc, tex = _build(1, jscene, jbuild_geometry, jmake_table)
+    tsc, _ = _build(1, tscene, build_geometry, make_table)
+    jtrc = jtracer.build_for_scene(jsc, kind=kind, textures=tex,
+                                   texture_srgb=[False])
+    trc = ttracer.build_for_scene(tsc, tex, [False], device="cpu", kind=kind)
+    assert trc.kind == kind and trc.alpha_test
+    n = 3000
+    o, d = _random_rays(n, 3)
+    t_max = np.where(np.arange(n) % 6 == 5, -np.inf, np.inf).astype(
+        np.float32)
+    rays = (o, d, np.zeros(n, np.float32), t_max)
+    closest = jax.jit(lambda t, *r: t.closest_hit(*r))
+    want = closest(jtrc, *_jax_rays(*rays))
+    got = trc.closest_hit(*_torch_rays(*rays))
+    np.testing.assert_array_equal(np.asarray(want.tri), got.tri.numpy())
+    np.testing.assert_allclose(got.t.numpy(), np.asarray(want.t),
+                               rtol=1e-6)
+    seg = (o, d, np.zeros(n, np.float32), np.full(n, 6.0, np.float32))
+    np.testing.assert_array_equal(
+        np.asarray(jax.jit(lambda t, *r: t.any_hit(*r))(jtrc, *_jax_rays(*seg))),
+        trc.any_hit(*_torch_rays(*seg)).numpy())
+    dense = jtracer.build_for_scene(jsc, textures=tex, texture_srgb=[False])
+    stopped = int((np.asarray(closest(dense, *_jax_rays(*rays)).tri)
+                   != got.tri.numpy()).sum())
+    assert (stopped > 100) if kind == "culled" else stopped == 0

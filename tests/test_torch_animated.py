@@ -9,9 +9,8 @@ the small-frame gate: G-buffer triangle ids equal, the frame mean within
 vectors within 1e-4. Float chains differ by an ulp between XLA (which
 contracts FMAs on the CPU) and PyTorch (ROADMAP F4), and an ulp can flip a
 Russian-roulette or lobe decision: hence the 1% slack. The skinned tube
-(2,560 triangles) takes the port's resident walk, refit every frame; the
-reference renders it with its culled tracer. Each reference renderer
-compiles once.
+(2,560 triangles) takes the culled tracer in both packages, refit every
+frame. Each reference renderer compiles once.
 """
 
 import json
@@ -97,7 +96,7 @@ def _skinned_scene(scene_mod, mesh_mod, material_mod, pos, nrm, indices,
 def test_animated_frames_match_reference(which, reference_gbuffer_tri,
                                          tmp_path):
     """The 2-bone strip of tests/test_animation.py (dense tracer) and the
-    32 x 40 skinned tube (resident tracer, refit every frame)."""
+    32 x 40 skinned tube (culled tracer, refit every frame)."""
     if which == "strip":
         path = make_skinned_gltf(str(tmp_path / "arm.gltf"))
         jm, tm = jgltf.load(path), tgltf.load(path)
@@ -112,7 +111,7 @@ def test_animated_frames_match_reference(which, reference_gbuffer_tri,
         prim = tm.meshes[0].primitives[0]
         material = tm.materials[0]
         env = {}
-        position, dt, kind = [0.3, 1.6, -7.0], 1 / 60, "resident"
+        position, dt, kind = [0.3, 1.6, -7.0], 1 / 60, "culled"
         settings = dict(bounces=4, samples_per_pixel=1, count_rays=True)
     args = (prim.positions, prim.normals, prim.indices, material)
     jsc = _skinned_scene(jscene, jmesh, jmaterial, *args,

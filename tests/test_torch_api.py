@@ -18,10 +18,21 @@ REFERENCE = REPO / "tpu_pbrt"
 
 # (module, name) or (module, None) for a whole module: left out by rule
 TPU_ONLY = {
-    # the big-scene XLA walks built around TPU costs; the resident walk's
-    # kernel does their work (ROADMAP queue 1)
-    ("ops.traverse_culled", None): "K5 (traverse_resident) does its work",
-    ("ops.traverse_blocked", None): "K5 (traverse_resident) does its work",
+    # the culled tracer's TPU design: the port computes its function on the
+    # resident walk's exact-key mode, with none of these schedules
+    ("ops.traverse_culled", "U1"): "pass-1 working-set blocks per chunk",
+    ("ops.traverse_culled", "U2"): "cascade pass-2 working-set blocks",
+    ("ops.traverse_culled", "GROUP"): "chunks per XLA map step",
+    ("ops.traverse_culled", "SUPER"): "blocks per superblock pre-level",
+    ("ops.traverse_culled", "KS_EXTRA"): "superblock pre-level slack",
+    ("ops.traverse_culled", "PRESELECT"): "superblock pre-level switch",
+    ("ops.traverse_culled", "RANK"): "pass-1 block ranking switch",
+    ("ops.traverse_culled", "ANY_RANK"): "any-hit block ranking switch",
+    ("ops.traverse_culled", "CASCADE_GATHER"): "cascade compaction switch",
+    ("ops.traverse_culled", "QUERY_GATHER"): "query head-gather switch",
+    ("ops.traverse_culled", "MT_MXU"): "Möller-Trumbore on the MXU",
+    ("ops.traverse_culled", "COLS"): "columns of the one-hot fetch table",
+    ("ops.traverse_culled", "CHUNK"): "rays per vector-lane chunk",
     # switches and layouts of the TPU's kernels and XLA schedules
     ("ops.traverse_dense", "MT_MXU"): "Möller-Trumbore on the MXU",
     ("ops.shade_table", "FETCH_PALLAS"): "Pallas small-table fetch switch",

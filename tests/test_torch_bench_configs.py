@@ -12,7 +12,8 @@ directory instead of /tmp. Against those:
   light table and CDF, bit-equal (the bounce sub-table: the port's
   `bounce_subtable` of the reference's shade table; `helmet-100k`'s
   geometry and its resident-walk tables at full size against the
-  reference's `traverse_resident.prepare`);
+  reference's `traverse_resident.prepare`, and its culled tables against
+  `convert` of the reference's culled build);
 * 64x48 frames of `cornell-nofold` and `cornell-bxdf` by the gate of
   `tests/test_torch_render.py` (G-buffer ids >= 99.9% equal, frame mean
   within 1e-3 relative, >= 99% of all pixels and of the hit pixels within
@@ -27,7 +28,7 @@ directory instead of /tmp. Against those:
   App by the gate of `tests/test_torch_app.py` (after ACES a mean of at
   most 1e-3, >= 99% of pixels within 1e-2), at that file's cheap App
   settings (the frames of `sphere` and `sphere-textured` on the reduced
-  grid, the port's resident walk against the reference's culled tracer,
+  grid, the culled tracer in both packages,
   are `tests/test_torch_render.py`'s, where they share the reduced
   helmet's compiles);
 * F3 at a key of few mantissa bits: two parallel triangles 0.3% apart in
@@ -61,7 +62,7 @@ from tpu_pbrt.ops.vec import Vec3 as JVec3
 from tpu_pbrt.render import animated as janimated
 from tpu_pbrt.render import app as japp
 from tpu_pbrt.render import renderer as jrenderer
-from tpu_pbrt_torch import bench_configs
+from tpu_pbrt_torch import bench_configs, convert
 from tpu_pbrt_torch.ops import shade_table as tst
 from tpu_pbrt_torch.ops import traverse_resident as tres
 from tpu_pbrt_torch.ops.vec import Vec3 as TVec3
@@ -201,7 +202,8 @@ def test_config_matches_bench(name, glb_dir):
     trc = target.tracer
     assert trc.textured == jtrc.textured
     assert trc.kind == ("dense" if name in bench_configs.APP_PATHS
-                        or name.startswith("cornell") else "resident")
+                        or name.startswith("cornell") else "culled")
+    assert trc.kind == jtrc.kind
     for field in ("shade_table", "light_table", "light_cdf"):
         np.testing.assert_array_equal(np.asarray(getattr(jtrc, field)),
                                       getattr(trc, field).numpy(), field)
@@ -219,12 +221,15 @@ def test_config_matches_bench(name, glb_dir):
 def test_helmet_100k_resident_tables_at_full_size(glb_dir):
     """`helmet-100k`: 101,760 triangles, 795 blocks, 17 slot bits; the
     port's resident tables equal `tpu_pbrt.ops.traverse_resident.prepare`
-    on bench.py's geometry."""
+    on bench.py's geometry, and the frame's tracer, culled as bench.py's,
+    holds the tables `convert` derives from the reference's culled
+    build."""
     scene = _bench_config("helmet-100k", glb_dir)[0]
     p = np.asarray(scene.geometry.positions)
     i = np.asarray(scene.geometry.indices)
-    want = jres.prepare(p[i[:, 0]], p[i[:, 1]], p[i[:, 2]])
-    got = bench_configs.make("helmet-100k", device="cpu").target.tracer.accel
+    corners = (p[i[:, 0]], p[i[:, 1]], p[i[:, 2]])
+    want = jres.prepare(*corners)
+    got = tres.prepare(*corners, device="cpu")
     assert got.num == want.num == 101760
     assert got.tris.shape[0] == 795 and tres.idx_bits(795) == 17
     for field in ("tris", "tri_id", "orders", "keys", "lo", "hi",
@@ -233,6 +238,18 @@ def test_helmet_100k_resident_tables_at_full_size(glb_dir):
         g = getattr(got, field).numpy()
         assert w.dtype == g.dtype, field
         np.testing.assert_array_equal(w, g, err_msg=field)
+    trc = bench_configs.make("helmet-100k", device="cpu").target.tracer
+    assert trc.kind == "culled"
+    ref = jculled.prepare(*corners)
+    carried = convert.accel_from_numpy(
+        {f: np.asarray(getattr(ref, f)) for f in ref._fields[:-1]}
+        | {"num": ref.num}, device="cpu")
+    for field, g in trc.accel._asdict().items():
+        w = getattr(carried, field)
+        if isinstance(g, torch.Tensor):
+            np.testing.assert_array_equal(w.numpy(), g.numpy(), field)
+        else:
+            assert g == w, field
 
 
 def test_names_and_targets():
@@ -407,7 +424,7 @@ def test_existing_paths_keep_their_configuration():
     assert r.tracer.kind == "dense"
     r, s = frame("helmet")
     _assert_tree_equal(helmet.make_scene(), r.scene)
-    assert s == helmet.settings() and r.tracer.kind == "resident"
+    assert s == helmet.settings() and r.tracer.kind == "culled"
     r, s = frame("helmet-textured")
     _assert_tree_equal(helmet.make_textured_scene()[0], r.scene)
     assert s == helmet.settings(True, H) and r.tracer.textured
@@ -415,7 +432,7 @@ def test_existing_paths_keep_their_configuration():
     _assert_tree_equal(tube.make_skinned_tube(64, 41)[1], r.scene)
     assert s == PathTraceSettings(bounces=4, samples_per_pixel=1,
                                   count_rays=True)
-    assert r.tracer.kind == "resident"
+    assert r.tracer.kind == "culled"
 
     def app_settings(**raytracing):
         s = config.GraphicsSettings(width=W, height=H)

@@ -7,7 +7,10 @@ or all occluded, the dense adversarial sets of
 `tpu_pbrt_torch/ops/dense_cases.py`, empty intervals, out-of-table slots,
 and the wrappers' argument checks; for the resident walk also chunks that
 straddle two octants, all-idle chunks, an all-pad last block, and the
-adversarial sets of its block cull (`adversarial_case`); for the fused
+adversarial sets of its block cull (`adversarial_case`), in both its modes
+(the exact-key mode of the culled and blocked tracers: also an exact tie
+across two blocks walked out of slot order, the refit tables, and the
+blocked tracer's reach cap); for the fused
 closest-hit-and-shade kernel soups up to its 1024-row gate and the dense
 adversarial sets; the row fetch's two designs (a staged table, a tile of
 rows) at every width it serves, on both sides of the line between them;
@@ -45,6 +48,8 @@ from tpu_pbrt_torch.ops import cuda
 from tpu_pbrt_torch.ops import dense_cases
 from tpu_pbrt_torch.ops import shade_table as st
 from tpu_pbrt_torch.ops import trace_shade_fused as tsf
+from tpu_pbrt_torch.ops import traverse_blocked as tbl
+from tpu_pbrt_torch.ops import traverse_culled as tcl
 from tpu_pbrt_torch.ops import traverse_dense as td
 from tpu_pbrt_torch.ops import traverse_resident as trs
 from tpu_pbrt_torch.ops.vec import Vec3
@@ -510,22 +515,180 @@ def adversarial(dev):
     return adversarial_case(dev)
 
 
+@pytest.mark.parametrize("exact", [False, True])
 @pytest.mark.parametrize("name", ADVERSARIAL)
-def test_resident_adversarial_exact(dev, adversarial, name):
+def test_resident_adversarial_exact(dev, adversarial, name, exact):
     """The culling kernel against the plain walk on the adversarial sets:
-    keys and flags bit for bit in both modes, no skipped block that held a
-    hit. `no_block` reaches no box: every chunk skips every stage."""
+    keys and flags bit for bit in both queries, no skipped block that held
+    a hit; in resident mode on the resident tables, in the exact-key mode on
+    the culled tables of the same triangles, where the kept-pair plain walk
+    agrees too. `no_block` reaches no box: every chunk skips every
+    stage."""
     res, sets = adversarial
+    if exact:
+        res = tcl.tables(res.tris, res.tri_id, res.lo, res.hi, res.num)
     o, d, tmin, tmax = sets[name]
     rays, _, octs = trs.sort_rays(res, o, d, tmin, tmax)
     for occlusion in (False, True):
-        got = trs.walk_cuda(res, rays, octs, occlusion)
-        want, counts = trs.walk_plain(res, rays, octs, occlusion)
+        got = trs.walk_cuda(res, rays, octs, occlusion, exact)
+        want, counts = trs.walk_plain(res, rays, octs, occlusion, exact)
         assert torch.equal(got, want), occlusion
+        assert torch.equal(got, trs.walk_plain(res, rays, octs, occlusion,
+                                               exact, sweep_all=False)[0])
         assert counts.missed_hits == 0
         if name == "no_block":
             assert counts.work > 0 and counts.kept == 0
             assert counts.warp_blocks == 0
+
+
+def _cross_block_tie(dev, exact: bool):
+    """Two blocks (hand-packed, not Morton-sorted): the triangle T (a unit
+    quad's lower half at z = 0) at slot 5 of block 0 (id 100) and at slot
+    130 of block 1 (id 200). Block 0's other slots lie far behind T, block
+    1's far before it and off every ray, so rays along +z walk block 1
+    first. Returns (tables, rays)."""
+    rng = np.random.default_rng(3)
+    blk = trs.BLOCK
+    v0 = np.zeros((2 * blk, 3), np.float32)
+    e1 = np.zeros_like(v0)
+    e2 = np.zeros_like(v0)
+    v0[:blk] = rng.uniform([2, 2, 10], [4, 4, 12], (blk, 3))
+    v0[blk:] = rng.uniform([-8, -8, -8], [-6, -6, -6], (blk, 3))
+    e1[:] = [0.1, 0, 0]
+    e2[:] = [0, 0.1, 0]
+    for s in (5, blk + 2):
+        v0[s], e1[s], e2[s] = [-1, -1, 0], [2, 0, 0], [0, 2, 0]
+    packed = np.zeros((2, 16, blk), np.float32)
+    for row, a in ((0, v0), (3, e1), (6, e2)):
+        packed[:, row:row + 3] = a.reshape(2, blk, 3).transpose(0, 2, 1)
+    packed[:, 9] = 1.0
+    ids = np.arange(2 * blk, dtype=np.int32) + 1000
+    ids[5], ids[blk + 2] = 100, 200
+    tris = torch.as_tensor(packed, device=dev)
+    tri_id = torch.as_tensor(ids, device=dev)
+    corners = np.concatenate([v0, v0 + e1, v0 + e2])
+    lo = torch.as_tensor(corners.min(0), device=dev)
+    hi = torch.as_tensor(corners.max(0), device=dev)
+    acc = (tcl.tables(tris, tri_id, lo, hi, 2 * blk) if exact else
+           trs.ResidentTris(tris, tri_id, *_resident_walk_tables(
+               tris, tri_id, lo, hi), num=2 * blk))
+    n = 700
+    xy = rng.uniform(-0.45, -0.05, (2, n)).astype(np.float32)
+    o = Vec3(torch.as_tensor(xy[0], device=dev),
+             torch.as_tensor(xy[1], device=dev),
+             torch.full((n,), -10.0, device=dev))
+    z = torch.zeros(n, device=dev)
+    d = Vec3(z, z, torch.ones_like(z))
+    return acc, (o, d, torch.zeros(n, device=dev),
+                 torch.full((n,), float("inf"), device=dev))
+
+
+def _resident_walk_tables(tris, tri_id, lo, hi):
+    """orders, keys, boxes, lo, hi, scene_diag, pad rows and keys of the
+    resident walk for hand-packed rows (the exact-key mode's, which order
+    the blocks the same way here)."""
+    diag = trs.scene_diag_of(lo, hi)
+    boxes, orders, keys = trs.exact_tables(tris, tri_id, diag)
+    return (orders, keys, boxes, lo, hi, diag, *trs.sort_pad(tris.device))
+
+
+def test_exact_walk_cross_block_tie(dev):
+    """An exact tie across blocks: the walk meets the higher slot's copy of
+    T first (block 1 comes first in the walk order), yet the exact-key mode
+    returns the lower slot's (id 100) on every lane, kernel and plain walk
+    alike; the resident mode's strict shrink keeps the first found (200)."""
+    acc, rays = _cross_block_tie(dev, True)
+    srt, _, octs = trs.sort_rays(acc, *rays)
+    assert int(acc.orders[int(octs[0]), 0]) == 1
+    got = trs.walk_cuda(acc, srt, octs, False, True)
+    want, counts = trs.walk_plain(acc, srt, octs, False, True)
+    assert torch.equal(got, want) and counts.missed_hits == 0
+    hit = tcl.closest_hit_cuda(acc, *rays)
+    assert bool((hit.tri == 100).all())
+    assert bool((hit.t == 10.0).all())
+    assert bool(tcl.any_hit_cuda(acc, *rays).all())
+    res, _ = _cross_block_tie(dev, False)
+    old = trs.closest_hit_cuda(res, *rays)
+    assert torch.equal(old.tri, trs.closest_hit_plain(res, *rays).tri)
+    assert bool((old.tri == 200).all())
+
+
+def test_exact_walk_on_refit_tables(dev):
+    """The exact-key kernel on the culled and blocked refit tables of the
+    posed tube equals the plain walk (the oracle and the kept-pair walk),
+    with no skipped block that held a hit; the blocked tracer's reach mask
+    rides along and the entry points equal their plain versions."""
+    _, bind, posed = _posed_tube()
+    rng = np.random.default_rng(19)
+    lo, hi = posed[0].min(0) - 0.3, posed[0].max(0) + 0.3
+    n = 8192
+    org = np.concatenate([
+        np.tile(np.asarray([[0.3, 1.6, -7.0]], np.float32), (n // 2, 1)),
+        rng.uniform(lo, hi, (n // 2, 3)).astype(np.float32)])
+    d = rng.uniform(lo, hi, (n, 3)).astype(np.float32) - org
+    t_max = np.where(np.arange(n) < n // 2, np.inf,
+                     np.linalg.norm(d, axis=1)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+
+    def v3(a):
+        return Vec3(*(torch.as_tensor(a[:, k].copy(), device=dev)
+                      for k in range(3)))
+
+    rays_in = (v3(org), v3(d), torch.full((n,), 1e-4, device=dev),
+               torch.as_tensor(t_max, device=dev))
+    for mod in (tcl, tbl):
+        acc = mod.refit(mod.prepare(*bind, device=dev),
+                        *(torch.as_tensor(p, device=dev) for p in posed))
+        rays, perm, octs = trs.sort_rays(acc, *rays_in)
+        reach = None
+        if mod is tbl:
+            mask, tile = tbl.reach(acc, rays_in[0], rays_in[1], rays_in[3],
+                                   False)
+            reach = (mask.to(torch.uint8), torch.where(
+                perm < n, perm // tile, 0).to(torch.int32))
+        for occlusion in (False, True):
+            got = trs.walk_cuda(acc, rays, octs, occlusion, True, reach)
+            want, counts = trs.walk_plain(acc, rays, octs, occlusion, True,
+                                          reach)
+            assert torch.equal(got, want), (mod.__name__, occlusion)
+            assert counts.missed_hits == 0
+        hit = mod.closest_hit_cuda(acc, *rays_in)
+        want = mod.closest_hit_plain(acc, *rays_in)
+        assert torch.equal(hit.tri, want.tri)
+        assert torch.equal(hit.t.view(torch.int32), want.t.view(torch.int32))
+        assert 0.05 < float(hit.mask.float().mean()) < 0.95
+        assert torch.equal(mod.any_hit_cuda(acc, *rays_in),
+                           mod.any_hit_plain(acc, *rays_in))
+
+
+def test_blocked_reach_cap_on_card(dev):
+    """The blocked tracer's reach cap (ROADMAP F10) on the card: rays from
+    30 units off the helmet reach no block (all misses, as the plain
+    version), while the culled tracer hits; any hit with t_max = inf finds
+    no blocker (the reference's any-hit cap is then 0)."""
+    from tpu_pbrt_torch.models import helmet
+
+    g = helmet.make_scene("helmet", 40, 28).geometry
+    p, i = np.asarray(g.positions, np.float32), np.asarray(g.indices)
+    corners = (p[i[:, 0]], p[i[:, 1]], p[i[:, 2]])
+    n = 2000
+    rng = np.random.default_rng(23)
+    org = np.tile(np.float32([0.0, 0.2, -30.0]), (n, 1))
+    d = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32) - org
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = (Vec3(*(torch.as_tensor(org[:, k].copy(), device=dev)
+                   for k in range(3))),
+            Vec3(*(torch.as_tensor(d[:, k].copy(), device=dev)
+                   for k in range(3))),
+            torch.zeros(n, device=dev), torch.full((n,), float("inf"),
+                                                   device=dev))
+    blk = tbl.prepare(*corners, device=dev)
+    far = tbl.closest_hit_cuda(blk, *rays)
+    assert bool((far.tri == -1).all())
+    assert torch.equal(far.tri, tbl.closest_hit_plain(blk, *rays).tri)
+    assert float(tcl.closest_hit_cuda(tcl.prepare(*corners, device=dev),
+                                      *rays).mask.float().mean()) > 0.5
+    assert not bool(tbl.any_hit_cuda(blk, *rays).any())
 
 
 def test_resident_all_idle(dev):
@@ -598,7 +761,7 @@ def test_fused_block_on_adversarial_sets(dev, dense_adversarial, name):
                      & ~grazing).any())
 
 
-@pytest.fixture(scope="module", params=["dense", "resident"])
+@pytest.fixture(scope="module", params=["dense", "resident", "culled"])
 def cutout_tracers(request, dev):
     """The cutout test scene (`models/cutout.stacked_parts`: a masked quad,
     transparent where x < 0, before an opaque one) on the card and, as the
@@ -662,6 +825,17 @@ def test_new_kernels_count_launches(dev):
     assert cuda.KERNELS["resident_closest_hit"].launches == 1
     assert cuda.KERNELS["resident_any_hit"].launches == 1
     assert cuda.KERNELS["dense_closest_hit_shade"].launches == 1
+    cul = tcl.tables(res.tris, res.tri_id, res.lo, res.hi, res.num)
+    blk = tbl.prepare(*_corners(300, 1)[:3], device=dev)
+    tcl.closest_hit_plain(cul, o, d, tmin, tmax)
+    assert cuda.KERNELS["exact_closest_hit"].launches == 0
+    tcl.closest_hit(cul, o, d, tmin, tmax)
+    tcl.any_hit(cul, o, d, 0.0, 1.0)
+    tbl.closest_hit(blk, o, d, tmin, tmax)
+    tbl.any_hit(blk, o, d, 0.0, 1.0)
+    assert cuda.KERNELS["exact_closest_hit"].launches == 2
+    assert cuda.KERNELS["exact_any_hit"].launches == 1
+    assert cuda.KERNELS["resident_any_hit"].launches == 2
 
 
 # --- the App's image-space passes and the App on the card ----------------
@@ -757,12 +931,14 @@ def _posed_tube(nu: int = 32):
 
 
 @pytest.mark.parametrize("kind,nu", [("dense", 8), ("resident", 32),
-                                     ("resident", 31)])
+                                     ("resident", 31), ("culled", 31),
+                                     ("blocked", 31)])
 def test_refit_on_card_equals_cpu(dev, kind, nu):
-    """Both refits on the card equal the CPU's on the same posed corners,
-    field by field and bit for bit (gathers, subtractions, min / max and a
-    stable sort); 31 segments leave pad slots in the last block."""
-    mod = td if kind == "dense" else trs
+    """Every refit on the card equals the CPU's on the same posed corners,
+    field by field and bit for bit (gathers, subtractions, min / max, sums
+    and a stable sort); 31 segments leave pad slots in the last block."""
+    mod = {"dense": td, "resident": trs, "culled": tcl,
+           "blocked": tbl}[kind]
     _, bind, posed = _posed_tube(nu)
     got = mod.refit(mod.prepare(*bind, device=dev),
                     *(torch.as_tensor(p, device=dev) for p in posed))
@@ -1136,12 +1312,11 @@ _CONFIG_KERNELS = {
                        "fetch_rows"),
     "cornell-bxdf": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
                      "fetch_rows"),
-    "sphere": ("resident_closest_hit", "resident_any_hit", "fetch_bounce",
+    "sphere": ("exact_closest_hit", "exact_any_hit", "fetch_bounce",
                "fetch_rows"),
-    "sphere-textured": ("resident_closest_hit", "resident_any_hit",
-                        "fetch_rows"),
-    "helmet-100k": ("resident_closest_hit", "resident_any_hit",
-                    "fetch_bounce", "fetch_rows"),
+    "sphere-textured": ("exact_closest_hit", "exact_any_hit", "fetch_rows"),
+    "helmet-100k": ("exact_closest_hit", "exact_any_hit", "fetch_bounce",
+                    "fetch_rows"),
 }
 
 

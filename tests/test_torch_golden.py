@@ -9,8 +9,8 @@ shade, then upscale bilinearly: held at the reference test's 32x32 within
 1e-6 absolute. The shade and the upscale are float chains (XLA contracts
 their FMAs; ROADMAP F4), which leave 1-2 ulp; a pixel whose voxel or cell
 differed would be off by the distance between two hashed colours, ~0.1.
-The golden App (2,056 triangles: the port's resident walk, the
-reference's culled tracer; 82 lights, so ReGIR is on; ReSTIR DI, SHARC)
+The golden App (2,056 triangles: the culled tracer in both packages; 82
+lights, so ReGIR is on; ReSTIR DI, SHARC)
 is held like the default App of
 `tests/test_torch_app.py`: two 64x48 ticks after ACES within a mean
 absolute difference of 1e-3, with at least 99% of pixels within 1e-2, the
@@ -74,9 +74,9 @@ def test_golden_camera_and_tracer_kind():
                                                                          H)
     for a, b in zip(tc.host_data(), (np.asarray(x) for x in jc.data())):
         np.testing.assert_array_equal(a, b.reshape(-1))
-    # 2,056 triangles: past the dense sweep, the resident walk
+    # 2,056 triangles: past the dense sweep, the culled tracer
     trc = ttracer.build_for_scene(tgolden.make_golden_scene(), device="cpu")
-    assert trc.kind == "resident" and trc.num_tris == 2056 > \
+    assert trc.kind == "culled" and trc.num_tris == 2056 > \
         ttracer.DENSE_MAX_TRIS
 
 
@@ -172,7 +172,7 @@ def test_golden_app_matches_reference():
     from tpu_pbrt.passes import gbuffer as jgbuffer
 
     app = _golden_app(tconfig, tgolden, tapp, device="cpu")
-    assert app.tracer.kind == "resident"
+    assert app.tracer.kind == "culled"
     assert app.regir_settings is not None and app.light_count == 82
     motions = []
     with _port_motion_recorded(motions):

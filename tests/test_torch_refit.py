@@ -1,7 +1,8 @@
 """PyTorch port vs `tpu_pbrt`: the per-frame refresh of moving geometry on
 the device: `shade_table.update_geometry` and `refresh_light_table`, the
-dense and resident refits, `tracer.build` / `tracer.refit` and
-`convert.accel_from_numpy`.
+dense and resident refits, `tracer.build` / `tracer.refit` (every kind) and
+`convert.accel_from_numpy`. The culled and blocked refits against the
+reference's are in `tests/test_torch_culled.py`.
 
 Tolerances. `update_geometry`, the dense refit and the resident refit are
 copies, gathers, subtractions, min / max and a stable sort: bit-equal to
@@ -29,6 +30,8 @@ from tpu_pbrt_torch.models import tube
 from tpu_pbrt_torch.ops import bvh as tbvh
 from tpu_pbrt_torch.ops import shade_table as tst
 from tpu_pbrt_torch.ops import tracer as ttracer
+from tpu_pbrt_torch.ops import traverse_blocked as ttb
+from tpu_pbrt_torch.ops import traverse_culled as ttc
 from tpu_pbrt_torch.ops import traverse_dense as ttd
 from tpu_pbrt_torch.ops import traverse_resident as ttr
 from tpu_pbrt_torch.ops.vec import Vec3
@@ -231,23 +234,26 @@ def test_refit_walk_skips_no_hit(resident_refits, posed_tube):
 
 def test_tracer_build_kinds(posed_tube):
     """`build` chooses as the reference: dense up to DENSE_MAX_TRIS, the
-    LBVH above; every kind can be forced; an unknown kind raises."""
+    LBVH above; every kind can be forced (culled, blocked and resident
+    too); an unknown kind raises."""
     _, bind, _ = posed_tube
     big = ttracer.build(*bind, device="cpu")
     small = ttracer.build(*(c[:100] for c in bind), device="cpu")
-    forced = ttracer.build(*(c[:100] for c in bind), kind="resident",
-                           device="cpu")
-    forced_bvh = ttracer.build(*(c[:100] for c in bind), kind="bvh",
+    forced = {k: ttracer.build(*(c[:100] for c in bind), kind=k,
                                device="cpu")
-    assert (big.kind, small.kind, forced.kind, forced_bvh.kind) == (
-        "bvh", "dense", "resident", "bvh")
-    assert big.num_tris == bind[0].shape[0] and forced_bvh.num_tris == 100
+              for k in ("resident", "bvh", "culled", "blocked")}
+    assert (big.kind, small.kind) == ("bvh", "dense")
+    assert {k: t.kind for k, t in forced.items()} == {
+        k: k for k in forced}
+    assert big.num_tris == bind[0].shape[0]
+    assert all(t.num_tris == 100 for t in forced.values())
     assert big.shade_table is None and big.bounce_sub is None
-    with pytest.raises(ValueError, match="culled"):
-        ttracer.build(*bind, kind="culled", device="cpu")
+    with pytest.raises(ValueError, match="grid"):
+        ttracer.build(*bind, kind="grid", device="cpu")
 
 
-@pytest.mark.parametrize("kind", ["dense", "resident", "bvh"])
+@pytest.mark.parametrize("kind", ["dense", "resident", "bvh", "culled",
+                                  "blocked"])
 def test_tracer_refit_rebuilds_derived_buffers(kind):
     """Refit with new shade and light tables: the accel, both sub-tables
     and the light columns come from the new tables, none from the bind
@@ -275,8 +281,9 @@ def test_tracer_refit_rebuilds_derived_buffers(kind):
     assert lights.count == trc.light_count
     np.testing.assert_allclose(lights.power.numpy(),
                                trc.lights.power.numpy(), rtol=1e-5)
-    refit = {"dense": ttd, "resident": ttr,
-             "bvh": tbvh}[kind].refit(trc.accel, *moved)
+    refit = {"dense": ttd, "resident": ttr, "bvh": tbvh, "culled": ttc,
+             "blocked": ttb}[kind].refit(trc.accel, *moved)
+    assert type(new.accel) is type(refit)
     for f, want in refit._asdict().items():     # bit for bit
         got = getattr(new.accel, f)
         assert (torch.equal(got.reshape(-1).view(torch.uint8),

@@ -319,7 +319,7 @@ def _helmet_frames(tmp_path, camera, shape="helmet"):
     """The reduced helmet (40 x 28 grid, 2,160 triangles; or with `shape`
     "sphere" the UV sphere of bench.py's `sphere` configuration on the same
     grid) at 64x48 with the config's settings, through the reference's
-    culled tracer and the port's resident walk, under `camera` (the port's
+    culled tracer and the port's, under `camera` (the port's
     models/cornell or models/helmet camera; the reference gets a Camera
     with its fields)."""
     from tpu_pbrt.render import camera as jcamera
@@ -339,7 +339,7 @@ def _helmet_frames(tmp_path, camera, shape="helmet"):
     want = _jit_frame(js)(jr.tracer, jr.scene, jcam.data())
     scene, settings, _, _ = bench_configs.mesh_setup(shape, H, (40, 28))
     tr = trenderer.Renderer(scene, W, H, settings, device="cpu")
-    assert tr.tracer.kind == "resident"
+    assert tr.tracer.kind == "culled"
     got = trenderer._render_frame(
         tr.tracer, tr.env, tr.light_count, tcam.data(device="cpu"),
         FRAME, width=W, height=H, settings=tr.settings, with_gbuffer=True)
@@ -351,8 +351,8 @@ def _helmet_frames(tmp_path, camera, shape="helmet"):
 
 def test_helmet_frame_matches_reference(tmp_path):
     """The reduced helmet under the bench's camera (make_cornell_camera):
-    the port's resident walk against the reference's culled tracer. The
-    mesh is visible and differs from the sky."""
+    the port's culled tracer against the reference's. The mesh is visible
+    and differs from the sky."""
     got = _helmet_frames(tmp_path, tcornell.make_cornell_camera)
     valid = got[2].valid.numpy().reshape(H, W)
     assert 0.005 < valid.mean() < 0.5
@@ -363,7 +363,7 @@ def test_helmet_frame_matches_reference(tmp_path):
 def test_sphere_frame_matches_reference(tmp_path):
     """bench.py's `sphere` configuration (`bench_configs.mesh_setup`: the
     closed UV sphere) on the reduced grid under the bench's camera: the
-    port's resident walk against the reference's culled tracer; counted
+    port's culled tracer against the reference's; counted
     rays equal. The mesh is visible and differs from the sky."""
     got = _helmet_frames(tmp_path, tcornell.make_cornell_camera, "sphere")
     valid = got[2].valid.numpy().reshape(H, W)
@@ -427,7 +427,7 @@ def _textured_frames(tmp_path, shape):
     """The reduced textured mesh (40 x 28 grid, the 256 x 256 checker
     base-color map with its mip chain) at 64x48 under the camera that
     frames it, the bench's settings with the ray-cone spread of a 48-row
-    frame: the reference's culled tracer against the port's resident walk,
+    frame: the reference's culled tracer against the port's,
     G-buffer base color within 1e-4 where both hit the same triangle, and
     the frame gates. The texture shows: the mesh's base color varies."""
     import bench
@@ -457,7 +457,7 @@ def _textured_frames(tmp_path, shape):
         compaction_schedule=(1, 2, 3), cone_spread=ts.cone_spread), tcam)
     tr = trenderer.Renderer(scene, W, H, ts, device="cpu",
                             textures=textures, texture_srgb=srgb)
-    assert tr.tracer.kind == "resident" and tr.tracer.textured
+    assert tr.tracer.kind == "culled" and tr.tracer.textured
     assert not tr.tracer.supports_fused_shade()
     got = _port_frame(tr, tcam)
     _assert_frames_agree(want, got)

@@ -35,6 +35,7 @@ from tpu_pbrt_torch.models import helmet
 from tpu_pbrt_torch.models.cornell import make_cornell_camera
 from tpu_pbrt_torch.ops import bvh as tbvh
 from tpu_pbrt_torch.ops import tracer as ttracer
+from tpu_pbrt_torch.ops import traverse_culled as tcul
 from tpu_pbrt_torch.ops import traverse_dense as ttd
 from tpu_pbrt_torch.ops import traverse_resident as tres
 from tpu_pbrt_torch.ops.vec import Vec3 as TVec3
@@ -253,23 +254,29 @@ def test_plain_walk_exits_early():
 
 
 def test_tracer_kind_by_triangle_count():
-    """build_for_scene picks the resident walk above DENSE_MAX_TRIS and
-    dispatches closest_hit / any_hit to it; its tables are buffers."""
+    """build_for_scene picks the culled tracer above DENSE_MAX_TRIS, as the
+    reference does, and the resident walk when asked for it; each
+    dispatches closest_hit / any_hit to its module; the tables are
+    buffers."""
     scene = helmet.make_scene("helmet", 40, 28)
     assert scene.geometry.num_tris == 2160 > ttracer.DENSE_MAX_TRIS
     trc = ttracer.build_for_scene(scene, device="cpu")
-    assert trc.kind == "resident" and trc.num_tris == 2160
-    assert isinstance(trc.accel, tres.ResidentTris)
-    names = {n for n, _ in trc.named_buffers()}
-    assert {"accel_tris", "accel_orders", "accel_keys", "shade_table"} <= names
-    assert not trc.supports_fused_shade()
+    assert trc.kind == "culled" and trc.num_tris == 2160
+    assert type(trc.accel) is tcul.CulledTris
+    res = ttracer.build_for_scene(scene, device="cpu", kind="resident")
+    assert res.kind == "resident" and type(res.accel) is tres.ResidentTris
     o, d, t0, t1 = (torch.as_tensor(a) for a in _soup_rays())
     o, d = TVec3(*o), TVec3(*d)
-    want = tres.closest_hit(trc.accel, o, d, t0, t1)
-    got = trc.closest_hit(o, d, t0, t1)
-    assert torch.equal(want.tri, got.tri) and torch.equal(want.t, got.t)
-    assert torch.equal(tres.any_hit(trc.accel, o, d, t0, 2.0),
-                       trc.any_hit(o, d, t0, 2.0))
+    for t, mod in ((trc, tcul), (res, tres)):
+        names = {n for n, _ in t.named_buffers()}
+        assert {"accel_tris", "accel_orders", "accel_keys",
+                "shade_table"} <= names
+        assert not t.supports_fused_shade()
+        want = mod.closest_hit(t.accel, o, d, t0, t1)
+        got = t.closest_hit(o, d, t0, t1)
+        assert torch.equal(want.tri, got.tri) and torch.equal(want.t, got.t)
+        assert torch.equal(mod.any_hit(t.accel, o, d, t0, 2.0),
+                           t.any_hit(o, d, t0, 2.0))
 
 
 def test_convert_carries_resident_tables():
@@ -282,7 +289,7 @@ def test_convert_carries_resident_tables():
     jacc = jres.prepare(v0, v1, v2, op)
     leaves = {f: np.array(getattr(jacc, f)) for f in jacc._fields}
     own = ttracer.build_for_scene(helmet.make_scene("helmet", 40, 28),
-                                  device="cpu")
+                                  device="cpu", kind="resident")
     trc = convert.tracer_from_numpy(
         leaves, own.shade_table.numpy(), own.light_table.numpy(),
         own.light_cdf.numpy(), device="cpu")

@@ -7,9 +7,8 @@
 twelve named configurations (`NAMES`) with bench.py's scene, camera and
 settings, nothing cut, and returns a `BenchConfig`: the `Renderer`,
 `AnimatedRenderer` or `App` on `device`, its camera, its settings and the
-label bench.py prints for that name. The port's tracer kinds stand in for
-the reference's TPU ones: the resident walk where bench.py's label says
-`culled` or `blocked`.
+label bench.py prints for that name. The tracer kind is the reference's:
+`dense` up to 2,048 triangles, `culled` above (the label says which).
 
 * `cornell`: the Cornell box, 1 SPP, 8 bounces, counted rays, folds at
   bounces 4-7 (bench.py's `BENCH_FOLD` default); `cornell-nofold`: no

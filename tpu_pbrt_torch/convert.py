@@ -16,7 +16,8 @@ from .models.material import MaterialTable
 from .models.mesh import Geometry
 from .models.scene import (EmissiveLights, EnvironmentLight, Scene,
                            light_arrays)
-from .ops import bvh, texture, traverse_dense, traverse_resident
+from .ops import (bvh, texture, traverse_blocked, traverse_culled,
+                  traverse_dense, traverse_resident)
 from .ops.tracer import Tracer
 from .ops.vec import Vec3
 from .passes.denoise import DenoiserState
@@ -37,8 +38,9 @@ def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
                       device: str | torch.device) -> Tracer:
     """Port `Tracer` from a reference tracer's leaves. `accel` holds the
     fields of a `DenseTris` (v0, e1, e2, tri_id, opacity), of a
-    `ResidentTris` (tris, tri_id, orders, keys, lo, hi, scene_diag) or of
-    a `BVH` (its ten fields) as arrays, and `num` as an int. The tables the
+    `ResidentTris` (tris, tri_id, orders, keys, lo, hi, scene_diag), of a
+    `CulledTris` or a `BlockedTris` (their fields) or of a `BVH` (its ten
+    fields) as arrays, and `num` as an int. The tables the
     reference does not have are derived as `accel_from_numpy` says. `atlas`
     holds the reference atlas's `texels` ((N, 4) uint32), `desc` and
     `levels`; `alpha_test` is the reference tracer's flag. `lights` (the
@@ -63,17 +65,50 @@ def tracer_from_numpy(accel: dict, shade_table: np.ndarray,
                       lights["count"])))
 
 
+def _culled_rows(table: np.ndarray, num: int) -> tuple[np.ndarray, ...]:
+    """The reference culled table's (B, 12 * 64) component-major rows as
+    Morton-sorted (num, 3) v0, e1, e2 and (num,) opacity."""
+    comps = table.reshape(table.shape[0], 12, -1).transpose(1, 0, 2)
+    comps = comps.reshape(12, -1)[:, :num]
+    return (comps[0:3].T, comps[3:6].T, comps[6:9].T, comps[10])
+
+
+def _packed(v0, e1, e2, opacity, tri_id, num: int, device):
+    """Port packed rows (NB, 16, 128) and tri ids (NB * 128,) of num
+    Morton-sorted triangles, padded to whole blocks as `prepare` pads."""
+    blk = traverse_resident.BLOCK
+    nb = -(-num // blk)
+    packed = np.zeros((nb, 16, blk), np.float32)
+    for row, a in ((0, v0), (3, e1), (6, e2)):
+        full = np.zeros((nb * blk, 3), np.float32)
+        full[:num] = a[:num]
+        packed[:, row:row + 3] = full.reshape(nb, blk, 3).transpose(0, 2, 1)
+    op = np.zeros((nb * blk,), np.float32)
+    op[:num] = opacity[:num]
+    packed[:, 9] = op.reshape(nb, blk)
+    ids = np.full((nb * blk,), -1, np.int32)
+    ids[:num] = np.asarray(tri_id)[:num]
+    return (torch.as_tensor(packed, device=device),
+            torch.as_tensor(ids, device=device))
+
+
 def accel_from_numpy(accel: dict, *, device: str | torch.device):
-    """Port `DenseTris`, `ResidentTris` or `BVH` from a reference accel's
-    fields as arrays (and `num` as an int): a `traverse_dense.prepare`
-    result, a `traverse_resident.prepare` or `refit` one, or a
-    `bvh.build` or `refit` one. The port's own tables are
-    derived from them as `prepare` and `refit` derive them: the dense packed
-    rows (`traverse_dense.pack_rows`), the resident block boxes from the
-    packed rows and `scene_diag` (`traverse_resident.block_boxes`) and the
-    sort's pad rows (`traverse_resident.sort_pad`), and the LBVH's packed
-    node and triangle rows (`bvh.pack_nodes`, `bvh.pack_tris`) and its
-    level count (`bvh.tree_levels`, read on the host)."""
+    """Port `DenseTris`, `ResidentTris`, `CulledTris`, `BlockedTris` or
+    `BVH` from a reference accel's fields as arrays (and `num` as an int):
+    a `traverse_dense.prepare` result, a `traverse_resident`,
+    `traverse_culled` or `traverse_blocked` `prepare` or `refit` one, or a
+    `bvh.build` or `refit` one. The port's own tables are derived from
+    them as `prepare` and `refit` derive them: the dense packed rows
+    (`traverse_dense.pack_rows`), the resident block boxes from the packed
+    rows and `scene_diag` (`traverse_resident.block_boxes`) and the sort's
+    pad rows (`traverse_resident.sort_pad`), the LBVH's packed node and
+    triangle rows (`bvh.pack_nodes`, `bvh.pack_tris`) and its level count
+    (`bvh.tree_levels`, read on the host). The culled and blocked triangles
+    (64- and 128-triangle blocks of one Morton order) are repacked into the
+    port's 128-triangle rows slot for slot, and the rest derived as
+    `traverse_culled.tables` and `traverse_blocked.tables` derive it, from
+    the reference's culled `lo` / `hi` and blocked `block_min`,
+    `block_max` and `scene_diag`."""
 
     def t(a, dtype):
         return torch.as_tensor(np.array(a, dtype=dtype), device=device)
@@ -90,6 +125,24 @@ def accel_from_numpy(accel: dict, *, device: str | torch.device):
                        tris=bvh.pack_tris(f["tri_v0"], f["tri_e1"],
                                           f["tri_e2"]),
                        levels=levels, num=n)
+    num = int(accel["num"])
+    if "table" in accel or "block_min" in accel:
+        def f32(k):
+            return np.asarray(accel[k], np.float32)
+
+        if "table" in accel:
+            v0, e1, e2, op = _culled_rows(f32("table"), num)
+            tris, tri_id = _packed(v0, e1, e2, op, accel["tri_id"], num,
+                                   device)
+            return traverse_culled.tables(tris, tri_id, t(f32("lo"),
+                                                          np.float32),
+                                          t(f32("hi"), np.float32), num)
+        tris, tri_id = _packed(f32("v0"), f32("e1"), f32("e2"),
+                               f32("opacity"), accel["tri_id"], num, device)
+        return traverse_blocked.tables(
+            tris, tri_id, t(f32("block_min"), np.float32),
+            t(f32("block_max"), np.float32),
+            t(f32("scene_diag"), np.float32), num)
     resident = "tris" in accel
     cls = (traverse_resident.ResidentTris if resident
            else traverse_dense.DenseTris)

@@ -1,24 +1,29 @@
 """Tracer: the acceleration structure plus the packed shade/light tables,
 as one `nn.Module` (port of `tpu_pbrt/ops/tracer.py`).
 
-Three kinds:
+Five kinds, as the reference's, chosen as the reference chooses them:
   * 'dense' (up to DENSE_MAX_TRIS): every ray tests every triangle
     (`ops/traverse_dense`, kernels 1 and 2);
-  * 'resident' (`build_for_scene` above DENSE_MAX_TRIS): the sorted-chunk
-    walk of `ops/traverse_resident` (the resident-walk kernel);
+  * 'culled' (`build_for_scene` above DENSE_MAX_TRIS): the reference's
+    big-scene tracer (`ops/traverse_culled`): its Möller-Trumbore test and
+    its 12-bit-cut t, the exact nearest hit (ROADMAP F9);
+  * 'blocked' (asked for): the reference's blocked tracer
+    (`ops/traverse_blocked`): exact t, and its tile reach cap (F10);
+  * 'resident' (asked for): the reference's `traverse_resident`, the
+    Pallas walk that no path of the reference takes (its key keeps 23 -
+    idx_bits mantissa bits of t);
   * 'bvh' (`build` above DENSE_MAX_TRIS, or asked for): the stackless LBVH
     walk of `ops/traverse` over `ops/bvh` (the `bvh_trace` kernel). As in
     the reference it ignores per-triangle opacity (ROADMAP F7) and returns
     exact t, u and v.
 
-The reference serves big scenes with `traverse_culled`, which is XLA, not
-Pallas, and is built around TPU costs: it fetches each chunk's working set
-through a one-hot MXU product, sorts where it would gather, and runs a
-cascade under `lax.cond`. The port leaves that design out. Its big-scene
-kind computes what the tracer must compute (the closest hit as a packed
-key, or an occlusion flag) with the repository's one Pallas kernel for big
-scenes, `traverse_resident`, which maps onto one thread block per 256-ray
-chunk on the card. `TPU_PBRT_FORCE_TRACER` is not ported.
+`culled` and `blocked` are XLA in the reference, built around TPU costs (a
+one-hot MXU fetch of each chunk's working set, sorts where it would
+gather, a cascade and tile sweeps under `lax.cond`). The port computes
+their function and leaves that design out: both run on the sorted-chunk
+walk of `ops/traverse_resident` (one thread block per 256-ray chunk) in
+its exact-key mode, and `resident` on the same kernel in its own mode.
+`TPU_PBRT_FORCE_TRACER` is not ported: pass `kind=`.
 
 The scene tables are registered buffers, so `Tracer.to(device)` moves them
 all: the accel's tensors (`accel_*`; its ints, such as the triangle count,
@@ -48,15 +53,14 @@ from ..models.scene import LIGHT_FIELDS, LightTensors, light_arrays
 
 from . import shade_table as shade_mod
 from . import texture as tex_mod
-from . import trace_shade_fused, traverse, traverse_dense, traverse_resident
+from . import (trace_shade_fused, traverse, traverse_blocked, traverse_culled,
+               traverse_dense, traverse_resident)
 from .bvh import BVH
 from .texture import TextureAtlas
 from .traverse import Hit
 
 DENSE_MAX_TRIS = 2048
-# the first triangle count `build_for_scene` takes past the dense sweep (the
-# reference's `culled` kind starts here; the port's kind there is
-# 'resident', whose kernel does that work)
+# the first triangle count `build_for_scene` takes `culled` at
 CULLED_MIN_TRIS = DENSE_MAX_TRIS + 1
 
 # re-intersection passes for textured alpha cutouts: up to K-1 transparent
@@ -65,6 +69,8 @@ ALPHA_TEST_MAX_ITERS = 4
 
 _ACCEL = {
     "dense": (traverse_dense.DenseTris, traverse_dense),
+    "culled": (traverse_culled.CulledTris, traverse_culled),
+    "blocked": (traverse_blocked.BlockedTris, traverse_blocked),
     "resident": (traverse_resident.ResidentTris, traverse_resident),
     "bvh": (BVH, traverse),
 }
@@ -72,7 +78,8 @@ _ACCEL = {
 
 class Tracer(nn.Module):
     """Answers closest-hit and any-hit queries for one scene; the kind
-    follows the accel's type (`DenseTris`, `ResidentTris` or `BVH`)."""
+    follows the accel's class (`DenseTris`, `CulledTris`, `BlockedTris`,
+    `ResidentTris` or `BVH`)."""
 
     def __init__(self, accel, shade_table: torch.Tensor | None = None,
                  light_table: torch.Tensor | None = None,
@@ -83,8 +90,9 @@ class Tracer(nn.Module):
         """Without `shade_table` (`build`) the tracer answers hit queries
         only: it has no sub-tables and cannot shade."""
         super().__init__()
+        # the class itself: CulledTris is a ResidentTris
         self.kind = next(k for k, (cls, _) in _ACCEL.items()
-                         if isinstance(accel, cls))
+                         if type(accel) is cls)
         self.num_tris = int(accel.num)
         self.textured = atlas is not None
         self.alpha_test = bool(alpha_test)
@@ -216,9 +224,9 @@ def shadow_opacity(scene) -> np.ndarray:
 def build_for_scene(scene, textures=None, texture_srgb=None, *,
                     device: str | torch.device,
                     kind: str | None = None) -> Tracer:
-    """Full build from a port `Scene` on `device`: the accel (`kind`:
-    'dense', 'resident' or 'bvh', or None for dense up to DENSE_MAX_TRIS
-    and resident above, where the reference takes `culled`), the
+    """Full build from a port `Scene` on `device`: the accel (`kind`: one
+    of `_ACCEL`'s, or None for dense up to DENSE_MAX_TRIS and culled above,
+    as the reference), the
     padded shade table, the light table and the CDF, and with `textures` (a
     list of (H, W, 4) uint8 or float images; `texture_srgb` flags each) the
     texture atlas."""
@@ -231,7 +239,7 @@ def build_for_scene(scene, textures=None, texture_srgb=None, *,
     ind = np.asarray(geometry.indices, np.int32)
     v0, v1, v2 = pos[ind[:, 0]], pos[ind[:, 1]], pos[ind[:, 2]]
     if kind is None:
-        kind = "dense" if t <= DENSE_MAX_TRIS else "resident"
+        kind = "dense" if t < CULLED_MIN_TRIS else "culled"
     if kind not in _ACCEL:
         raise ValueError(f"unknown tracer kind {kind!r}")
     accel = _ACCEL[kind][1].prepare(v0, v1, v2, opacity=shadow_opacity(scene),
@@ -261,8 +269,8 @@ def build(v0, v1, v2, kind: str | None = None, *,
           device: str | torch.device) -> Tracer:
     """The acceleration structure alone, without shade or light tables (hit
     queries and refits), from host (T, 3) corner arrays on `device`. `kind`
-    'dense', 'resident' or 'bvh', or None to choose by triangle count as the
-    reference does: dense up to DENSE_MAX_TRIS, bvh above."""
+    one of `_ACCEL`'s, or None to choose by triangle count as the reference
+    does: dense up to DENSE_MAX_TRIS, bvh above."""
     t = np.asarray(v0).shape[0]
     if kind is None:
         kind = "dense" if t <= DENSE_MAX_TRIS else "bvh"
@@ -295,9 +303,9 @@ def refit(tracer: Tracer, v0, v1, v2, *,
           light_cdf: torch.Tensor | None = None) -> Tracer:
     """A tracer for deformed or moved triangles (the skinned-BLAS update):
     (T, 3) posed corner tensors on the tracer's device refit its accel
-    (`traverse_dense.refit`, `traverse_resident.refit` or `bvh.refit`), on
-    the device
-    with no host read. `shade_table` (`shade_table.update_geometry`),
+    (the `refit` of its kind's module: `traverse_dense`, `traverse_culled`,
+    `traverse_blocked`, `traverse_resident` or `bvh`), on the device with
+    no host read. `shade_table` (`shade_table.update_geometry`),
     `light_table` and `light_cdf` (`shade_table.refresh_light_table`)
     replace the tracer's tables; every buffer derived from them is built
     again from the new ones (the bounce and alpha sub-tables, and with a

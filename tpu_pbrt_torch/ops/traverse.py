@@ -22,7 +22,7 @@ for CPU rays. `adversarial_cases` holds the inputs the card tests and
 The `bvh` tracer kind (`ops/tracer.py`) reads `prepare` and `refit` here.
 It ignores per-triangle opacity, as the reference's `bvh` kind does: an
 ALPHA_BLEND triangle occludes shadow rays (ROADMAP F7). Its t is exact,
-not the key-quantized t of the dense and resident kinds (F3).
+not the key-quantized t of the dense, resident and culled kinds (F3).
 """
 
 from __future__ import annotations

@@ -30,6 +30,19 @@ whose sweep found a hit (`missed_hits`, 0 when the test holds).
 `prepare` builds the tables on the host; `refit` moves them onto deformed
 triangles on the device (the stored Morton slots kept; the keys, orders,
 bounds and boxes recomputed), bit-equal to the reference's refit.
+
+The exact-key mode (`exact=True` of `walk_plain` / `walk_cuda`, the
+kernel's `tpb_exact_*` entries) is the same walk computing what the
+reference's big-scene tracers compute (`ops/traverse_culled`,
+`ops/traverse_blocked`): their inv-form Möller-Trumbore (`inv = 1/det`),
+and an int64 key per lane, t's bits over the block slot, so the minimum is
+the nearest hit and, on exactly equal t, the lowest Morton slot, in
+whatever order the blocks are walked. Its tables (`exact_tables`) order and
+key the blocks by their padded boxes, so the done test, like the cull, can
+pass over no block that may still hold a hit at or before the lane's best
+t. `query` sorts, walks and unsorts for all three kinds; a `reach` mask
+(traverse_blocked's tile reach) keeps a lane off the blocks its input
+tile cannot reach.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ DONE_PERIOD = 4    # steps between early-exit checks (power of two)
 _ROWS = 16         # v0(3) e1(3) e2(3) opacity(1) pad(6)
 _M32 = 0xFFFFFFFF
 SENTINEL = 0x7FFFFFFF
+SENTINEL64 = 0x7FFFFFFFFFFFFFFF   # the exact-key mode's no-hit key
 INF = float("inf")
 WARP = 32          # lanes per warp: the kernel's unit of skipped work
 # Block boxes are padded by this share of the scene diagonal: a float
@@ -64,6 +78,11 @@ _SOURCE = "tpu_pbrt_torch/csrc/resident_trace.cu"
 _REPLACES = "tpu_pbrt/ops/traverse_resident.py:166"
 CLOSEST_HIT_KERNEL = cuda.register("resident_closest_hit", _SOURCE, _REPLACES)
 ANY_HIT_KERNEL = cuda.register("resident_any_hit", _SOURCE, _REPLACES)
+# the exact-key mode of the same kernel (`ops/traverse_culled`,
+# `ops/traverse_blocked`)
+EXACT_CLOSEST_HIT_KERNEL = cuda.register("exact_closest_hit", _SOURCE,
+                                         _REPLACES)
+EXACT_ANY_HIT_KERNEL = cuda.register("exact_any_hit", _SOURCE, _REPLACES)
 
 
 class ResidentTris(NamedTuple):
@@ -191,21 +210,8 @@ def refit(tris: ResidentTris, v0, v1, v2) -> ResidentTris:
     block boxes are re-derived with the new `scene_diag`: a box left from
     the bind pose would let the cull skip a block that now holds the
     hit."""
-    if v0.shape[0] != tris.num:
-        raise ValueError(f"refit: {v0.shape[0]} triangles, the tables hold "
-                         f"{tris.num}")
-    tid = torch.clamp(tris.tri_id, min=0).long()
-    valid = (tris.tri_id >= 0)[:, None]
-    sv0 = torch.where(valid, v0.index_select(0, tid), 0.0)
-    sv1 = torch.where(valid, v1.index_select(0, tid), 0.0)
-    sv2 = torch.where(valid, v2.index_select(0, tid), 0.0)
+    packed, sv0, sv1, sv2, valid = refit_rows(tris, v0, v1, v2)
     nb = tris.tris.shape[0]
-
-    def rows(a):
-        return a.view(nb, BLOCK, 3).transpose(1, 2)
-
-    packed = torch.cat([rows(sv0), rows(sv1 - sv0), rows(sv2 - sv0),
-                        tris.tris[:, 9:]], 1)
     tri_min = torch.minimum(torch.minimum(sv0, sv1), sv2)
     tri_max = torch.maximum(torch.maximum(sv0, sv1), sv2)
     vm = valid.view(nb, BLOCK, 1)
@@ -226,18 +232,71 @@ def refit(tris: ResidentTris, v0, v1, v2) -> ResidentTris:
     keys = torch.gather(keys, 1, orders)
     lo = tri_min.amin(0)
     hi = tri_max.amax(0)
-    # |hi - lo| as the reference's norm rounds it (XLA contracts each
-    # square into a fused multiply-add): each square exact in float64, one
-    # rounding to float32 per step; the same on either device
-    d = (hi - lo).double()
-    ss = (d[0] * d[0]).float()
-    for a in (1, 2):
-        ss = (d[a] * d[a] + ss.double()).float()
-    diag = torch.sqrt(ss) + 1e-3
+    diag = scene_diag_of(lo, hi)
     return tris._replace(tris=packed, orders=orders.to(torch.int32),
                          keys=keys, boxes=block_boxes(packed, tris.tri_id,
                                                       diag),
                          lo=lo, hi=hi, scene_diag=diag)
+
+
+def refit_rows(tris, v0, v1, v2):
+    """The deformed (T, 3) corners gathered into the tables' Morton slots:
+    (packed rows (NB, 16, 128) with rows 0-8 rebuilt and the opacity and
+    pad rows kept, sv0, sv1, sv2 (NB*128, 3) with zeros in the pad slots,
+    valid (NB*128, 1)). Shared by the refits of every kind that walks
+    these tables."""
+    if v0.shape[0] != tris.num:
+        raise ValueError(f"refit: {v0.shape[0]} triangles, the tables hold "
+                         f"{tris.num}")
+    tid = torch.clamp(tris.tri_id, min=0).long()
+    valid = (tris.tri_id >= 0)[:, None]
+    sv0 = torch.where(valid, v0.index_select(0, tid), 0.0)
+    sv1 = torch.where(valid, v1.index_select(0, tid), 0.0)
+    sv2 = torch.where(valid, v2.index_select(0, tid), 0.0)
+    nb = tris.tris.shape[0]
+
+    def rows(a):
+        return a.view(nb, BLOCK, 3).transpose(1, 2)
+
+    packed = torch.cat([rows(sv0), rows(sv1 - sv0), rows(sv2 - sv0),
+                        tris.tris[:, 9:]], 1)
+    return packed, sv0, sv1, sv2, valid
+
+
+def scene_diag_of(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """|hi - lo| + 1e-3 as the reference's device refits round it (XLA
+    contracts each square of the norm into a fused multiply-add): each
+    square exact in float64, one rounding to float32 per step; the same on
+    either device."""
+    d = (hi - lo).double()
+    ss = (d[0] * d[0]).float()
+    for a in (1, 2):
+        ss = (d[a] * d[a] + ss.double()).float()
+    return torch.sqrt(ss) + 1e-3
+
+
+def exact_tables(tris: torch.Tensor, tri_id: torch.Tensor,
+                 scene_diag: torch.Tensor):
+    """(boxes, orders, keys) of the exact-key mode on the device: the
+    padded block boxes (`block_boxes`) and, per octant, the blocks in
+    stable order of their padded boxes' entry keys (min over the box of
+    sigma.x; all-pad blocks 3e38, last) with those keys sorted. A hit
+    the sweep accepts lies in its block's padded box, so a lane whose
+    reachable point lies before the next key can skip every later block
+    of the order: the done test then drops no hit, whatever the rounding
+    of t."""
+    boxes = block_boxes(tris, tri_id, scene_diag)
+    keys = []
+    for oct_ in range(8):
+        key = None
+        for a in range(3):
+            term = boxes[:, a] if oct_ >> a & 1 else -boxes[:, 3 + a]
+            key = term if key is None else key + term
+        keys.append(key)
+    keys = torch.stack(keys)                                  # (8, NB)
+    keys = torch.where(torch.isfinite(keys), keys, 3e38)
+    orders = torch.argsort(keys, dim=1, stable=True)
+    return boxes, orders.to(torch.int32), torch.gather(keys, 1, orders)
 
 
 def sort_pad(device: str | torch.device):
@@ -365,6 +424,50 @@ def _unpack_t(key: torch.Tensor, keep: int) -> torch.Tensor:
     return torch.where(key >= 0x7F800000, INF, t)
 
 
+def exact_t(key: torch.Tensor) -> torch.Tensor:
+    """t of an int64 exact key (its high word), +inf for SENTINEL64."""
+    t = (key >> 32).to(torch.int32).view(torch.float32)
+    return torch.where(key == SENTINEL64, INF, t)
+
+
+def _sweep_exact(tr, bid, ray, best, occlusion: bool):
+    """`_sweep` in the exact-key mode: the inv-form Möller-Trumbore of the
+    reference's culled and blocked tracers (`_mt_comp_T`: inv = 1/det, u,
+    v, t each times inv) in its operation order; best (n, 256) i64 keys
+    (t's bits << 32 | slot), the interval shrunk to t <= the lane's best
+    t, or the occlusion flag."""
+    ox, oy, oz, dx, dy, dz, t0, t1 = ray
+    v0x, v0y, v0z = tr[:, 0:1], tr[:, 1:2], tr[:, 2:3]
+    e1x, e1y, e1z = tr[:, 3:4], tr[:, 4:5], tr[:, 5:6]
+    e2x, e2y, e2z = tr[:, 6:7], tr[:, 7:8], tr[:, 8:9]
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    valid = torch.abs(det) > 1e-12
+    inv = 1.0 / torch.where(valid, det, 1.0)
+    tvx = ox - v0x
+    tvy = oy - v0y
+    tvz = oz - v0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
+    hit = (valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t0)
+           & (t < t1))
+    if occlusion:
+        found = (hit & (tr[:, 9:10] >= 0.5)).any(-1)
+        return best | found.to(torch.int32), found
+    hit = hit & (t <= exact_t(best)[..., None])
+    lane = torch.arange(BLOCK, dtype=torch.int64, device=tr.device)
+    slot = bid.to(torch.int64)[:, None, None] * BLOCK + lane
+    key = torch.where(hit, (t.view(torch.int32).to(torch.int64) << 32)
+                      | slot, SENTINEL64).amin(-1)
+    return torch.minimum(best, key), key != SENTINEL64
+
+
 def _sweep(tr, bid, ray, best, occlusion: bool, keep: int):
     """One 128-triangle block against every lane of the given chunks.
     tr (n, 16, 128), bid (n,) block ids, ray columns (n, 256, 1), best
@@ -408,6 +511,7 @@ def _sweep(tr, bid, ray, best, occlusion: bool, keep: int):
 
 
 _PLAIN_BATCH = 512   # chunks per plain sweep: bounds its (n, 256, 128) temps
+_PAIR_BATCH = 1 << 14   # kept pairs per sweep of `sweep_all=False`
 
 
 class WalkCounts(NamedTuple):
@@ -425,7 +529,8 @@ class WalkCounts(NamedTuple):
 
 
 def walk_plain(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
-               occlusion: bool) -> tuple[torch.Tensor, WalkCounts]:
+               occlusion: bool, exact: bool = False, reach=None,
+               sweep_all: bool = True) -> tuple[torch.Tensor, WalkCounts]:
     """Plain PyTorch walk, vectorized over the chunks still walking.
 
     Replays the kernel's steps: chunks whose lanes are all idle (teff <=
@@ -433,10 +538,26 @@ def walk_plain(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
     orders[oct, min(2j+1, nb-1)]; every DONE_PERIOD-th step a chunk stops
     when every lane passes the done test. It sweeps every block for every
     lane (the oracle) and evaluates `block_may_hit` on each (lane, block)
-    with the lane's interval at that moment. Returns (best (Rp,) i32,
-    WalkCounts)."""
+    with the lane's interval at that moment. `exact` runs the exact-key
+    mode (`_sweep_exact`); `reach` = (mask (tiles, NB) u8 or bool, lane_tile
+    (Rp,) i32) drops the blocks a lane's tile cannot reach (their pairs are
+    neither kept nor swept). `sweep_all=False` sweeps only the kept (lane,
+    block) pairs, as the kernel does: the same result where the cull is
+    conservative (which the oracle's `missed_hits` shows), at a fraction
+    of the work, and `missed_hits` is -1 (not counted). Returns (best
+    (Rp,) i32, or i64 keys in the exact closest mode, WalkCounts)."""
     nb = tris.tris.shape[0]
     keep = -(1 << idx_bits(nb))
+    exact_key = exact and not occlusion
+
+    def best_t(b):
+        return exact_t(b) if exact_key else _unpack_t(b, keep)
+
+    def sweep(tr, bid, ray, b):
+        if exact:
+            return _sweep_exact(tr, bid, ray, b, occlusion)
+        return _sweep(tr, bid, ray, b, occlusion, keep)
+
     nch = rays.shape[0] // CHUNK
     dev = rays.device
     cols = rays.view(nch, CHUNK, 8).unbind(-1)
@@ -449,8 +570,14 @@ def walk_plain(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
     sd = sx * dx + sy * dy + sz * dz
     oct_ok = (dx * sx >= 0.0) & (dy * sy >= 0.0) & (dz * sz >= 0.0)
     idle = t1 <= t0
-    best = torch.full((nch, CHUNK), 0 if occlusion else SENTINEL,
-                      dtype=torch.int32, device=dev)
+    best = torch.full((nch, CHUNK), SENTINEL64 if exact_key else
+                      0 if occlusion else SENTINEL,
+                      dtype=torch.int64 if exact_key else torch.int32,
+                      device=dev)
+    if reach is not None:
+        mask, lane_tile = reach
+        mask = mask.bool()
+        lane_tile = lane_tile.view(nch, CHUNK).long()
     done = idle.all(1)
     counts = torch.zeros(4, dtype=torch.int64, device=dev)
     for j in range((nb + 1) // 2):
@@ -466,34 +593,56 @@ def walk_plain(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
                         tris.orders[ol, min(2 * j + 1, nb - 1)]):
                 busy = ~idle[live] & (b == 0) if occlusion else ~idle[live]
                 t_hi = (lcols[7] if occlusion
-                        else torch.minimum(lcols[7], _unpack_t(b, keep)))
+                        else torch.minimum(lcols[7], best_t(b)))
                 kept = busy & block_may_hit(tris.boxes[bid.long()][:, None],
                                             lcols, lcols[6], t_hi)
-                b, found = _sweep(tris.tris[bid.long()], bid, lray, b,
-                                  occlusion, keep)
-                counts += torch.stack([
+                allowed = (mask[lane_tile[live], bid.long()[:, None]]
+                           if reach is not None else None)
+                if allowed is not None:
+                    kept = kept & allowed
+                counts[:3] += torch.stack([
                     busy.sum(), kept.sum(),
-                    kept.view(-1, CHUNK // WARP, WARP).any(-1).sum(),
-                    (found & busy & ~kept).sum()])
+                    kept.view(-1, CHUNK // WARP, WARP).any(-1).sum()])
+                if sweep_all:
+                    nb_, found = sweep(tris.tris[bid.long()], bid, lray, b)
+                    if allowed is not None:
+                        found = found & allowed
+                        nb_ = torch.where(allowed, nb_, b)
+                    counts[3] += (found & busy & ~kept).sum()
+                    b = nb_
+                else:
+                    # the kept pairs alone, each against its block's rows
+                    ci, li = torch.nonzero(kept, as_tuple=True)
+                    for p in range(0, ci.numel(), _PAIR_BATCH):
+                        c, ln = ci[p:p + _PAIR_BATCH], li[p:p + _PAIR_BATCH]
+                        pbid = bid[c]
+                        b[c, ln] = sweep(tris.tris[pbid.long(), :10], pbid,
+                                         [col[c, ln][:, None, None]
+                                          for col in lcols],
+                                         b[c, ln][:, None])[0][:, 0]
             best[live] = b
             if (j & (DONE_PERIOD - 1)) == DONE_PERIOD - 1:
                 nxt = tris.keys[ol, min(2 * j + 2, nb - 1)][:, None]
                 if occlusion:
                     lane_done = (b > 0) | idle[live]
                 else:
-                    reach = torch.minimum(_unpack_t(b, keep), t1[live])
+                    far = torch.minimum(best_t(b), t1[live])
                     lane_done = ((oct_ok[live]
-                                  & (so[live] + sd[live] * reach < nxt))
+                                  & (so[live] + sd[live] * far < nxt))
                                  | idle[live])
                 done[live] = lane_done.all(1)
+    if not sweep_all:
+        counts[3] = -1
     return best.view(-1), WalkCounts(*(int(c) for c in counts.tolist()))
 
 
 def walk_cuda(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
-              occlusion: bool) -> torch.Tensor:
-    """The kernel (`tpb_resident_closest_hit` / `tpb_resident_any_hit`):
+              occlusion: bool, exact: bool = False, reach=None
+              ) -> torch.Tensor:
+    """The kernel (`tpb_resident_closest_hit` / `tpb_resident_any_hit`, or
+    in the exact-key mode `tpb_exact_closest_hit` / `tpb_exact_any_hit`):
     one 256-thread block per chunk, skipping the blocks `block_may_hit`
-    rejects; bit-equal to `walk_plain`."""
+    (or the `reach` mask) rejects; bit-equal to `walk_plain`."""
     dev = rays.device
     rp = rays.shape[0]
     nb = tris.tris.shape[0]
@@ -507,47 +656,88 @@ def walk_cuda(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
     if tris.tris.data_ptr() % 16 or tris.boxes.data_ptr() % 8:
         raise ValueError("tris / boxes: not 16 / 8-byte aligned (the kernel "
                          "copies 16-byte pieces and reads boxes as float2)")
-    out = torch.empty((rp,), dtype=torch.int32, device=dev)
-    kernel = ANY_HIT_KERNEL if occlusion else CLOSEST_HIT_KERNEL
-    kernel.launch(rays, tris.tris, tris.boxes, tris.orders, tris.keys, octs,
-                  nch, nb, idx_bits(nb), out, tag=rp)
+    mask = lane_tile = None
+    if reach is not None:
+        mask, lane_tile = reach
+        cuda.check(mask, "reach", torch.uint8, (mask.shape[0], nb), dev)
+        cuda.check(lane_tile, "lane_tile", torch.int32, (rp,), dev)
+    exact_key = exact and not occlusion
+    out = torch.empty((rp,), dtype=torch.int64 if exact_key else torch.int32,
+                      device=dev)
+    args = (rays, tris.tris, tris.boxes, tris.orders, tris.keys, octs, nch,
+            nb)
+    if exact:
+        kernel = EXACT_ANY_HIT_KERNEL if occlusion else \
+            EXACT_CLOSEST_HIT_KERNEL
+        kernel.launch(*args, mask, lane_tile, out, tag=rp)
+    else:
+        kernel = ANY_HIT_KERNEL if occlusion else CLOSEST_HIT_KERNEL
+        kernel.launch(*args, idx_bits(nb), mask, lane_tile, out, tag=rp)
     return out
 
 
-def _walk(tris, rays, octs, occlusion: bool, on_card: bool):
+def query(tris, origin: Vec3, direction: Vec3, t_min, t_max, *,
+          occlusion: bool, exact: bool, on_card: bool, reach=None
+          ) -> torch.Tensor:
+    """Sort the rays (`sort_rays`), walk them (the kernel when `on_card`,
+    else the plain walk) and return each lane's result in ray order: the
+    int32 key, the int64 exact key, or the occlusion flag (bool). `reach`
+    = (mask (tiles, NB) bool, tile): lane i belongs to input tile i //
+    tile, and a lane walks only the blocks its tile's mask row holds."""
+    r = origin.x.shape[0]
+    rays, perm, octs = sort_rays(tris, origin, direction, t_min, t_max)
+    lanes = None
+    if reach is not None:
+        mask, tile = reach
+        # the sort's pad rows (lane >= R) are idle; tile 0 keeps their
+        # row of the mask in range
+        lane_tile = torch.where(perm < r, perm // tile, 0).to(torch.int32)
+        lanes = (mask.to(torch.uint8), lane_tile)
     if on_card:
-        return walk_cuda(tris, rays, octs, occlusion)
-    return walk_plain(tris, rays, octs, occlusion)[0]
+        best = walk_cuda(tris, rays, octs, occlusion, exact, lanes)
+    else:
+        best = walk_plain(tris, rays, octs, occlusion, exact, lanes,
+                          sweep_all=False)[0]
+    # back to ray order: the pad rows sort last, so the first R sorted rows
+    # are the real lanes
+    out = torch.empty((r,), dtype=best.dtype, device=best.device)
+    out[perm[:r]] = best[:r]
+    return out > 0 if occlusion else out
 
 
 def _closest(tris, origin, direction, t_min, t_max, on_card: bool) -> Hit:
     r = origin.x.shape[0]
-    rays, perm, octs = sort_rays(tris, origin, direction, t_min, t_max)
-    best = _walk(tris, rays, octs, False, on_card)
-    # back to ray order: the pad rows sort last, so the first R sorted rows
-    # are the real lanes
-    key = torch.empty((r,), dtype=torch.int32, device=best.device)
-    key[perm[:r]] = best[:r]
+    key = query(tris, origin, direction, t_min, t_max, occlusion=False,
+                exact=False, on_card=on_card)
     keep = -(1 << idx_bits(tris.tris.shape[0]))
     missed = key == SENTINEL
     slot = (key & ~keep).long()
     tri = torch.where(missed, -1, tris.tri_id[torch.clamp(
         slot, max=tris.tri_id.shape[0] - 1)])
-    zeros = torch.zeros((r,), dtype=torch.float32, device=best.device)
+    zeros = torch.zeros((r,), dtype=torch.float32, device=key.device)
     # u = v = 0 like the dense backend: consumers re-derive barycentrics
     # against the winning triangle (ops/shade_table.fetch)
     return Hit(torch.where(missed, INF, (key & keep).view(torch.float32)),
                zeros, zeros, tri)
 
 
+def exact_hit(tris, key: torch.Tensor, t_keep: int = -1) -> Hit:
+    """The Hit of int64 exact keys in ray order: the slot's triangle id,
+    t from the high word with `t_keep` applied to its bits (-1 keeps them
+    all), u = v = 0; a miss gives t = inf, tri = -1."""
+    missed = key == SENTINEL64
+    slot = (key & 0xFFFFFFFF).clamp(max=tris.tri_id.shape[0] - 1)
+    tri = torch.where(missed, -1, tris.tri_id[slot])
+    bits = (key >> 32).to(torch.int32) & t_keep
+    zeros = torch.zeros(key.shape, dtype=torch.float32, device=key.device)
+    return Hit(torch.where(missed, INF, bits.view(torch.float32)), zeros,
+               zeros, tri)
+
+
 def _any(tris, origin, direction, t_min, t_max, on_card: bool
          ) -> torch.Tensor:
-    r = origin.x.shape[0]
-    rays, perm, octs = sort_rays(tris, origin, direction, t_min, t_max)
-    occ = _walk(tris, rays, octs, True, on_card)
-    out = torch.empty((r,), dtype=torch.bool, device=occ.device)
-    out[perm[:r]] = occ[:r] > 0
-    return out
+    return query(tris, origin, direction, t_min, t_max, occlusion=True,
+                 exact=False, on_card=on_card)
 
 
 def closest_hit_plain(tris: ResidentTris, origin: Vec3, direction: Vec3,

@@ -2,7 +2,7 @@
 (port of `tpu_pbrt/passes/gbuffer.py`).
 
 One traversal over the pixel pool (the tracer's closest hit: the dense
-sweep, or the resident walk for big scenes, whose hits carry u = v = 0
+sweep, or the culled tracer's walk for big scenes, whose hits carry u = v = 0
 like the dense ones) and one 64-column shade-table fetch (kernel 4), which
 re-derives the barycentrics against the winning triangle; a textured scene
 then applies its maps (`shade_table.apply_textures`), mip levels chosen

@@ -3,13 +3,13 @@ default permutation).
 
 A Python loop over a fixed bounce count carries an active mask over the
 whole ray pool; terminated lanes idle. Per bounce: the tracer's closest
-hit (kernel 1, or the resident walk for big scenes; with alpha cutouts the
+hit (kernel 1, or the culled walk for big scenes; with alpha cutouts the
 tracer's re-intersection loop around it) and the bounce fetch (kernel 3; in
 a textured scene kernel 4 on the textured sub-table and the texture maps,
 their mip level from the ray cone's width `cone_spread` x path length), or
 both from the fused closest-hit-and-shade kernel when the tracer supports
 it (`TPU_PBRT_TRACE_FUSED=1`); one power-sampled light with
-an any-hit shadow ray (kernel 2, or the resident walk) and
+an any-hit shadow ray (kernel 2, or the culled walk) and
 balance-heuristic MIS, 3-lobe BSDF
 sampling from the pcg4d streams, Russian roulette, the throughput cutoff,
 and at scheduled bounces the stochastic pool fold. Every per-lane state
