@@ -24,10 +24,10 @@ with the kernels' launch counts set to 0 just before and read just after:
 * the big-scene path: the authored 25,280-triangle helmet mesh through the
   glTF ingest, metallic 0.8 / roughness 0.4, default sky, 1 SPP,
   4 bounces, folds at 1-3, through the reference's default big-scene
-  tracer, `culled` (the walk kernel's exact-key mode, closest and any
-  hit); then the same frame through the resident walk forced onto it
-  (`helmet_resident`: the walk kernel's resident mode), which must agree
-  with it within 1e-3 mean;
+  tracer, `culled` (the exact-key walk kernel, `csrc/exact_trace.cu`,
+  closest and any hit); then the same frame through the resident walk
+  forced onto it (`helmet_resident`: the resident walk kernel,
+  `csrc/resident_trace.cu`), which must agree with it within 1e-3 mean;
 * the textured helmet (`helmet-textured`): the same mesh with its 256x256
   checker base-color map and full mip chain, ray-cone mip selection
   (`cone_spread` = one pixel's angle), every bounce's fetch through the row
@@ -174,9 +174,11 @@ shape) of the checked tick timed beside its plain version and its bound
 launches are those the timed ticks made at that shape.
 
 Before each path it holds every kernel the path runs against its plain
-PyTorch version on the card at the path's shapes (for the walk kernel,
-in both modes at the helmet, also its block cull: no skipped block may
-have held a hit, and its triangle loops per warp must be fewer than the
+PyTorch version on the card at the path's shapes (for the two walk
+kernels, both held at the helmet, also their block cull: no skipped
+block may have held a hit; the exact-key walk may run no more triangle
+tests than 128 per kept (lane, block) pair of its schedule, and the
+resident walk's triangle loops per warp must be fewer than the
 lane-blocks of a walk without the cull over 32; above HELD_BLOCKS blocks
 the oracle walk holds strided chunks, the kept-pair plain walk the whole
 pool). The two dense sweeps are held and timed on
@@ -241,14 +243,20 @@ into the git-ignored `_checkout/`) timed on the same inputs in turns,
 and each frame rendered through each version's kernels in the same
 turns (wall ms, device ms, launches, idle share).
 
-    python3 chip_smoke.py --walk-times
+    python3 chip_smoke.py --walk-times [DIR ...]
 
-runs only the walk kernel in both modes at the pools the `helmet` and
-`helmet-100k` frames launch on (`walk_times`): every walk launch of one
-frame through the culled tracer, held in both modes (the exact-key mode
-on the culled tables, the resident mode on the resident tables, the same
-sorted rays) with counts and bounds, and timed in turns; then the frames
-through either tracer in turns.
+runs only the exact-key walk at the pools the culled tracer's frames
+launch on (`walk_times`: one frame of `helmet`, `helmet-100k`, `sphere`
+and `animated`, one golden App tick): every walk launch, in launch
+order, held bit for bit against the plain walk with the replay's counts
+(live lanes, box groups, kept pairs, triangle tests), the needed tests
+and the bound, and timed; at `helmet` and `helmet-100k` the resident
+walk as well, on the resident tables at the same sorted rays. With the
+checkouts DIR... (the parent unpacked with `git archive` into the
+git-ignored `_checkout/`) their walks are held and timed on the same
+inputs in turns, and each frame runs through each version's walk in
+the same turns (wall ms, device ms, launches, idle share, the walk's
+device ms).
 
     python3 chip_smoke.py --fetch-times DIR
 
@@ -324,6 +332,9 @@ HELD_BLOCKS = 400
 # the 1080p frames that run the LBVH walk (`bvh_frame`)
 BVH_FRAMES = ("helmet_bvh", "helmet_bvh_framed", "golden_bvh",
               "animated_bvh")
+# the culled tracer's 1080p frames and App tick `--walk-times` captures
+# (`walk_frame`)
+WALK_FRAMES = ("helmet", "helmet-100k", "sphere", "animated", "golden")
 
 # the tracer kinds forced onto the cutout scenes (each takes the re-trace
 # loop around its closest hit)
@@ -1231,13 +1242,15 @@ def check_cutout_tracers(device) -> dict:
 
 
 def walk_needed_tests(res, rays, best, occlusion: bool,
-                      exact: bool = False) -> int:
+                      exact: bool = False) -> tuple[int, int]:
     """The ray-triangle tests the walk's function needs on this run's data,
     at its 128-triangle block grain: for each lane, every block whose AABB
     meets the lane's final segment [t0, t_end], where t_end is its hit's t
     (the exact-key mode) or the top of its final key bin (resident mode),
     else its far bound teff; an occluded lane needs one test (its
-    blocker). rays (Rp, 8) sorted, best the walk's result on them."""
+    blocker). rays (Rp, 8) sorted, best the walk's result on them. Returns
+    (tests, blocks): blocks is the number of blocks some lane's final
+    segment meets, at least 1 when a lane is occluded (its blocker's)."""
     import torch
     from tpu_pbrt_torch.ops import traverse_resident as trs
 
@@ -1264,14 +1277,18 @@ def walk_needed_tests(res, rays, best, occlusion: bool,
     inv = 1.0 / torch.where(d.abs() > 1e-12, d,
                             torch.where(d >= 0, 1e-12, -1e-12))
     pairs = 0
+    met = torch.zeros(lo.shape[0], dtype=torch.bool, device=lo.device)
     for s in range(0, rays.shape[0], 1 << 15):
         e = s + (1 << 15)
         a = (lo[None] - o[s:e, None]) * inv[s:e, None]
         b = (hi[None] - o[s:e, None]) * inv[s:e, None]
         near = torch.maximum(torch.minimum(a, b).amax(-1), t0[s:e, None])
         far = torch.minimum(torch.maximum(a, b).amin(-1), t_end[s:e, None])
-        pairs += int((near <= far).sum())
-    return pairs * trs.BLOCK + extra
+        hit = near <= far
+        pairs += int(hit.sum())
+        met |= hit.any(0)
+    blocks = max(int(met.sum()), 1 if extra else 0)
+    return pairs * trs.BLOCK + extra, blocks
 
 
 def held_chunks(res, rays, octs, reach=None):
@@ -1324,14 +1341,58 @@ def hold_walk(res, rays, octs, occlusion: bool, exact: bool, reach, got,
     return pl, counts, oracle.missed_hits
 
 
+def cull_check(counts, exact: bool, what: str, nb: int) -> None:
+    """The block cull's work check on the plain walk's replay of the
+    kernel's schedule (`nb` blocks): in the exact-key mode (a warp per
+    lane) no more triangle tests than 128 per kept (lane, block) pair, and
+    where a lane is live and the table has more than one group of blocks,
+    fewer kept pairs than box tests (a cull that keeps every pair fails);
+    in the resident mode (a chunk per thread block) fewer triangle loops
+    (`warp_blocks`) than the uncut walk's lane-blocks / 32."""
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+
+    if exact and counts.tests > trs.BLOCK * counts.kept:
+        fail(f"{what}: {counts.tests} triangle tests over {counts.kept} "
+             f"kept pairs x {trs.BLOCK}")
+    if (exact and counts.live and nb > trs.GROUP
+            and counts.kept >= counts.boxes):
+        fail(f"{what}: the cull kept {counts.kept} of {counts.boxes} "
+             f"(lane, block) box tests")
+    if not exact and counts.warp_blocks * trs.WARP >= counts.work:
+        fail(f"{what}: warp_blocks {counts.warp_blocks} not below "
+             f"lane_blocks / 32 = {counts.work / trs.WARP}")
+
+
+def walk_bound(res, rays, got, occlusion: bool, exact: bool) -> dict:
+    """The walk's bound on sorted `rays` (its result `got`): the bytes its
+    function needs on this data, each once: a busy ray's 32 bytes, an idle
+    one's t0 and t1 (8), each key (8 bytes exact, else 4) or flag written,
+    the resident kernel's chunk octants (its ties depend on them), and of
+    the triangle table only the rows the test reads (0-8, 0-9 for
+    occlusion) of the blocks some lane's final segment meets (no boxes,
+    orders or entry keys: the cull's, not the function's); the tests it
+    needs (`walk_needed_tests`) at 46 (exact-key) or 48 FP32 operations
+    each."""
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+
+    rp = rays.shape[0]
+    busy = int((~(rays[:, 7] <= rays[:, 6])).sum())
+    tests, blocks = walk_needed_tests(res, rays, got, occlusion, exact)
+    rows = 10 if occlusion else 9
+    nbytes = (busy * 32 + (rp - busy) * 8
+              + rp * (8 if exact and not occlusion else 4)
+              + (0 if exact else (rp // trs.CHUNK) * 4)
+              + blocks * rows * trs.BLOCK * 4)
+    return {"needed_tests": tests, "needed_blocks": blocks, **bound(
+        nbytes, tests * (FLOPS_TEST_DIV if exact else FLOPS_TEST_SCALED))}
+
+
 def walk_check(res, rays_in, occlusion: bool, name: str,
                exact: bool = False) -> dict:
     """One walk on sorted rays (`exact`: the exact-key mode, on culled or
     blocked tables): the kernel against the plain walk (`hold_walk`); fails
-    if the block cull skipped a (lane, block) pair that held a hit, or if
-    the kernel's triangle loops (`warp_blocks`) are not below the uncut
-    walk's lane-blocks / 32. Its time is of the walk alone, by CUDA
-    events."""
+    if the block cull skipped a (lane, block) pair that held a hit, or on
+    `cull_check`. Its time is of the walk alone, by CUDA events."""
     from tpu_pbrt_torch.ops import traverse_resident as trs
 
     kname = WALK_KERNEL[exact, occlusion]
@@ -1339,20 +1400,12 @@ def walk_check(res, rays_in, occlusion: bool, name: str,
     got = trs.walk_cuda(res, rays, octs, occlusion, exact)
     pl, counts, missed = hold_walk(res, rays, octs, occlusion, exact, None,
                                    got, f"{kname} ({name})")
-    if counts.warp_blocks * trs.WARP >= counts.work:
-        fail(f"{kname} ({name}): warp_blocks {counts.warp_blocks} not below "
-             f"lane_blocks / 32 = {counts.work / trs.WARP}")
-    rp, nb = rays.shape[0], res.tris.shape[0]
-    tests = walk_needed_tests(res, rays, got, occlusion, exact)
-    table_bytes = (res.tris.numel() + res.boxes.numel() + 2 * 8 * nb) * 4
+    cull_check(counts, exact, f"{kname} ({name})", res.tris.shape[0])
     return dict(
         rays=rays_in[0].x.shape[0],
-        **{**counts._asdict(), "missed_hits": missed},
-        needed_tests=tests, plain_ms=pl,
+        **{**counts._asdict(), "missed_hits": missed}, plain_ms=pl,
         ms=time_ms(lambda: trs.walk_cuda(res, rays, octs, occlusion, exact)),
-        **bound(rp * 32 + rp * (8 if exact and not occlusion else 4)
-                + (rp // trs.CHUNK) * 4 + table_bytes,
-                tests * (FLOPS_TEST_DIV if exact else FLOPS_TEST_SCALED)))
+        **walk_bound(res, rays, got, occlusion, exact))
 
 
 def check_walk_kernels(acc, mod, exact: bool, geometry, cam_rays,
@@ -1683,6 +1736,9 @@ def checked_wrappers(record: dict, keep: dict | None = None):
         if counts.missed_hits != 0:
             fail(f"{kname} at {rays.shape[0]} sorted rays: the cull skipped "
                  f"{counts.missed_hits} (lane, block) pairs that held a hit")
+        if exact:
+            cull_check(counts, True, f"{kname} at {rays.shape[0]} sorted "
+                                     f"rays", tris.tris.shape[0])
         note(kname, rays.shape[0], 0.0, (tris, rays, octs, exact, reach))
         return got
 
@@ -1894,13 +1950,7 @@ def shape_rows(name: str, keep: dict, by_tag: dict, ticks: int) -> list:
             ms = time_ms(lambda: trs.walk_cuda(res, srt, octs, occl, exact,
                                                reach))
             err = 0.0
-            rp, nb = srt.shape[0], res.tris.shape[0]
-            table_bytes = (res.tris.numel() + res.boxes.numel()
-                           + 2 * 8 * nb) * 4
-            bd = bound(rp * 32 + rp * (8 if exact and not occl else 4)
-                       + (rp // trs.CHUNK) * 4 + table_bytes,
-                       walk_needed_tests(res, srt, got, occl, exact)
-                       * (FLOPS_TEST_DIV if exact else FLOPS_TEST_SCALED))
+            bd = walk_bound(res, srt, got, occl, exact)
             tag = str(shape)
         elif kernel == "dense_closest_hit":
             tris, *rays = args
@@ -3904,11 +3954,11 @@ def bvh_capture(record: list):
         tv.closest_hit_cuda, tv.any_hit_cuda = saved
 
 
-def bvh_frame_times(frame, first: int, kernel: str = "bvh_walk") -> dict:
+def bvh_frame_times(frame, first: int, kernels=("bvh_walk",)) -> dict:
     """A warm-up frame, FRAMES timed frames (host clock around frames
     ending in a synchronize), PROFILED frames under `torch.profiler`
-    (device ms, launches, busy time, the walk `kernel`'s device ms), all
-    numbered from `first`."""
+    (device ms, launches, busy time, the device ms of the walk's
+    `kernels`, by name), all numbered from `first`."""
     import types
 
     import torch
@@ -3935,7 +3985,7 @@ def bvh_frame_times(frame, first: int, kernel: str = "bvh_walk") -> dict:
            "launches_per_frame": br.get("launches_per_tick"),
            "walk_device_ms_per_frame": sum(
                v for k, v in br.get("hand_written_ms_per_tick", {}).items()
-               if kernel in k)}
+               if any(n in k for n in kernels))}
     if "busy_ms_per_tick" in br:
         out["device_idle_share"] = 1.0 - br["busy_ms_per_tick"] / median
     return out
@@ -4060,88 +4110,126 @@ def walk_capture(record: list):
         trs.walk_cuda = saved
 
 
-def walk_times(device=None) -> int:
-    """The walk kernel in both its modes at the pools the `helmet` and
-    `helmet-100k` configurations' 1080p frames launch on (the bench camera,
-    1 SPP, 4 bounces, folds 1-3): one frame of each through its culled
-    tracer and one through the resident tracer, every walk launch
-    captured; on each launch's sorted rays the exact-key mode on the
-    culled tables and the resident mode on the resident tables of the same
-    triangles (both sort by the same bounds, so the pools are the same),
-    each held against its plain walk (`hold_walk`) with its counts, needed
-    tests and bound, and the two timed in turns (resident, exact, exact,
-    resident). Then the frames through each tracer in the same turns (wall
-    ms, device ms, launches, idle share). One JSON line a launch and one a
-    configuration."""
-    import torch
+def walk_frame(name: str, device):
+    """One of the culled tracer's 1080p paths `--walk-times` captures
+    (`WALK_FRAMES`): (target, frame), frame(f) renders frame f (or ticks
+    the App) on the card. bench.py's `helmet`, `helmet-100k` and `sphere`
+    (`Renderer`, the bench camera), `animated` (`AnimatedRenderer`, the
+    tube refit every frame) and the golden App (its 518,400- and
+    32,512-ray pools)."""
     from tpu_pbrt_torch import bench_configs
+
+    if name == "golden":
+        app = bench_configs.make_app("golden", WIDTH, HEIGHT, device=device)
+        return app, lambda f: app.tick()
+    cfg = bench_configs.make(name, device=device, width=WIDTH, height=HEIGHT)
+    target, camera = cfg.target, cfg.camera
+    if name == "animated":
+        return target, lambda f: target.render(camera, f, with_gbuffer=True)
+    return target, lambda f: target.render_with_stats(camera, f)
+
+
+def walk_times(others: list, device=None) -> int:
+    """The exact-key walk kernel at the pools the culled tracer's frames
+    launch on (`WALK_FRAMES`), one JSON line a launch and one a frame:
+    every walk launch of one frame (of one golden App tick), in launch
+    order, held bit for bit against the plain walk (`hold_walk`: the lane
+    schedule's kept-pair walk on the whole pool, the oracle on held
+    chunks, no skipped block that held a hit; `cull_check`), with the
+    replay's counts (live lanes, box groups, kept pairs, triangle tests)
+    beside the tests its function needs and the bound, and timed; on
+    `helmet` and `helmet-100k` the resident mode as well, on the resident
+    tables of the same triangles at the same sorted rays (the two sort by
+    the same bounds). With `others` (checkouts of other versions, the
+    parent first, unpacked with `git archive` into the git-ignored
+    `_checkout/` and loaded under an alias, `load_package`) their walk is
+    held bit for bit on the same inputs and every launch is timed in turns
+    (the others, this, this, the others in reverse); then the frames
+    through each version's walk in the same turns (wall ms, device ms,
+    launches, idle share, the walk's device ms). Ends with the kernels'
+    ptxas lines."""
+    import importlib
+
+    import torch
     from tpu_pbrt_torch.ops import cuda
     from tpu_pbrt_torch.ops import traverse_resident as trs
     from tpu_pbrt_torch.ops.tracer import build_for_scene
-    from tpu_pbrt_torch.render.renderer import Renderer
+    from tpu_pbrt_torch.profile_frame import sync_sites
 
     device = device or torch.device("cuda")
     print(gpu_line(), flush=True)
     cuda.library()
-    print(json.dumps({"ptxas_walk": ptxas_usage(cuda.build_log,
-                                                "resident_walk_kernel")}),
+    change = trs.walk_cuda
+    walks, logs, names = {"change": change}, {"change": cuda.build_log}, []
+    for j, root in enumerate(others):
+        name = os.path.basename(os.path.normpath(root))
+        pkg = load_package(root, f"tpu_pbrt_torch_{j}")
+        old_cuda = importlib.import_module(f"{pkg.__name__}.ops.cuda")
+        old_cuda.library()
+        walks[name] = importlib.import_module(
+            f"{pkg.__name__}.ops.traverse_resident").walk_cuda
+        logs[name] = old_cuda.build_log
+        names.append(name)
+    turns = names + ["change", "change"] + names[::-1]
+    walk_kernels = ("exact_walk_kernel", "resident_walk_kernel")
+    print(json.dumps({"ptxas_walk": {v: ptxas_usage(log, *walk_kernels)
+                                     for v, log in logs.items()}}),
           flush=True)
-    turns = ("resident", "exact", "exact", "resident")
-    for name in ("helmet", "helmet-100k"):
-        cfg = bench_configs.make(name, device=device)
-        culled, camera = cfg.target, cfg.camera
-        if culled.tracer.kind != "culled":
-            fail(f"walk_times {name}: tracer {culled.tracer.kind}")
-        res = build_for_scene(culled.scene, device=device, kind="resident")
-        resident = Renderer(culled.scene, WIDTH, HEIGHT, culled.settings,
-                            device=device, tracer=res)
-        culled.render(camera, 0)
+    for name in WALK_FRAMES:
+        target, frame = walk_frame(name, device)
+        if target.tracer.kind != "culled":
+            fail(f"walk_times {name}: tracer {target.tracer.kind}")
+        frame(0)
         record = []
-        for frame_of, r in (("culled", culled), ("resident", resident)):
-            launches = []
-            with walk_capture(launches):
-                r.render_with_stats(camera, 1)
-            record += [(frame_of, i, *x) for i, x in enumerate(launches)]
-        tables = {"exact": culled.tracer.accel, "resident": res.accel}
-        for frame_of, i, _, rays, octs, occl, _, _ in record:
-            row = {"config": name, "frame": frame_of, "launch": i,
+        with walk_capture(record):
+            frame(1)
+        syncs = sync_sites(lambda: frame(2))
+        res = (build_for_scene(target.scene, device=device,
+                               kind="resident").accel
+               if name in ("helmet", "helmet-100k") else None)
+        for i, (acc, rays, octs, occl, exact, reach) in enumerate(record):
+            if not exact:
+                fail(f"walk_times {name} {i}: a resident-mode launch")
+            row = {"config": name, "launch": i,
                    "query": "any_hit" if occl else "closest_hit",
                    "rays": rays.shape[0],
-                   "live": int((rays[:, 7] > rays[:, 6]).sum())}
-            for mode, acc in tables.items():
-                exact = mode == "exact"
-                got = trs.walk_cuda(acc, rays, octs, occl, exact)
-                pl, counts, _ = hold_walk(acc, rays, octs, occl, exact, None,
-                                          got, f"walk_times {name} {i} "
-                                               f"{mode}")
-                rp, nb = rays.shape[0], acc.tris.shape[0]
-                tests = walk_needed_tests(acc, rays, got, occl, exact)
-                row[mode] = {
-                    **counts._asdict(), "needed_tests": tests,
-                    "plain_ms": pl, **bound(
-                        rp * 32 + rp * (8 if exact and not occl else 4)
-                        + (rp // trs.CHUNK) * 4
-                        + (acc.tris.numel() + acc.boxes.numel()
-                           + 2 * 8 * nb) * 4,
-                        tests * (FLOPS_TEST_DIV if exact
-                                 else FLOPS_TEST_SCALED))}
-                row[mode].pop("missed_hits")
-            for mode in turns:
-                exact = mode == "exact"
-                row[mode].setdefault("ms", []).append(time_ms(
-                    lambda: trs.walk_cuda(tables[mode], rays, octs, occl,
-                                          exact)))
+                   "live": int((~(rays[:, 7] <= rays[:, 6])).sum())}
+            modes = [("exact", acc, True, reach)]
+            if res is not None:
+                modes.append(("resident", res, False, None))
+            for mode, tables, ex, rch in modes:
+                what = f"walk_times {name} {i} {mode}"
+                got = change(tables, rays, octs, occl, ex, rch)
+                pl, counts, _ = hold_walk(tables, rays, octs, occl, ex, rch,
+                                          got, what)
+                if ex:
+                    cull_check(counts, True, what, tables.tris.shape[0])
+                for version in names:
+                    if not torch.equal(walks[version](
+                            tables, rays, octs, occl, ex, rch), got):
+                        fail(f"{what}: {version}'s walk differs")
+                entry = {**counts._asdict(), "plain_ms": pl,
+                         **walk_bound(tables, rays, got, occl, ex)}
+                entry.pop("missed_hits")
+                for version in turns:
+                    entry.setdefault(f"{version}_ms", []).append(time_ms(
+                        lambda: walks[version](tables, rays, octs, occl, ex,
+                                               rch)))
+                row[mode] = entry
             print(json.dumps({"walk_launch": row}), flush=True)
-        del record
         frames = {}
-        for k, mode in enumerate(turns):
-            r = culled if mode == "exact" else resident
-            frames.setdefault(mode, []).append(bvh_frame_times(
-                lambda f: r.render_with_stats(camera, f), 100 * (k + 1),
-                "resident_walk_kernel"))
+        for k, version in enumerate(turns):
+            trs.walk_cuda = walks[version]
+            try:
+                frames.setdefault(version, []).append(bvh_frame_times(
+                    frame, 100 * (k + 1), walk_kernels))
+            finally:
+                trs.walk_cuda = change
         print(json.dumps({"walk_times": name, "frames": frames,
+                          "walk_launches_per_frame": len(record),
+                          "host_syncs_per_frame": len(syncs),
                           "gpu": gpu_line()}), flush=True)
-        del cfg, culled, resident, res
+        del record, target, frame, res
         torch.cuda.empty_cache()
     return 0
 
@@ -4156,10 +4244,11 @@ def main() -> int:
     parser.add_argument("--fetch-times", metavar="DIR", default=None,
                         help="only check and time the row fetch of the "
                              "checkout at DIR")
-    parser.add_argument("--walk-times", action="store_true",
-                        help="only check and time the walk kernel in both "
-                             "modes at the helmet's and helmet-100k's "
-                             "frame pools")
+    parser.add_argument("--walk-times", metavar="DIR", nargs="*",
+                        default=None,
+                        help="only check and time the exact-key walk at the "
+                             "culled frames' pools (against the walks of "
+                             "the checkouts DIR..., if given)")
     parser.add_argument("--bvh-times", metavar="DIR", nargs="*",
                         default=None,
                         help="only check and time the LBVH walk at its "
@@ -4173,9 +4262,9 @@ def main() -> int:
     if args.bvh_times is not None:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return bvh_times(args.bvh_times)
-    if args.walk_times:
+    if args.walk_times is not None:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        return walk_times()
+        return walk_times(args.walk_times)
     if args.dense_times is not None:
         return dense_times(args.dense_times)
     if args.fetch_times is not None:
@@ -4226,6 +4315,11 @@ def main() -> int:
     print(json.dumps({"ptxas_fetch_rows": ptxas_usage(cuda.build_log,
                                                       "fetch_rows")}),
           flush=True)
+    # the two walks: the exact-key one (a warp per lane, a persistent grid)
+    # and the resident one (a chunk per 256-thread block)
+    print(json.dumps({"ptxas_walks": ptxas_usage(
+        cuda.build_log, "exact_walk_kernel", "resident_walk_kernel")}),
+        flush=True)
 
     camera = make_cornell_camera(WIDTH, HEIGHT)
     kres, paths, pngs = {}, {}, {}

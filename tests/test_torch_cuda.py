@@ -536,7 +536,10 @@ def test_resident_adversarial_exact(dev, adversarial, name, exact):
         assert torch.equal(got, trs.walk_plain(res, rays, octs, occlusion,
                                                exact, sweep_all=False)[0])
         assert counts.missed_hits == 0
-        if name == "no_block":
+        if name == "no_block" and exact:
+            assert counts.live > 0 and counts.kept == 0
+            assert counts.tests == 0
+        elif name == "no_block":
             assert counts.work > 0 and counts.kept == 0
             assert counts.warp_blocks == 0
 
@@ -689,6 +692,98 @@ def test_blocked_reach_cap_on_card(dev):
     assert float(tcl.closest_hit_cuda(tcl.prepare(*corners, device=dev),
                                       *rays).mask.float().mean()) > 0.5
     assert not bool(tbl.any_hit_cuda(blk, *rays).any())
+
+
+@pytest.fixture(scope="module")
+def helmet_corners():
+    from tpu_pbrt_torch.models import helmet
+
+    g = helmet.make_scene("helmet", 40, 28).geometry
+    p, i = np.asarray(g.positions, np.float32), np.asarray(g.indices)
+    return p[i[:, 0]], p[i[:, 1]], p[i[:, 2]]
+
+
+def _sparse_pool(n, live, seed, corners, dev):
+    """An n-ray pool with `live` busy lanes at seeded places, as a late
+    bounce pool has them: rays leaving the reduced helmet's surface (t_min
+    1e-4) in uniform directions (every octant; a -0.0 component on every
+    5th), two with a NaN direction component from the mesh's centre; every
+    other lane inactive (t_max -inf)."""
+    rng = np.random.default_rng(seed)
+    v0, v1, v2 = corners
+    at = rng.choice(n, live + 2, replace=False)
+    k = rng.integers(0, len(v0), live + 2)
+    uv = rng.uniform(size=(live + 2, 2)) * 0.5
+    org = np.zeros((n, 3), np.float32)
+    org[at] = v0[k] + (v1 - v0)[k] * uv[:, :1] + (v2 - v0)[k] * uv[:, 1:]
+    d = np.zeros((n, 3), np.float32)
+    d[:, 2] = 1.0
+    d[at] = rng.normal(size=(live + 2, 3))
+    d[at] /= np.linalg.norm(d[at], axis=1, keepdims=True)
+    d[at[:live:5], 1] = -0.0
+    org[at[live:]] = 0.0
+    d[at[live], 0] = d[at[live + 1], 2] = np.nan
+    t_max = np.full(n, -np.inf, np.float32)
+    t_max[at] = np.inf
+
+    def v3(a):
+        return Vec3(*(torch.as_tensor(a[:, j].copy(), device=dev)
+                      for j in range(3)))
+
+    return (v3(org), v3(d), torch.full((n,), 1e-4, device=dev),
+            torch.as_tensor(t_max, device=dev))
+
+
+@pytest.mark.parametrize("live", [1, 31, 33, 257, 413])
+def test_exact_walk_sparse_pools(dev, helmet_corners, live):
+    """2^19-row pools with 1 to 413 busy lanes of mixed octants (and two
+    NaN directions): the exact-key kernel equals the plain walk bit for
+    bit (the oracle: no skipped block held a hit), on the culled tables
+    and on the blocked tables with their reach mask, in both queries; the
+    entry points equal their plain versions."""
+    n = 1 << 19
+    rays_in = _sparse_pool(n, live, live, helmet_corners, dev)
+    for mod in (tcl, tbl):
+        acc = mod.prepare(*helmet_corners, device=dev)
+        rays, perm, octs = trs.sort_rays(acc, *rays_in)
+        reach = None
+        if mod is tbl:
+            mask, tile = tbl.reach(acc, rays_in[0], rays_in[1], rays_in[3],
+                                   False)
+            reach = (mask.to(torch.uint8), torch.where(
+                perm < n, perm // tile, 0).to(torch.int32))
+        for occlusion in (False, True):
+            got = trs.walk_cuda(acc, rays, octs, occlusion, True, reach)
+            want, counts = trs.walk_plain(acc, rays, octs, occlusion, True,
+                                          reach)
+            assert torch.equal(got, want), (mod.__name__, occlusion)
+            assert counts.missed_hits == 0
+            assert live <= counts.live <= live + 2
+        hit = mod.closest_hit_cuda(acc, *rays_in)
+        want = mod.closest_hit_plain(acc, *rays_in)
+        assert torch.equal(hit.tri, want.tri)
+        assert torch.equal(hit.t.view(torch.int32), want.t.view(torch.int32))
+        assert live < 31 or bool(hit.mask.any())
+        assert torch.equal(mod.any_hit_cuda(acc, *rays_in),
+                           mod.any_hit_plain(acc, *rays_in))
+
+
+@pytest.mark.parametrize("n", [0, 600, 1 << 19])
+def test_exact_walk_all_idle(dev, helmet_corners, n):
+    """No busy lane (t_max -inf on every lane; and an empty pool): the
+    exact-key kernel answers every row as a miss or unoccluded, as the
+    plain walk does."""
+    acc = tcl.prepare(*helmet_corners, device=dev)
+    o, d, tmin, _ = _rays(n, 9, dev)
+    tmax = torch.full_like(tmin, -float("inf"))
+    hit = tcl.closest_hit_cuda(acc, o, d, tmin, tmax)
+    assert bool((hit.tri == -1).all()) and bool(torch.isinf(hit.t).all())
+    assert not bool(tcl.any_hit_cuda(acc, o, d, tmin, tmax).any())
+    rays, _, octs = trs.sort_rays(acc, o, d, tmin, tmax)
+    for occlusion in (False, True):
+        got = trs.walk_cuda(acc, rays, octs, occlusion, True)
+        want, counts = trs.walk_plain(acc, rays, octs, occlusion, True)
+        assert torch.equal(got, want) and counts.live == 0
 
 
 def test_resident_all_idle(dev):

@@ -363,15 +363,17 @@ def test_the_three_kinds_share_one_triangle_order(accels):
 def test_exact_walk_skips_no_hit(accels):
     """The plain walk in the exact-key mode on the helmet's bounce rays:
     the block cull skips no (lane, block) pair whose sweep found a hit,
-    its triangle loops stay below the uncut walk's lane-blocks / 32, and
-    the culled tables' keys are those of their padded boxes."""
+    it keeps fewer pairs than it box-tests and tests no
+    more than the kept blocks' triangles, and the culled tables' keys are
+    those of their padded boxes."""
     tacc = accels["culled", "helmet"][1]
     rays, _, octs = tres.sort_rays(tacc, *_torch(*_ray_set("helmet",
                                                            "bounce")))
     for occlusion in (False, True):
         _, counts = tres.walk_plain(tacc, rays, octs, occlusion, exact=True)
         assert counts.missed_hits == 0
-        assert 0 < counts.warp_blocks * tres.WARP < counts.work
+        assert 0 < counts.kept < counts.boxes <= counts.groups * tres.GROUP
+        assert 0 < counts.tests <= counts.kept * tres.BLOCK
     boxes, orders, keys = tres.exact_tables(tacc.tris, tacc.tri_id,
                                             tacc.scene_diag)
     assert torch.equal(orders, tacc.orders) and torch.equal(keys, tacc.keys)

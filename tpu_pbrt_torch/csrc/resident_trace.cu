@@ -3,35 +3,16 @@
 //
 // tpb_resident_closest_hit and tpb_resident_any_hit replace the TPU kernel
 // tpu_pbrt/ops/traverse_resident.py::_kernel (through _run_kernel,
-// closest_hit and any_hit). tpb_exact_closest_hit and tpb_exact_any_hit
-// are the same walk in its exact-key mode: the machine the port computes
-// the reference's big-scene tracers on (tpu_pbrt/ops/traverse_culled.py,
-// its default above 2048 triangles, and traverse_blocked.py, both XLA),
-// the G-buffer and every bounce of such a scene and its NEE shadow rays.
-// All four run one kernel body; the occlusion flag and the exact-key mode
-// are template arguments.
-//
-// The exact-key mode. The sweep runs the reference tracers' Moller-Trumbore
-// form (traverse_culled._mt_comp_T: inv = 1/det, then u, v and t each
-// multiplied by inv, in that operation order), and a lane keeps a 64-bit
-// key: t's bits in the high word (t > t0 >= 0, so the bits order as the
-// floats do), the block slot in the low word, INT64_MAX when nothing was
-// hit. Its minimum is the nearest hit, the lowest slot on exactly equal t,
-// whatever order the walk visits the blocks in: the interval shrink before
-// a block accepts t equal to the lane's best t (strict against t1 only),
-// the block cull and the done test read that exact t and stay conservative
-// at equality, and the entry keys the done test reads are those of the
-// padded block boxes (traverse_resident.exact_tables), so no block that
-// can still hold a hit at or before the best t is passed over. The
-// occlusion query of that mode uses the same test. Callers: ops/
-// traverse_culled.py (t cut to the reference's 11 mantissa bits on the
-// host side) and ops/traverse_blocked.py (t exact).
+// closest_hit and any_hit). Both run one kernel body; the occlusion flag is
+// a template argument. (The exact-key walk of the culled and blocked
+// tracers is csrc/exact_trace.cu.)
 //
 // The reach mask. traverse_blocked's reference sweeps a block for a ray
 // only if the ray's 65,536-lane input tile can reach it within twice its
 // scene diagonal (ROADMAP F10); `reach` ((tiles, nb) bytes, or null) and
 // `lane_tile` (the tile of each sorted row) carry that mask, and a lane
-// never keeps a block its tile cannot reach.
+// never keeps a block its tile cannot reach (blocked's any hit runs this
+// walk's occlusion mode).
 //
 // Inputs (see ops/traverse_resident.py): rays sorted by octant and Morton
 // code, (Rp, 8) rows ox,oy,oz,dx,dy,dz,t0,teff with teff <= t0 on idle
@@ -81,8 +62,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr int kBlock = 128;      // triangles per block
@@ -94,7 +73,6 @@ constexpr int kStaged = kUsedRows * kBlock;     // floats staged per block
 constexpr int kPieces = kStaged / 4;            // 16-byte copies per block
 constexpr int kDonePeriod = 4;
 constexpr int kSentinel = 0x7FFFFFFF;
-constexpr long long kSentinel64 = 0x7FFFFFFFFFFFFFFFLL;
 // 1 + 2*gamma_3 in f32 (0x3F800003): the far slab's widening (Ize, "Robust
 // BVH Ray Traversal", JCGT 2013); traverse_resident.FAR_SCALE
 constexpr float kFarScale = 0x1.000006p+0f;
@@ -111,12 +89,6 @@ struct Box {
 __device__ __forceinline__ float unpack_t(int key, int keep) {
     return key >= 0x7F800000 ? __int_as_float(0x7f800000)
                              : __int_as_float(key & keep);
-}
-
-// t of an exact key, +inf for the sentinel
-__device__ __forceinline__ float exact_t(long long key) {
-    return key == kSentinel64 ? __int_as_float(0x7f800000)
-                              : __int_as_float((int)(key >> 32));
 }
 
 // 1/d with |d| <= 1e-12 (0 and -0.0 included) replaced by +-1e-12, as
@@ -150,90 +122,45 @@ __device__ __forceinline__ bool may_hit(const Box& bx, const float o[3],
     return near <= fminf(far * kFarScale, t_hi);
 }
 
-// One staged block against one lane. Closest mode returns min(best, the
-// block's best key) with the interval shrunk to `best` first; occlusion
-// mode returns 1 at the first opacity >= 0.5 hit, else best. Resident mode
-// runs the det-scaled test of the reference kernel and keeps int32 keys;
-// the exact-key mode the inv-form test and 64-bit keys (see the top).
-template <bool kOcclusion, bool kExact, typename Key>
-__device__ __forceinline__ Key sweep(const float (*s)[kBlock], int bid,
-                                     const Ray& r, Key best, int keep) {
-    if constexpr (kExact) {
-        const float tb = kOcclusion ? 0.0f : exact_t(best);
-        long long cbest = kSentinel64;
-        for (int k = 0; k < kBlock; ++k) {
-            const float e1x = s[3][k], e1y = s[4][k], e1z = s[5][k];
-            const float e2x = s[6][k], e2y = s[7][k], e2z = s[8][k];
-            const float pvx = r.dy * e2z - r.dz * e2y;
-            const float pvy = r.dz * e2x - r.dx * e2z;
-            const float pvz = r.dx * e2y - r.dy * e2x;
-            const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-            // no guard: |det| <= 1e-12 never hits, whatever the quotient
-            const float inv = 1.0f / det;
-            const float tvx = r.ox - s[0][k];
-            const float tvy = r.oy - s[1][k];
-            const float tvz = r.oz - s[2][k];
-            const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
-            const float qvx = tvy * e1z - tvz * e1y;
-            const float qvy = tvz * e1x - tvx * e1z;
-            const float qvz = tvx * e1y - tvy * e1x;
-            const float v = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv;
-            const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
-            const bool hit = fabsf(det) > 1e-12f && u >= 0.0f && v >= 0.0f
-                             && u + v <= 1.0f && t > r.t0 && t < r.t1;
-            if (kOcclusion) {
-                if (hit && s[9][k] >= 0.5f) return 1;
-            } else if (hit && t <= tb) {
-                const long long key =
-                    ((long long)__float_as_int(t) << 32) | (bid * kBlock + k);
-                cbest = min(cbest, key);
-            }
+// One staged block against one lane, the det-scaled test of the reference
+// kernel. Closest mode returns min(best, the block's best int32 key) with
+// the interval shrunk to `best` first; occlusion mode returns 1 at the
+// first opacity >= 0.5 hit, else best.
+template <bool kOcclusion>
+__device__ __forceinline__ int sweep(const float (*s)[kBlock], int bid,
+                                     const Ray& r, int best, int keep) {
+    const float teff = kOcclusion ? r.t1 : fminf(r.t1, unpack_t(best, keep));
+    int cbest = kSentinel;
+    for (int k = 0; k < kBlock; ++k) {
+        const float e1x = s[3][k], e1y = s[4][k], e1z = s[5][k];
+        const float e2x = s[6][k], e2y = s[7][k], e2z = s[8][k];
+        const float pvx = r.dy * e2z - r.dz * e2y;
+        const float pvy = r.dz * e2x - r.dx * e2z;
+        const float pvz = r.dx * e2y - r.dy * e2x;
+        const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+        const float sg = det >= 0.0f ? 1.0f : -1.0f;
+        const float ad = det * sg;
+        const float tvx = r.ox - s[0][k];
+        const float tvy = r.oy - s[1][k];
+        const float tvz = r.oz - s[2][k];
+        const float un = (tvx * pvx + tvy * pvy + tvz * pvz) * sg;
+        const float qvx = tvy * e1z - tvz * e1y;
+        const float qvy = tvz * e1x - tvx * e1z;
+        const float qvz = tvx * e1y - tvy * e1x;
+        const float vn = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * sg;
+        const float tn = (e2x * qvx + e2y * qvy + e2z * qvz) * sg;
+        const bool hit = ad > 1e-12f && un >= 0.0f && vn >= 0.0f
+                         && un + vn <= ad && tn > r.t0 * ad
+                         && tn < teff * ad;
+        if (kOcclusion) {
+            if (hit && s[9][k] >= 0.5f) return 1;
+        } else if (hit) {
+            const int key = (__float_as_int(tn / ad) & keep)
+                            | (bid * kBlock + k);
+            cbest = min(cbest, key);
         }
-        if constexpr (kOcclusion) return best;
-        else return min(best, (Key)cbest);
-    } else {
-        const float teff = kOcclusion ? r.t1
-                                      : fminf(r.t1, unpack_t(best, keep));
-        int cbest = kSentinel;
-        for (int k = 0; k < kBlock; ++k) {
-            const float e1x = s[3][k], e1y = s[4][k], e1z = s[5][k];
-            const float e2x = s[6][k], e2y = s[7][k], e2z = s[8][k];
-            const float pvx = r.dy * e2z - r.dz * e2y;
-            const float pvy = r.dz * e2x - r.dx * e2z;
-            const float pvz = r.dx * e2y - r.dy * e2x;
-            const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-            const float sg = det >= 0.0f ? 1.0f : -1.0f;
-            const float ad = det * sg;
-            const float tvx = r.ox - s[0][k];
-            const float tvy = r.oy - s[1][k];
-            const float tvz = r.oz - s[2][k];
-            const float un = (tvx * pvx + tvy * pvy + tvz * pvz) * sg;
-            const float qvx = tvy * e1z - tvz * e1y;
-            const float qvy = tvz * e1x - tvx * e1z;
-            const float qvz = tvx * e1y - tvy * e1x;
-            const float vn = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * sg;
-            const float tn = (e2x * qvx + e2y * qvy + e2z * qvz) * sg;
-            const bool hit = ad > 1e-12f && un >= 0.0f && vn >= 0.0f
-                             && un + vn <= ad && tn > r.t0 * ad
-                             && tn < teff * ad;
-            if (kOcclusion) {
-                if (hit && s[9][k] >= 0.5f) return 1;
-            } else if (hit) {
-                const int key = (__float_as_int(tn / ad) & keep)
-                                | (bid * kBlock + k);
-                cbest = min(cbest, key);
-            }
-        }
-        return kOcclusion ? best : min(best, (Key)cbest);
     }
-}
-
-// a lane's best before its walk: no occluder, or the sentinel key
-template <bool kOcclusion, bool kExact, typename Key>
-__device__ __forceinline__ Key initial_best() {
-    if constexpr (kOcclusion) return 0;
-    else if constexpr (kExact) return kSentinel64;
-    else return kSentinel;
+    return kOcclusion ? best : min(best, cbest);
 }
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -279,7 +206,7 @@ __device__ __forceinline__ unsigned chunk_or(bool a, bool b,
     return need;
 }
 
-template <bool kOcclusion, bool kExact>
+template <bool kOcclusion>
 __global__ void __launch_bounds__(kChunk)
 resident_walk_kernel(const float* __restrict__ rays,
                      const float* __restrict__ tris,
@@ -289,11 +216,7 @@ resident_walk_kernel(const float* __restrict__ rays,
                      const int* __restrict__ octs, int nb, int idx_bits,
                      const unsigned char* __restrict__ reach,
                      const int* __restrict__ lane_tile,
-                     void* __restrict__ out) {
-    // the lane's best: an exact 64-bit key, a resident int32 key, or the
-    // occlusion flag
-    using Key = typename std::conditional<kExact && !kOcclusion, long long,
-                                          int>::type;
+                     int* __restrict__ out) {
     // [buffer][block a or b of the step][rows 0-9 x 128]
     __shared__ __align__(16) float stage[2][2][kStaged];
     __shared__ unsigned need_words[2][kWarps];
@@ -319,16 +242,13 @@ resident_walk_kernel(const float* __restrict__ rays,
     const float o[3] = {r.ox, r.oy, r.oz};
     const float inv[3] = {safe_inv(r.dx), safe_inv(r.dy), safe_inv(r.dz)};
     const int keep = -(1 << idx_bits);
-    Key best = initial_best<kOcclusion, kExact, Key>();
+    int best = kOcclusion ? 0 : kSentinel;   // the key, or the flag
     // the reach mask's row for this lane's input tile, if any
     const unsigned char* my_reach =
         reach ? reach + (size_t)lane_tile[i] * nb : nullptr;
 
-    // the lane's best t (closest modes)
-    auto best_t = [&]() -> float {
-        if constexpr (kExact) return exact_t((long long)best);
-        else return unpack_t((int)best, keep);
-    };
+    // the lane's best t (closest mode)
+    auto best_t = [&]() -> float { return unpack_t(best, keep); };
     // may this lane still hit block b with box bx? (its current segment)
     auto kept = [&](const Box& bx, int b) {
         const bool busy = !idle && (!kOcclusion || best == 0);
@@ -360,14 +280,14 @@ resident_walk_kernel(const float* __restrict__ rays,
 
             const bool ka = (need & 1u) && kept(xa, ba);
             if (__any_sync(0xffffffffu, ka)) {
-                const Key got = sweep<kOcclusion, kExact>(
+                const int got = sweep<kOcclusion>(
                     reinterpret_cast<const float (*)[kBlock]>(stage[p][0]),
                     ba, r, best, keep);
                 if (ka) best = got;
             }
             const bool kb = (need & 2u) && kept(xb, bb);
             if (__any_sync(0xffffffffu, kb)) {
-                const Key got = sweep<kOcclusion, kExact>(
+                const int got = sweep<kOcclusion>(
                     reinterpret_cast<const float (*)[kBlock]>(stage[p][1]),
                     bb, r, best, keep);
                 if (kb) best = got;
@@ -388,16 +308,16 @@ resident_walk_kernel(const float* __restrict__ rays,
         }
         cp_async_wait_all();               // no copy outlives the block
     }
-    static_cast<Key*>(out)[i] = best;
+    out[i] = best;
 }
 
-template <bool kOcclusion, bool kExact>
+template <bool kOcclusion>
 int launch(const float* rays, const float* tris, const float* boxes,
            const int* orders, const float* keys, const int* octs, int nch,
            int nb, int idx_bits, const unsigned char* reach,
-           const int* lane_tile, void* out, cudaStream_t stream) {
+           const int* lane_tile, int* out, cudaStream_t stream) {
     if (nch > 0) {
-        resident_walk_kernel<kOcclusion, kExact><<<nch, kChunk, 0, stream>>>(
+        resident_walk_kernel<kOcclusion><<<nch, kChunk, 0, stream>>>(
             rays, tris, boxes, orders, keys, octs, nb, idx_bits, reach,
             lane_tile, out);
     }
@@ -410,7 +330,7 @@ extern "C" {
 
 // rays (Rp, 8), tris (nb, 16, 128), boxes (nb, 6), orders and keys (8, nb),
 // octs (nch,); reach ((tiles, nb) bytes) and lane_tile (Rp,) or both null;
-// out (Rp,): int32 keys or flags, int64 keys for tpb_exact_closest_hit
+// out (Rp,): int32 keys or flags
 int tpb_resident_closest_hit(const float* rays, const float* tris,
                              const float* boxes, const int* orders,
                              const float* keys, const int* octs, int nch,
@@ -418,7 +338,7 @@ int tpb_resident_closest_hit(const float* rays, const float* tris,
                              const unsigned char* reach,
                              const int* lane_tile, int* out,
                              cudaStream_t stream) {
-    return launch<false, false>(rays, tris, boxes, orders, keys, octs, nch,
+    return launch<false>(rays, tris, boxes, orders, keys, octs, nch,
                                 nb, idx_bits, reach, lane_tile, out, stream);
 }
 
@@ -428,27 +348,8 @@ int tpb_resident_any_hit(const float* rays, const float* tris,
                          int idx_bits, const unsigned char* reach,
                          const int* lane_tile, int* out,
                          cudaStream_t stream) {
-    return launch<true, false>(rays, tris, boxes, orders, keys, octs, nch,
-                               nb, idx_bits, reach, lane_tile, out, stream);
-}
-
-int tpb_exact_closest_hit(const float* rays, const float* tris,
-                          const float* boxes, const int* orders,
-                          const float* keys, const int* octs, int nch,
-                          int nb, const unsigned char* reach,
-                          const int* lane_tile, long long* out,
-                          cudaStream_t stream) {
-    return launch<false, true>(rays, tris, boxes, orders, keys, octs, nch,
-                               nb, 0, reach, lane_tile, out, stream);
-}
-
-int tpb_exact_any_hit(const float* rays, const float* tris,
-                      const float* boxes, const int* orders,
-                      const float* keys, const int* octs, int nch, int nb,
-                      const unsigned char* reach, const int* lane_tile,
-                      int* out, cudaStream_t stream) {
-    return launch<true, true>(rays, tris, boxes, orders, keys, octs, nch, nb,
-                              0, reach, lane_tile, out, stream);
+    return launch<true>(rays, tris, boxes, orders, keys, octs, nch, nb,
+                        idx_bits, reach, lane_tile, out, stream);
 }
 
 }  // extern "C"

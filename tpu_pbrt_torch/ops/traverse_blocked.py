@@ -1,6 +1,6 @@
 """The reference's blocked big-scene tracer (port of
-`tpu_pbrt/ops/traverse_blocked.py`), on the exact-key mode of the
-resident-walk kernel.
+`tpu_pbrt/ops/traverse_blocked.py`), on the exact-key walk kernel
+(`csrc/exact_trace.cu`).
 
 The reference sweeps Morton-sorted 128-triangle blocks for 65,536-ray
 tiles under a tile-level `lax.cond`, a design built around TPU costs. The

@@ -31,16 +31,20 @@ whose sweep found a hit (`missed_hits`, 0 when the test holds).
 triangles on the device (the stored Morton slots kept; the keys, orders,
 bounds and boxes recomputed), bit-equal to the reference's refit.
 
-The exact-key mode (`exact=True` of `walk_plain` / `walk_cuda`, the
-kernel's `tpb_exact_*` entries) is the same walk computing what the
-reference's big-scene tracers compute (`ops/traverse_culled`,
+The exact-key mode (`exact=True` of `walk_plain` / `walk_cuda`) computes
+what the reference's big-scene tracers compute (`ops/traverse_culled`,
 `ops/traverse_blocked`): their inv-form Möller-Trumbore (`inv = 1/det`),
 and an int64 key per lane, t's bits over the block slot, so the minimum is
 the nearest hit and, on exactly equal t, the lowest Morton slot, in
 whatever order the blocks are walked. Its tables (`exact_tables`) order and
 key the blocks by their padded boxes, so the done test, like the cull, can
 pass over no block that may still hold a hit at or before the lane's best
-t. `query` sorts, walks and unsorts for all three kinds; a `reach` mask
+t. Since no order decides a result, its kernel (`csrc/exact_trace.cu`,
+`tpb_exact_closest_hit` / `tpb_exact_any_hit`) schedules by lane, not by
+chunk: a warp walks one busy lane in that lane's own octant order, GROUP
+block boxes at a time, and tests only the lane's kept blocks.
+`walk_plain` replays that schedule for its counts (`LaneCounts`). `query`
+sorts, walks and unsorts for all three kinds; a `reach` mask
 (traverse_blocked's tile reach) keeps a lane off the blocks its input
 tile cannot reach.
 """
@@ -61,6 +65,7 @@ from .vec import Vec3
 BLOCK = 128        # triangles per block (kBlock in csrc/resident_trace.cu)
 CHUNK = 256        # rays per chunk (one thread block)
 DONE_PERIOD = 4    # steps between early-exit checks (power of two)
+GROUP = 32         # block boxes the exact-key walk tests at once (a warp)
 _ROWS = 16         # v0(3) e1(3) e2(3) opacity(1) pad(6)
 _M32 = 0xFFFFFFFF
 SENTINEL = 0x7FFFFFFF
@@ -78,11 +83,15 @@ _SOURCE = "tpu_pbrt_torch/csrc/resident_trace.cu"
 _REPLACES = "tpu_pbrt/ops/traverse_resident.py:166"
 CLOSEST_HIT_KERNEL = cuda.register("resident_closest_hit", _SOURCE, _REPLACES)
 ANY_HIT_KERNEL = cuda.register("resident_any_hit", _SOURCE, _REPLACES)
-# the exact-key mode of the same kernel (`ops/traverse_culled`,
-# `ops/traverse_blocked`)
-EXACT_CLOSEST_HIT_KERNEL = cuda.register("exact_closest_hit", _SOURCE,
-                                         _REPLACES)
-EXACT_ANY_HIT_KERNEL = cuda.register("exact_any_hit", _SOURCE, _REPLACES)
+# the exact-key walk of the reference's big-scene tracers (XLA, no Pallas
+# kernel), which `ops/traverse_culled` and `ops/traverse_blocked` run
+_EXACT_SOURCE = "tpu_pbrt_torch/csrc/exact_trace.cu"
+EXACT_CLOSEST_HIT_KERNEL = cuda.register(
+    "exact_closest_hit", _EXACT_SOURCE,
+    "tpu_pbrt/ops/traverse_culled.py:1093, "
+    "tpu_pbrt/ops/traverse_blocked.py:158")
+EXACT_ANY_HIT_KERNEL = cuda.register(
+    "exact_any_hit", _EXACT_SOURCE, "tpu_pbrt/ops/traverse_culled.py:1098")
 
 
 class ResidentTris(NamedTuple):
@@ -433,9 +442,10 @@ def exact_t(key: torch.Tensor) -> torch.Tensor:
 def _sweep_exact(tr, bid, ray, best, occlusion: bool):
     """`_sweep` in the exact-key mode: the inv-form Möller-Trumbore of the
     reference's culled and blocked tracers (`_mt_comp_T`: inv = 1/det, u,
-    v, t each times inv) in its operation order; best (n, 256) i64 keys
-    (t's bits << 32 | slot), the interval shrunk to t <= the lane's best
-    t, or the occlusion flag."""
+    v, t each times inv) in its operation order; tr (n, 10 or 16, 128),
+    bid (n,), ray columns (n, k, 1), best (n, k) i64 keys (t's bits << 32
+    | slot), the interval shrunk to t <= the lane's best t, or the
+    occlusion flag."""
     ox, oy, oz, dx, dy, dz, t0, t1 = ray
     v0x, v0y, v0z = tr[:, 0:1], tr[:, 1:2], tr[:, 2:3]
     e1x, e1y, e1z = tr[:, 3:4], tr[:, 4:5], tr[:, 5:6]
@@ -512,6 +522,7 @@ def _sweep(tr, bid, ray, best, occlusion: bool, keep: int):
 
 _PLAIN_BATCH = 512   # chunks per plain sweep: bounds its (n, 256, 128) temps
 _PAIR_BATCH = 1 << 14   # kept pairs per sweep of `sweep_all=False`
+_LANE_BATCH = 1 << 15   # lanes per block sweep of the exact-key oracle
 
 
 class WalkCounts(NamedTuple):
@@ -528,24 +539,174 @@ class WalkCounts(NamedTuple):
     missed_hits: int
 
 
+class LaneCounts(NamedTuple):
+    """What one walk of the exact-key kernel's schedule did, in (lane,
+    block) pairs over the groups the lanes walk: `live` the busy lanes
+    (not idle), `groups` the (lane, group of GROUP blocks) box tests,
+    `boxes` the (lane, block) box tests of those groups (GROUP a group,
+    fewer in the last one), `kept` the pairs whose box met the lane's segment at its group's start
+    (and its tile's reach), `tests` the ray-triangle tests run (BLOCK for
+    each kept pair whose box still met the lane's segment, shrunk by the
+    group's earlier blocks, when its turn came), `missed_hits` the busy
+    pairs of the walked groups it left unswept whose sweep found a hit
+    (closest) or a blocker (occlusion): 0 when the cull is conservative,
+    -1 when not counted."""
+    live: int
+    groups: int
+    boxes: int
+    kept: int
+    tests: int
+    missed_hits: int
+
+
+def _walk_lanes(tris: ResidentTris, rays: torch.Tensor, occlusion: bool,
+                reach, sweep_all: bool) -> tuple[torch.Tensor, LaneCounts]:
+    """`walk_plain`'s exact-key mode: the kernel's lane schedule
+    (`csrc/exact_trace.cu`), vectorized over the lanes still walking. A
+    busy lane (not t1 <= t0) walks its own octant's block order (the
+    octant of its direction, sort_rays' >= 0 rule) in groups of GROUP:
+    before a group it stops if its reachable point lies before the
+    group's first entry key; the group's boxes are tested against its
+    segment [t0, min(t1, t of its best key)] (and its reach); then each
+    kept block in order is swept if its box still meets the segment (the
+    best only shrinks it). Occlusion ends a lane at its first blocker.
+    `sweep_all` (the oracle) sweeps every block of a walked group for
+    every lane still walking it and counts the unswept pairs that held a
+    hit; else only the swept pairs are swept."""
+    nb = tris.tris.shape[0]
+    rp = rays.shape[0]
+    dev = rays.device
+    cols = rays.unbind(-1)
+    ox, oy, oz, dx, dy, dz, t0, t1 = cols
+    oct_ = ((dx >= 0).to(torch.int64) + 2 * (dy >= 0).to(torch.int64)
+            + 4 * (dz >= 0).to(torch.int64))
+    sx = torch.where((oct_ & 1) != 0, 1.0, -1.0)
+    sy = torch.where((oct_ & 2) != 0, 1.0, -1.0)
+    sz = torch.where((oct_ & 4) != 0, 1.0, -1.0)
+    so = sx * ox + sy * oy + sz * oz
+    sd = sx * dx + sy * dy + sz * dz
+    oct_ok = (dx * sx >= 0.0) & (dy * sy >= 0.0) & (dz * sz >= 0.0)
+    best = torch.full((rp,), 0 if occlusion else SENTINEL64,
+                      dtype=torch.int32 if occlusion else torch.int64,
+                      device=dev)
+    lanes = torch.nonzero(~(t1 <= t0)).squeeze(1)
+    counts = [lanes.numel(), 0, 0, 0, 0, 0 if sweep_all else -1]
+    if reach is not None:
+        mask, lane_tile = reach[0].bool(), reach[1].long()
+    for g in range(0, nb, GROUP):
+        b = best[lanes]
+        lc = [c[lanes] for c in cols]
+        lo = oct_[lanes]
+        far = lc[7] if occlusion else torch.minimum(lc[7], exact_t(b))
+        go = ~(oct_ok[lanes] & (so[lanes] + sd[lanes] * far
+                                < tris.keys[lo, g]))
+        if occlusion:
+            go &= b == 0
+        lanes, b, lo, far = lanes[go], b[go], lo[go], far[go]
+        lc = [c[go] for c in lc]
+        if lanes.numel() == 0:
+            break
+        bid = tris.orders[lo, g:g + GROUP].long()             # (n, m)
+        ray = [c[:, None] for c in lc]
+        kept = block_may_hit(tris.boxes[bid], ray, ray[6], far[:, None])
+        allowed = mask[lane_tile[lanes][:, None], bid] if reach is not None \
+            else None
+        if allowed is not None:
+            kept &= allowed
+        counts[1] += lanes.numel()
+        counts[2] += kept.numel()
+        counts[3] += int(kept.sum())
+        walked = range(bid.shape[1]) if sweep_all else \
+            torch.nonzero(kept.any(0)).squeeze(1).tolist()
+        for j in walked:
+            bj = bid[:, j]
+            idx = torch.nonzero(kept[:, j]).squeeze(1)
+            if occlusion:
+                idx = idx[b[idx] == 0]
+            else:
+                idx = idx[block_may_hit(
+                    tris.boxes[bj[idx]], [c[idx] for c in lc], lc[6][idx],
+                    torch.minimum(lc[7][idx], exact_t(b[idx])))]
+            counts[4] += idx.numel() * BLOCK
+            if sweep_all:
+                swept = torch.zeros_like(kept[:, j])
+                swept[idx] = True
+                found, b = _sweep_octants(
+                    tris, bj, lo, lc, b, occlusion,
+                    None if allowed is None else allowed[:, j])
+                counts[5] += int((found & ~swept).sum())
+            else:
+                for p in range(0, idx.numel(), _PAIR_BATCH):
+                    ii = idx[p:p + _PAIR_BATCH]
+                    pb = bj[ii]
+                    b[ii] = _sweep_exact(
+                        tris.tris[pb, :10], pb,
+                        [c[ii][:, None, None] for c in lc],
+                        b[ii][:, None], occlusion)[0][:, 0]
+        best[lanes] = b
+    return best, LaneCounts(*counts)
+
+
+def _sweep_octants(tris: ResidentTris, bid, lo, lc, b, occlusion: bool,
+                   allowed):
+    """The exact-key oracle's sweep of one group column: lane i against
+    block bid[i] (the lanes of one octant share it, so each octant's lanes
+    sweep one broadcast block, _LANE_BATCH at a time), lanes whose tile
+    cannot reach it (`allowed` false) and occluded lanes left alone.
+    Returns (found (n,) bool, the new best (n,))."""
+    found = torch.zeros(lo.shape, dtype=torch.bool, device=lo.device)
+    out = b.clone()
+    for oc in torch.unique(lo).tolist():
+        idx = torch.nonzero(lo == oc).squeeze(1)
+        if occlusion:
+            idx = idx[b[idx] == 0]
+        if allowed is not None:
+            idx = idx[allowed[idx]]
+        if idx.numel() == 0:
+            continue
+        blk = bid[idx[:1]]
+        for p in range(0, idx.numel(), _LANE_BATCH):
+            ii = idx[p:p + _LANE_BATCH]
+            nb_, f = _sweep_exact(tris.tris[blk], blk,
+                                  [c[ii][None, :, None] for c in lc],
+                                  b[ii][None], occlusion)
+            out[ii] = nb_[0]
+            found[ii] = f[0]
+    return found, out
+
+
 def walk_plain(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
                occlusion: bool, exact: bool = False, reach=None,
-               sweep_all: bool = True) -> tuple[torch.Tensor, WalkCounts]:
-    """Plain PyTorch walk, vectorized over the chunks still walking.
+               sweep_all: bool = True):
+    """Plain PyTorch walk on its kernel's schedule: the resident mode's
+    chunk steps (`walk_chunks`), or with `exact` the exact-key kernel's
+    lanes (`_walk_lanes`; `octs` is not read). `reach` = (mask (tiles, NB)
+    u8 or bool, lane_tile (Rp,) i32) drops the blocks a lane's tile cannot
+    reach (their pairs are neither kept nor swept). By default it sweeps
+    every block the schedule walks for every lane (the oracle) and counts
+    the pairs the cull skipped whose sweep found a hit (`missed_hits`);
+    `sweep_all=False` sweeps only the kept (lane, block) pairs, as the
+    kernels do: the same result where the cull is conservative, at a
+    fraction of the work, and `missed_hits` is -1 (not counted). Returns
+    (best (Rp,) i32, or i64 keys in the exact closest mode, WalkCounts, or
+    LaneCounts in the exact-key mode)."""
+    if exact:
+        return _walk_lanes(tris, rays, occlusion, reach, sweep_all)
+    return walk_chunks(tris, rays, octs, occlusion, False, reach, sweep_all)
 
-    Replays the kernel's steps: chunks whose lanes are all idle (teff <=
-    t0) return at once; each step sweeps blocks orders[oct, 2j] and
-    orders[oct, min(2j+1, nb-1)]; every DONE_PERIOD-th step a chunk stops
-    when every lane passes the done test. It sweeps every block for every
-    lane (the oracle) and evaluates `block_may_hit` on each (lane, block)
-    with the lane's interval at that moment. `exact` runs the exact-key
-    mode (`_sweep_exact`); `reach` = (mask (tiles, NB) u8 or bool, lane_tile
-    (Rp,) i32) drops the blocks a lane's tile cannot reach (their pairs are
-    neither kept nor swept). `sweep_all=False` sweeps only the kept (lane,
-    block) pairs, as the kernel does: the same result where the cull is
-    conservative (which the oracle's `missed_hits` shows), at a fraction
-    of the work, and `missed_hits` is -1 (not counted). Returns (best
-    (Rp,) i32, or i64 keys in the exact closest mode, WalkCounts)."""
+
+def walk_chunks(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
+                occlusion: bool, exact: bool = False, reach=None,
+                sweep_all: bool = True) -> tuple[torch.Tensor, WalkCounts]:
+    """The resident kernel's chunk schedule, vectorized over the chunks
+    still walking: chunks whose lanes are all idle (teff <= t0) return at
+    once; each step sweeps blocks orders[oct, 2j] and orders[oct, min(2j+1,
+    nb-1)]; every DONE_PERIOD-th step a chunk stops when every lane passes
+    the done test. It evaluates `block_may_hit` on each (lane, block) with
+    the lane's interval at that moment. `exact` runs the exact-key test
+    and keys on this schedule: a second replay, whose keys and flags the
+    lane schedule's must equal (no order decides them); `reach` and
+    `sweep_all` are `walk_plain`'s."""
     nb = tris.tris.shape[0]
     keep = -(1 << idx_bits(nb))
     exact_key = exact and not occlusion
@@ -639,16 +800,18 @@ def walk_plain(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
 def walk_cuda(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
               occlusion: bool, exact: bool = False, reach=None
               ) -> torch.Tensor:
-    """The kernel (`tpb_resident_closest_hit` / `tpb_resident_any_hit`, or
-    in the exact-key mode `tpb_exact_closest_hit` / `tpb_exact_any_hit`):
-    one 256-thread block per chunk, skipping the blocks `block_may_hit`
-    (or the `reach` mask) rejects; bit-equal to `walk_plain`."""
+    """The kernel: `tpb_resident_closest_hit` / `tpb_resident_any_hit`
+    (one 256-thread block per chunk), or in the exact-key mode
+    `tpb_exact_closest_hit` / `tpb_exact_any_hit` (a warp per busy lane:
+    `octs` is not read and `rays` need not fill whole chunks); each skips the blocks `block_may_hit` (or the
+    `reach` mask) rejects, and is bit-equal to `walk_plain`."""
     dev = rays.device
     rp = rays.shape[0]
     nb = tris.tris.shape[0]
     nch = rp // CHUNK
     cuda.check(rays, "rays", torch.float32, (rp, 8))
-    cuda.check(octs, "octs", torch.int32, (nch,), dev)
+    if not exact:
+        cuda.check(octs, "octs", torch.int32, (nch,), dev)
     cuda.check(tris.tris, "tris", torch.float32, (nb, _ROWS, BLOCK), dev)
     cuda.check(tris.orders, "orders", torch.int32, (8, nb), dev)
     cuda.check(tris.keys, "keys", torch.float32, (8, nb), dev)
@@ -664,15 +827,15 @@ def walk_cuda(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
     exact_key = exact and not occlusion
     out = torch.empty((rp,), dtype=torch.int64 if exact_key else torch.int32,
                       device=dev)
-    args = (rays, tris.tris, tris.boxes, tris.orders, tris.keys, octs, nch,
-            nb)
+    tables = (rays, tris.tris, tris.boxes, tris.orders, tris.keys)
     if exact:
         kernel = EXACT_ANY_HIT_KERNEL if occlusion else \
             EXACT_CLOSEST_HIT_KERNEL
-        kernel.launch(*args, mask, lane_tile, out, tag=rp)
+        kernel.launch(*tables, rp, nb, mask, lane_tile, out, tag=rp)
     else:
         kernel = ANY_HIT_KERNEL if occlusion else CLOSEST_HIT_KERNEL
-        kernel.launch(*args, idx_bits(nb), mask, lane_tile, out, tag=rp)
+        kernel.launch(*tables, octs, nch, nb, idx_bits(nb), mask, lane_tile,
+                      out, tag=rp)
     return out
 
 

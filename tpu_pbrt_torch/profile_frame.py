@@ -72,7 +72,8 @@ APP_STAGES = ("gbuffer", "regir", "restir", "sharc_update", "sharc_resolve",
 # substrings of the hand-written kernels' symbol names (csrc/*.cu)
 HAND_WRITTEN = ("dense_closest_hit_kernel", "dense_closest_hit_shade_kernel",
                 "dense_any_hit_kernel", "fetch_bounce_kernel",
-                "fetch_rows_", "resident_walk_kernel", "bvh_walk")
+                "fetch_rows_", "resident_walk_kernel", "exact_walk_kernel",
+                "bvh_walk")
 
 
 def _renderer(name: str):
