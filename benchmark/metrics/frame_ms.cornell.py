@@ -1,0 +1,14 @@
+"""`frame_ms` of the window, read per layer in
+`pt.cornell`, whose host-bound frames spread too widely from run to run
+for an end-to-end bound (PERF.md, section 2): the same reader, whole."""
+
+from pathlib import Path
+
+from benchmark.run import read_metric
+
+SAME_AS = "frame_ms"
+
+
+def read(trace):
+    return read_metric(Path(__file__).resolve().parents[1], SAME_AS,
+                       trace.window)
