@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..models.material import ALPHA_MASK
+from ..utils import spans
 from . import cuda, intersect, sampling, texture as tex_mod, vec
 from .vec import Vec3
 
@@ -571,7 +572,13 @@ def apply_textures(atlas, attrs: ShadeAttrs, footprint=None) -> ShadeAttrs:
     """Modulate the fetched material by its texture maps: base-color and
     emissive multiply, metallic-roughness B/G channels, normal perturbation
     through the TBN. `footprint`, the world-space ray-cone width at the
-    hit, selects mip levels; None keeps level-0 bilinear."""
+    hit, selects mip levels; None keeps level-0 bilinear. The taps run in
+    the `shade.textures` span."""
+    with spans.span("shade.textures"):
+        return _textured(atlas, attrs, footprint)
+
+
+def _textured(atlas, attrs: ShadeAttrs, footprint) -> ShadeAttrs:
     u, v = attrs.uv_u, attrs.uv_v
 
     if footprint is not None:

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils import spans
 from . import cuda
 from .bvh import interleave, morton3d
 from .traverse import Hit
@@ -848,53 +849,60 @@ def query(tris, origin: Vec3, direction: Vec3, t_min, t_max, *,
     = (mask (tiles, NB) bool, tile): lane i belongs to input tile i //
     tile, and a lane walks only the blocks its tile's mask row holds."""
     r = origin.x.shape[0]
-    rays, perm, octs = sort_rays(tris, origin, direction, t_min, t_max)
-    lanes = None
-    if reach is not None:
-        mask, tile = reach
-        # the sort's pad rows (lane >= R) are idle; tile 0 keeps their
-        # row of the mask in range
-        lane_tile = torch.where(perm < r, perm // tile, 0).to(torch.int32)
-        lanes = (mask.to(torch.uint8), lane_tile)
-    if on_card:
-        best = walk_cuda(tris, rays, octs, occlusion, exact, lanes)
-    else:
-        best = walk_plain(tris, rays, octs, occlusion, exact, lanes,
-                          sweep_all=False)[0]
-    # back to ray order: the pad rows sort last, so the first R sorted rows
-    # are the real lanes
-    out = torch.empty((r,), dtype=best.dtype, device=best.device)
-    out[perm[:r]] = best[:r]
-    return out > 0 if occlusion else out
+    with spans.span("traverse.sort"):
+        rays, perm, octs = sort_rays(tris, origin, direction, t_min, t_max)
+        lanes = None
+        if reach is not None:
+            mask, tile = reach
+            # the sort's pad rows (lane >= R) are idle; tile 0 keeps their
+            # row of the mask in range
+            lane_tile = torch.where(perm < r, perm // tile,
+                                    0).to(torch.int32)
+            lanes = (mask.to(torch.uint8), lane_tile)
+    with spans.span("traverse.walk"):
+        if on_card:
+            best = walk_cuda(tris, rays, octs, occlusion, exact, lanes)
+        else:
+            best = walk_plain(tris, rays, octs, occlusion, exact, lanes,
+                              sweep_all=False)[0]
+    with spans.span("traverse.unsort"):
+        # back to ray order: the pad rows sort last, so the first R sorted
+        # rows are the real lanes
+        out = torch.empty((r,), dtype=best.dtype, device=best.device)
+        out[perm[:r]] = best[:r]
+        return out > 0 if occlusion else out
 
 
 def _closest(tris, origin, direction, t_min, t_max, on_card: bool) -> Hit:
     r = origin.x.shape[0]
     key = query(tris, origin, direction, t_min, t_max, occlusion=False,
                 exact=False, on_card=on_card)
-    keep = -(1 << idx_bits(tris.tris.shape[0]))
-    missed = key == SENTINEL
-    slot = (key & ~keep).long()
-    tri = torch.where(missed, -1, tris.tri_id[torch.clamp(
-        slot, max=tris.tri_id.shape[0] - 1)])
-    zeros = torch.zeros((r,), dtype=torch.float32, device=key.device)
-    # u = v = 0 like the dense backend: consumers re-derive barycentrics
-    # against the winning triangle (ops/shade_table.fetch)
-    return Hit(torch.where(missed, INF, (key & keep).view(torch.float32)),
-               zeros, zeros, tri)
+    with spans.span("traverse.unsort"):
+        keep = -(1 << idx_bits(tris.tris.shape[0]))
+        missed = key == SENTINEL
+        slot = (key & ~keep).long()
+        tri = torch.where(missed, -1, tris.tri_id[torch.clamp(
+            slot, max=tris.tri_id.shape[0] - 1)])
+        zeros = torch.zeros((r,), dtype=torch.float32, device=key.device)
+        # u = v = 0 like the dense backend: consumers re-derive
+        # barycentrics against the winning triangle (ops/shade_table.fetch)
+        return Hit(torch.where(missed, INF, (key & keep).view(torch.float32)),
+                   zeros, zeros, tri)
 
 
 def exact_hit(tris, key: torch.Tensor, t_keep: int = -1) -> Hit:
     """The Hit of int64 exact keys in ray order: the slot's triangle id,
     t from the high word with `t_keep` applied to its bits (-1 keeps them
     all), u = v = 0; a miss gives t = inf, tri = -1."""
-    missed = key == SENTINEL64
-    slot = (key & 0xFFFFFFFF).clamp(max=tris.tri_id.shape[0] - 1)
-    tri = torch.where(missed, -1, tris.tri_id[slot])
-    bits = (key >> 32).to(torch.int32) & t_keep
-    zeros = torch.zeros(key.shape, dtype=torch.float32, device=key.device)
-    return Hit(torch.where(missed, INF, bits.view(torch.float32)), zeros,
-               zeros, tri)
+    with spans.span("traverse.unsort"):
+        missed = key == SENTINEL64
+        slot = (key & 0xFFFFFFFF).clamp(max=tris.tri_id.shape[0] - 1)
+        tri = torch.where(missed, -1, tris.tri_id[slot])
+        bits = (key >> 32).to(torch.int32) & t_keep
+        zeros = torch.zeros(key.shape, dtype=torch.float32,
+                            device=key.device)
+        return Hit(torch.where(missed, INF, bits.view(torch.float32)), zeros,
+                   zeros, tri)
 
 
 def _any(tris, origin, direction, t_min, t_max, on_card: bool

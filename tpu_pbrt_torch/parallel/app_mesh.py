@@ -23,9 +23,9 @@ resolution's rows cut into n bands of rh / n rows:
   * TAA or the upscale, sharpen, chromatic aberration, bloom and the
     tonemap run once, on the mesh's first device, on the assembled image
 
-Each shard's stages run inside the App's `torch.profiler.record_function`
-ranges (gbuffer, regir, restir, sharc_update, sharc_resolve, pathtrace,
-denoise; the tail's taa and bloom_tonemap come from `App._post`).
+Each shard's stages run inside the App's ranges (`utils/spans.span`:
+gbuffer, regir, restir, sharc_update, sharc_resolve, pathtrace, denoise;
+the tail's taa and bloom_tonemap come from `App._post`).
 
 As in the reference, the sharded App is not the single-device App: the
 ReSTIR boiling filter averages over 16x16 tiles of the band it is given
@@ -40,7 +40,6 @@ import dataclasses
 import math
 
 import torch
-from torch.profiler import record_function
 
 from ..ops import vec
 from ..ops.traverse import Hit
@@ -51,6 +50,7 @@ from ..passes import regir as regir_mod
 from ..passes import restir as restir_mod
 from ..passes import sharc as sharc_mod
 from ..render.camera import generate_rays
+from ..utils import spans
 from .mesh import Mesh, on_device, replicate, run_sharded
 
 
@@ -149,7 +149,7 @@ def app_sharded(app, mesh: Mesh):
         pixel_v = (py.to(torch.float32) + 0.5 + cam.jitter[1]) / rh
         origin, direction, t_min, t_max = generate_rays(
             cam, rw, rh, ndc=(pixel_u * 2.0 - 1.0, 1.0 - pixel_v * 2.0))
-        with record_function("gbuffer"):
+        with spans.span("gbuffer"):
             gb = gbuffer_mod.generate(trc, env, cam, origin, direction,
                                       t_min, t_max, pixel_u, pixel_v,
                                       (rw, rh),
@@ -164,13 +164,13 @@ def app_sharded(app, mesh: Mesh):
         if rt.restir_di:
             regir = None
             if app.regir_settings is not None:
-                with record_function("regir"):
+                with spans.span("regir"):
                     regir = (regir_mod.build(trc.lights, cam.position, frame,
                                              app.regir_settings),
                              app.regir_settings)
             halo = {"extend": lambda t: extend_flat(ctx, t, restir_pad * rw),
                     "pad": restir_pad, "row0": row0, "total_h": rh}
-            with record_function("restir"):
+            with spans.span("restir"):
                 ((di_diff, di_spec), restir_state,
                  restir_rays) = restir_mod.render_direct_lighting(
                     trc, gb, view, restir_state, px, py, frame, rw,
@@ -186,7 +186,7 @@ def app_sharded(app, mesh: Mesh):
         # --- SHARC: this shard's chunk of the padded update pool, the
         # records all-gathered, the identical cache resolved everywhere
         if rt.sharc:
-            with record_function("sharc_update"):
+            with spans.span("sharc_update"):
                 uflat = k * chunk + torch.arange(chunk, dtype=torch.int64,
                                                  device=dev)
                 live = uflat < upool
@@ -200,7 +200,7 @@ def app_sharded(app, mesh: Mesh):
                     trc, light_count, uo, ud, ut0,
                     torch.where(live, ut1, -float("inf")), upx, upy, frame,
                     upd_settings, app.sharc_settings, cam.position)
-            with record_function("sharc_resolve"):
+            with spans.span("sharc_resolve"):
                 keys = sharc_mod.VoxelKey(
                     lo=ctx.all_gather(keys.lo).reshape(-1),
                     hi=ctx.all_gather(keys.hi).reshape(-1))
@@ -218,7 +218,7 @@ def app_sharded(app, mesh: Mesh):
             t=torch.where(gb.valid, gb.depth / torch.clamp(
                 vec.dot(direction, fwd), min=1e-8), float("inf")),
             u=gb.bary_u, v=gb.bary_v, tri=gb.tri)
-        with record_function("pathtrace"):
+        with spans.span("pathtrace"):
             radiance, rays = pathtrace.render_sample_radiance(
                 trc, env, light_count, origin, direction, t_min, t_max, px,
                 py, frame, pt_settings, primary_hit=primary,
@@ -233,7 +233,7 @@ def app_sharded(app, mesh: Mesh):
 
         # --- the denoiser on the band, with its halo
         if pp.denoiser != "none":
-            with record_function("denoise"):
+            with spans.span("denoise"):
                 nov = torch.clamp(-vec.dot(gb.shading_normal, direction),
                                   0.0, 1.0)
                 albedo = denoise_mod.demodulation_albedo(

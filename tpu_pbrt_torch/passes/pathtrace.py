@@ -47,6 +47,7 @@ from ..models.scene import environment_radiance
 from ..ops import bxdf, rng, shade_table, vec
 from ..ops.traverse import Hit
 from ..ops.vec import Vec3
+from ..utils import spans
 from . import sharc as sharc_mod
 
 
@@ -113,6 +114,11 @@ def _map_state(state: _PathState, fn) -> _PathState:
 def _bsdf_from_attrs(attrs: shade_table.ShadeAttrs) -> bxdf.BSDF:
     return bxdf.make_bsdf(attrs.base_color, attrs.metallic, attrs.roughness,
                           attrs.ior, attrs.transmission, attrs.is_front_face)
+
+
+def _pool(bounce: int, state: _PathState) -> str:
+    """A span's cause: the bounce and the pool's lane count."""
+    return f"bounce={bounce} lanes={state.active.shape[0]}"
 
 
 def _bank_add(bank: Vec3, idx: torch.Tensor, rad: Vec3) -> Vec3:
@@ -219,16 +225,22 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
         """Everything after traversal: miss env, emission MIS, NEE, BSDF
         sample, RR, cutoff, continuation ray. `attrs` (if given) comes from
         the fused closest-hit-and-shade kernel and replaces the fetch."""
+        with spans.span("pathtrace.shade", _pool(bounce, state)):
+            return shade_pool(bounce, state, hit, px, py, di_valid, attrs)
+
+    def shade_pool(bounce, state, hit, px, py, di_valid, attrs):
         r = state.t_min.shape[0]
         is_hit = hit.mask & state.active
 
         if attrs is None:
-            fp = None
-            if settings.cone_spread > 0.0:
-                fp = settings.cone_spread * (
-                    state.path_t + torch.clamp(hit.t, min=0.0))
-            attrs = tracer.fetch_bounce(torch.clamp(hit.tri, min=0),
-                                        state.origin, state.direction, fp)
+            with spans.span("pathtrace.fetch"):
+                fp = None
+                if settings.cone_spread > 0.0:
+                    fp = settings.cone_spread * (
+                        state.path_t + torch.clamp(hit.t, min=0.0))
+                attrs = tracer.fetch_bounce(torch.clamp(hit.tri, min=0),
+                                            state.origin, state.direction,
+                                            fp)
         b = _bsdf_from_attrs(attrs)
         emission = attrs.emission
 
@@ -309,9 +321,11 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
                 valid_nee = valid_nee & ~di_valid
             shadow_o = vec.safe_spawn_offset(attrs.position,
                                              attrs.flat_normal, wi)
-            occluded = tracer.any_hit(
-                shadow_o, wi, 0.0,
-                torch.where(valid_nee, dist * (1.0 - 1e-3), -float("inf")))
+            with spans.span("pathtrace.shadow"):
+                shadow_max = torch.where(valid_nee, dist * (1.0 - 1e-3),
+                                         -float("inf"))
+                spans.count_lanes("shadow", bounce, 0.0, shadow_max)
+                occluded = tracer.any_hit(shadow_o, wi, 0.0, shadow_max)
             w_mis = pdf_sa / torch.clamp(pdf_sa + p_b, min=1e-20)
             contrib = (state.throughput * f_nee * ls.radiance
                        * (w_mis / torch.clamp(pdf_sa, min=1e-20)))
@@ -393,15 +407,18 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
 
     def bounce_step(bounce: int, state: _PathState, px, py,
                     di_valid) -> _PathState:
-        # inactive lanes traverse an empty interval
-        t_max = torch.where(state.active, state.t_max, -float("inf"))
-        if fused:
-            hit, attrs = tracer.closest_hit_shade(
-                state.origin, state.direction, state.t_min, t_max)
-            return shade(bounce, state, hit, px, py, di_valid, attrs)
-        hit = tracer.closest_hit(state.origin, state.direction, state.t_min,
-                                 t_max)
-        return shade(bounce, state, hit, px, py, di_valid)
+        with spans.span("pathtrace.trace", _pool(bounce, state)):
+            # inactive lanes traverse an empty interval
+            t_max = torch.where(state.active, state.t_max, -float("inf"))
+            spans.count_lanes("trace", bounce, state.t_min, t_max)
+            attrs = None
+            if fused:
+                hit, attrs = tracer.closest_hit_shade(
+                    state.origin, state.direction, state.t_min, t_max)
+            else:
+                hit = tracer.closest_hit(state.origin, state.direction,
+                                         state.t_min, t_max)
+        return shade(bounce, state, hit, px, py, di_valid, attrs)
 
     # bounce 0 reuses the G-buffer's primary hit instead of retracing
     start = 0
@@ -420,18 +437,19 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
             break
         # compaction at bounce `end`: bank this pool's radiance per pixel
         # (the fold discards lane identity), then halve the pool
-        cur = vec.where(vec.all_finite(state.radiance), state.radiance,
-                        Vec3.splat(0.0))
-        if bank is None:
-            bank = cur
-            idx = torch.arange(r, dtype=torch.int64, device=dev)
-            first_lobe, first_hit_t = state.first_lobe, state.first_hit_t
-        else:
-            bank = _bank_add(bank, idx, cur)
-        state = state._replace(
-            radiance=Vec3.zeros((state.active.shape[0],), dev))
-        state, px, py, idx, di_valid = _fold_half(
-            state, px, py, idx, di_valid, frame, sample_offset, end)
+        with spans.span("pathtrace.fold", _pool(end, state)):
+            cur = vec.where(vec.all_finite(state.radiance), state.radiance,
+                            Vec3.splat(0.0))
+            if bank is None:
+                bank = cur
+                idx = torch.arange(r, dtype=torch.int64, device=dev)
+                first_lobe, first_hit_t = state.first_lobe, state.first_hit_t
+            else:
+                bank = _bank_add(bank, idx, cur)
+            state = state._replace(
+                radiance=Vec3.zeros((state.active.shape[0],), dev))
+            state, px, py, idx, di_valid = _fold_half(
+                state, px, py, idx, di_valid, frame, sample_offset, end)
 
     # total rays: ONE cross-pool reduction per frame (exact mode), or the
     # static bound from the fold schedule

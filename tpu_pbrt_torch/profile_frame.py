@@ -16,8 +16,8 @@ the unprofiled wall time per frame: the profiler slows the host, not the
 device), kernel launches per frame, the hand-written kernels' time per
 frame, the host syncs of one frame, and the ten kernels that take the most
 time. For a textured path it also gives the texture taps' share: the
-kernels launched inside `shade_table.apply_textures` (a profiler range put
-around it here), their count and device time per frame.
+kernels launched inside the `shade.textures` span (`utils/spans.py`),
+their count and device time per frame.
 
 `app` does the same for ticks of the App frame graph (`render/app.py`,
 bench.py's app configuration: the Cornell box at 1920x1080 output, 960x540
@@ -63,11 +63,11 @@ import warnings
 import torch
 
 from .bench_configs import APP_PATHS, app_settings, make_app
+from .utils import spans
 
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, TIMED, PROFILED = 2, 4, 2
-APP_STAGES = ("gbuffer", "regir", "restir", "sharc_update", "sharc_resolve",
-              "pathtrace", "denoise", "taa", "bloom_tonemap", "skin_refit")
+APP_STAGES = spans.APP_STAGES + ("skin_refit",)
 
 # substrings of the hand-written kernels' symbol names (csrc/*.cu)
 HAND_WRITTEN = ("dense_closest_hit_kernel", "dense_closest_hit_shade_kernel",
@@ -111,7 +111,7 @@ def _union_us(intervals) -> float:
     return busy
 
 
-TEXTURE_RANGE = "apply_textures"
+TEXTURE_RANGE = "shade.textures"
 
 
 def _host_index(events, names) -> tuple[list, dict]:
@@ -168,19 +168,12 @@ def _range_kernels(kernels, launches, spans: dict) -> list:
 
 
 def profile(name: str) -> dict:
-    from torch.profiler import (ProfilerActivity, profile as tprofile,
-                                record_function)
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
     from .models.cornell import make_cornell_camera
-    from .ops import shade_table
 
     renderer = _renderer(name)
     camera = make_cornell_camera(WIDTH, HEIGHT)
-    apply_textures = shade_table.apply_textures
-
-    def ranged(*args, **kwargs):
-        with record_function(TEXTURE_RANGE):
-            return apply_textures(*args, **kwargs)
     for f in range(WARMUP):
         renderer.render(camera, f)
     torch.cuda.synchronize()
@@ -192,18 +185,14 @@ def profile(name: str) -> dict:
 
     sites = sync_sites(lambda: renderer.render(camera, WARMUP + TIMED))
 
-    shade_table.apply_textures = ranged
-    try:
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for f in range(PROFILED):
-                renderer.render(camera, WARMUP + TIMED + 1 + f)
-            torch.cuda.synchronize()
-            prof_wall_us = (time.perf_counter() - t0) * 1e6
-    finally:
-        shade_table.apply_textures = apply_textures
-    events, kernels = _device_kernels(prof, (TEXTURE_RANGE,))
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in range(PROFILED):
+            renderer.render(camera, WARMUP + TIMED + 1 + f)
+        torch.cuda.synchronize()
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    events, kernels = _device_kernels(prof, spans.NAMES)
     out = {"path": name, "tracer": renderer.tracer.kind,
            "triangles": renderer.tracer.num_tris,
            "textured": renderer.tracer.textured,
@@ -231,8 +220,8 @@ def profile(name: str) -> dict:
                       "launches_per_frame": len(v) / PROFILED}
                      for n, v in top])
     if renderer.tracer.textured:
-        launches, spans = _host_index(events, (TEXTURE_RANGE,))
-        taps = _range_kernels(kernels, launches, spans[TEXTURE_RANGE])
+        launches, ranges = _host_index(events, (TEXTURE_RANGE,))
+        taps = _range_kernels(kernels, launches, ranges[TEXTURE_RANGE])
         if not taps:
             out["texture_taps"] = ("not measured: no kernel matched the "
                                    "texture ranges")
@@ -271,9 +260,11 @@ def _host_syncs(renderer, camera, frame: int) -> int:
 
 
 def _device_kernels(prof, ranges=()) -> tuple[list, list]:
-    """(all events, the device kernels): the profiler mirrors a host range
-    onto the device's timeline under the range's name, which is no
-    kernel."""
+    """(all events, the device kernels): the profiler mirrors a user
+    annotation onto the device's timeline under the range's name, which is
+    no kernel; the program's own spans are host op ranges with no mirror,
+    and `ranges` drops any event that bears one of their names all the
+    same."""
     events = prof.profiler.kineto_results.events()
     kernels = [e for e in events
                if e.device_type() == torch.autograd.DeviceType.CUDA
@@ -298,7 +289,7 @@ def stage_breakdown(app, ticks: int = PROFILED) -> dict:
         for _ in range(ticks):
             app.tick()
         torch.cuda.synchronize()
-    events, kernels = _device_kernels(prof, APP_STAGES)
+    events, kernels = _device_kernels(prof, spans.NAMES)
     if not kernels:
         return {"device": "not measured: the profiler traced no device "
                           "kernel"}
@@ -306,9 +297,9 @@ def stage_breakdown(app, ticks: int = PROFILED) -> dict:
     busy_us = _union_us((e.start_ns() / 1e3, e.end_ns() / 1e3)
                         for e in kernels)
     stages, seen = {}, set()
-    launches, spans = _host_index(events, APP_STAGES)
+    launches, ranges = _host_index(events, APP_STAGES)
     for name in APP_STAGES:
-        ks = _range_kernels(kernels, launches, spans[name])
+        ks = _range_kernels(kernels, launches, ranges[name])
         seen.update(e.correlation_id() for e in ks)
         stages[name] = {
             "launches_per_tick": len(ks) / ticks,

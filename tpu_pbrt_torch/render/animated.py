@@ -19,7 +19,6 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..device import resolve
 from ..models import animation as anim_mod
@@ -28,6 +27,7 @@ from ..models.scene import EnvironmentTensors, Scene, environment_tensors
 from ..ops import shade_table as shade_mod
 from ..ops import tracer as tracer_mod
 from ..passes import pathtrace, skinning
+from ..utils import spans
 from .camera import Camera
 from .renderer import _render_frame
 
@@ -191,12 +191,15 @@ class AnimatedRenderer(nn.Module):
                with_gbuffer: bool = False):
         """Advance by dt and render one frame: (radiance (H, W, 3), rays
         as a 0-dim float64 tensor[, G-buffer]) on the device."""
-        pal = self.upload(self.palettes(dt))
-        return _animated_frame(
-            self.tracer, self.env, self.light_count,
-            camera.data(device=self.device), frame_index, pal[0], pal[1],
-            self.skin, width=self.width, height=self.height,
-            settings=self.settings, with_gbuffer=with_gbuffer)
+        with spans.span("frame"):
+            with spans.span("render.inputs"):
+                pal = self.upload(self.palettes(dt))
+                cam = camera.data(device=self.device)
+            return _animated_frame(
+                self.tracer, self.env, self.light_count, cam, frame_index,
+                pal[0], pal[1], self.skin, width=self.width,
+                height=self.height, settings=self.settings,
+                with_gbuffer=with_gbuffer)
 
 
 def skin_refit(tracer: tracer_mod.Tracer, skin: SkinBuffers,
@@ -204,7 +207,7 @@ def skin_refit(tracer: tracer_mod.Tracer, skin: SkinBuffers,
                prev_palette: torch.Tensor) -> tracer_mod.Tracer:
     """The tracer refit to the palette's pose, its shade table holding the
     posed geometry and the previous palette's corners (motion vectors)."""
-    with record_function("skin_refit"):
+    with spans.span("skin_refit"):
         corners, normals, prev = skin.pose(palette, prev_palette)
         table = posed_table(tracer.shade_table, corners, normals, prev)
         return tracer_mod.refit(tracer, *corners, shade_table=table)

@@ -20,12 +20,12 @@ their pass is on) is carried from tick to tick and reset on a camera cut or
 a settings change. A `debug_view` ("sharc_voxels" or "regir_cells")
 replaces the shaded output after the G-buffer: each pixel's SHARC voxel or
 ReGIR cell as a hashed colour over a simple n.v shade, the history left as
-it was. Each stage runs inside a
-`torch.profiler.record_function` range named as the reference's scope:
-gbuffer, regir, restir, sharc_update, sharc_resolve, pathtrace, denoise,
-taa, bloom_tonemap. No stage reads the device from the host, unless the
-NaN check of `utils/debug.py` is on: then each stage's output is checked
-for non-finite values, a sync a stage.
+it was. Each stage runs inside a profiler range (`utils/spans.span`)
+named as the reference's scope: gbuffer, regir, restir, sharc_update,
+sharc_resolve, pathtrace, denoise, taa, bloom_tonemap. No stage reads the
+device from the host, unless the NaN check of `utils/debug.py` is on:
+then each stage's output is checked for non-finite values, a sync a
+stage.
 """
 
 from __future__ import annotations
@@ -36,7 +36,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import resolve
 from ..models.scene import EnvironmentTensors, Scene, environment_tensors
@@ -54,7 +53,7 @@ from ..passes import restir as restir_mod
 from ..passes import sharc as sharc_mod
 from ..passes import taa as taa_mod
 from ..utils import config as config_mod
-from ..utils import debug
+from ..utils import debug, spans
 from .camera import Camera, CameraData, generate_rays, pixel_coords
 
 
@@ -288,7 +287,7 @@ class App:
         pixel_u = (px.to(torch.float32) + 0.5 + cam.jitter[0]) / rw
         pixel_v = (py.to(torch.float32) + 0.5 + cam.jitter[1]) / rh
 
-        with record_function("gbuffer"):
+        with spans.span("gbuffer"):
             gb = gbuffer_mod.generate(
                 self.tracer, self.env, cam, origin, direction, t_min, t_max,
                 pixel_u, pixel_v, (rw, rh),
@@ -309,12 +308,12 @@ class App:
         if rt.restir_di:
             regir = None
             if self.regir_settings is not None:
-                with record_function("regir"):
+                with spans.span("regir"):
                     regir = (regir_mod.build(self.tracer.lights,
                                              cam.position, frame,
                                              self.regir_settings),
                              self.regir_settings)
-            with record_function("restir"):
+            with spans.span("restir"):
                 ((di_diff, di_spec), restir_state,
                  restir_rays) = restir_mod.render_direct_lighting(
                     self.tracer, gb, view, history.restir, px, py, frame,
@@ -331,10 +330,10 @@ class App:
         # --- SHARC update + resolve
         sharc_state = history.sharc
         if rt.sharc:
-            with record_function("sharc_update"):
+            with spans.span("sharc_update"):
                 keys, records, valid, update_rays = self.sharc_update(cam,
                                                                       frame)
-            with record_function("sharc_resolve"):
+            with spans.span("sharc_resolve"):
                 sharc_state = sharc_mod.resolve(history.sharc, keys, records,
                                                 valid, self.sharc_settings)
             rays_total = rays_total + update_rays
@@ -348,7 +347,7 @@ class App:
             t=torch.where(gb.valid, gb.depth / torch.clamp(
                 vec.dot(direction, fwd), min=1e-8), float("inf")),
             u=gb.bary_u, v=gb.bary_v, tri=gb.tri)
-        with record_function("pathtrace"):
+        with spans.span("pathtrace"):
             radiance, rays = pathtrace.render_sample_radiance(
                 self.tracer, self.env, self.light_count, origin, direction,
                 t_min, t_max, px, py, frame, self.pt_settings,
@@ -366,7 +365,7 @@ class App:
         # --- denoise (demodulate -> temporal -> à-trous -> remodulate)
         denoiser_state = history.denoiser
         if pp.denoiser != "none":
-            with record_function("denoise"):
+            with spans.span("denoise"):
                 nov = torch.clamp(-vec.dot(gb.shading_normal, direction),
                                   0.0, 1.0)
                 albedo = denoise_mod.demodulation_albedo(
@@ -393,7 +392,7 @@ class App:
         pp = self.settings.post_processing
         # --- TAA upscale to the output resolution
         if pp.upscaler != "none":
-            with record_function("taa"):
+            with spans.span("taa"):
                 img, taa_state = taa_mod.resolve(
                     taa_state, img, motion, self.out_h, self.out_w)
                 if pp.sharpness > 0:
@@ -404,7 +403,7 @@ class App:
 
         # --- lens fx + bloom + tonemap (chromatic aberration before bloom,
         # as in the reference application's pass order)
-        with record_function("bloom_tonemap"):
+        with spans.span("bloom_tonemap"):
             if pp.chromatic_aberration > 0.0:
                 img = postfx.chromatic_aberration(img,
                                                   pp.chromatic_aberration)

@@ -26,7 +26,6 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..device import resolve
 from ..models import animation as anim_mod
@@ -38,6 +37,7 @@ from ..models.scene import (EnvironmentTensors, Scene, environment_tensors,
 from ..ops import shade_table as shade_mod
 from ..ops import tracer as tracer_mod
 from ..passes import pathtrace, skinning
+from ..utils import spans
 from .animated import SkinBuffers, posed_table
 from .camera import Camera
 from .renderer import _render_frame
@@ -166,12 +166,15 @@ class DynamicRenderer(nn.Module):
                with_gbuffer: bool = False):
         """Advance by dt and render one frame: (radiance (H, W, 3), rays
         as a 0-dim float64 tensor[, G-buffer]) on the device."""
-        pal = self.upload(self.palettes(dt))
-        return _dynamic_frame(
-            self.tracer, self.env, self.light_count,
-            camera.data(device=self.device), frame_index, pal[0], pal[1],
-            self.skin, self.light_tri, width=self.width, height=self.height,
-            settings=self.settings, with_gbuffer=with_gbuffer)
+        with spans.span("frame"):
+            with spans.span("render.inputs"):
+                pal = self.upload(self.palettes(dt))
+                cam = camera.data(device=self.device)
+            return _dynamic_frame(
+                self.tracer, self.env, self.light_count, cam, frame_index,
+                pal[0], pal[1], self.skin, self.light_tri, width=self.width,
+                height=self.height, settings=self.settings,
+                with_gbuffer=with_gbuffer)
 
 
 def rigid_refit(tracer: tracer_mod.Tracer, skin: SkinBuffers,
@@ -180,7 +183,7 @@ def rigid_refit(tracer: tracer_mod.Tracer, skin: SkinBuffers,
     """The tracer moved to the palette's pose: shade-table geometry and
     motion, the emissive-light table and its CDF, the triangles' NEE pdf
     column, and the refit accel."""
-    with record_function("skin_refit"):
+    with spans.span("skin_refit"):
         corners, normals, prev = skin.pose(palette, prev_palette)
         table = posed_table(tracer.shade_table, corners, normals, prev)
         light_table, light_cdf, tri_lpdf = shade_mod.refresh_light_table(

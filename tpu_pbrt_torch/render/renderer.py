@@ -29,7 +29,7 @@ from ..ops.traverse import Hit
 from ..passes import gbuffer as gbuffer_mod
 from ..passes import pathtrace
 from ..passes import sharc as sharc_mod
-from ..utils import debug
+from ..utils import debug, spans
 from .camera import Camera, CameraData, generate_rays, pixel_coords
 
 
@@ -79,13 +79,15 @@ class Renderer(nn.Module):
                           jitter: bool = False):
         """(radiance image, rays traced as a 0-dim float64 device tensor);
         the ray count feeds Mrays/s."""
-        jit = (camera_jitter(frame_index, 64) if jitter
-               else np.zeros(2, np.float32))
-        cam = camera.data(jitter=jit, device=self.device)
-        return _render_frame(self.tracer, self.env,
-                             self.light_count, cam, frame_index,
-                             width=self.width, height=self.height,
-                             settings=self.settings)
+        with spans.span("frame"):
+            with spans.span("render.inputs"):
+                jit = (camera_jitter(frame_index, 64) if jitter
+                       else np.zeros(2, np.float32))
+                cam = camera.data(jitter=jit, device=self.device)
+            return _render_frame(self.tracer, self.env,
+                                 self.light_count, cam, frame_index,
+                                 width=self.width, height=self.height,
+                                 settings=self.settings)
 
     def render_accumulated(self, camera: Camera, frames: int,
                            jitter: bool = True) -> torch.Tensor:
@@ -122,22 +124,23 @@ def _render_frame(tracer, env_color, light_count: int,
                   settings: pathtrace.PathTraceSettings,
                   with_gbuffer: bool = False):
     """Frame graph: G-buffer -> path trace reusing the primary hit."""
-    origin, direction, t_min, t_max = generate_rays(cam, width, height)
-    px, py = pixel_coords(width, height, origin.x.device)
-    pixel_u = (px.to(torch.float32) + 0.5 + cam.jitter[0]) / width
-    pixel_v = (py.to(torch.float32) + 0.5 + cam.jitter[1]) / height
-    gb = gbuffer_mod.generate(tracer, env_color, cam, origin, direction,
-                              t_min, t_max, pixel_u, pixel_v,
-                              (width, height),
-                              cone_spread=settings.cone_spread)
-    debug.check_finite("gbuffer", gb.shading_normal, gb.base_color,
-                       gb.motion_x, gb.motion_y)
-    fwd = vec.normalize(vec.Vec3(cam.forward[0], cam.forward[1],
-                                 cam.forward[2]))
-    primary = Hit(
-        t=torch.where(gb.valid, gb.depth / torch.clamp(
-            vec.dot(direction, fwd), min=1e-8), float("inf")),
-        u=gb.bary_u, v=gb.bary_v, tri=gb.tri)
+    with spans.span("pathtrace.primary"):
+        origin, direction, t_min, t_max = generate_rays(cam, width, height)
+        px, py = pixel_coords(width, height, origin.x.device)
+        pixel_u = (px.to(torch.float32) + 0.5 + cam.jitter[0]) / width
+        pixel_v = (py.to(torch.float32) + 0.5 + cam.jitter[1]) / height
+        gb = gbuffer_mod.generate(tracer, env_color, cam, origin, direction,
+                                  t_min, t_max, pixel_u, pixel_v,
+                                  (width, height),
+                                  cone_spread=settings.cone_spread)
+        debug.check_finite("gbuffer", gb.shading_normal, gb.base_color,
+                           gb.motion_x, gb.motion_y)
+        fwd = vec.normalize(vec.Vec3(cam.forward[0], cam.forward[1],
+                                     cam.forward[2]))
+        primary = Hit(
+            t=torch.where(gb.valid, gb.depth / torch.clamp(
+                vec.dot(direction, fwd), min=1e-8), float("inf")),
+            u=gb.bary_u, v=gb.bary_v, tri=gb.tri)
     radiance, ray_count = pathtrace.render_sample_radiance(
         tracer, env_color, light_count, origin, direction, t_min, t_max,
         px, py, int(frame) & 0xFFFFFFFF, settings, primary_hit=primary)
