@@ -258,6 +258,15 @@ inputs in turns, and each frame runs through each version's walk in
 the same turns (wall ms, device ms, launches, idle share, the walk's
 device ms).
 
+    python3 chip_smoke.py --shade-times
+
+runs only the shading kernels (`csrc/shade_bounce.cu`) at the pools of
+the benchmark's three frames (`cornell`, `animated`, `helmet-100k` at
+1080p): every shading call of one frame, captured, held bit for bit
+against `shade_plain` and `nee_add_plain`, and timed beside the plain
+versions and the bytes bound, one JSON line a call; then the kernels'
+ptxas lines.
+
     python3 chip_smoke.py --fetch-times DIR
 
 does the same for the row fetch alone: it checks and times the row fetch of
@@ -344,6 +353,7 @@ KERNEL_PATH = {
     "dense_closest_hit": "cornell", "dense_any_hit": "cornell",
     "fetch_bounce": "cornell", "fetch_rows": "cornell",
     "dense_closest_hit_shade": "cornell_fused",
+    "shade_bounce": "cornell", "shade_nee": "cornell",
     "exact_closest_hit": "helmet", "exact_any_hit": "helmet",
     "resident_closest_hit": "helmet_resident",
     "resident_any_hit": "helmet_resident",
@@ -356,21 +366,24 @@ WALK_KERNEL = {(False, False): "resident_closest_hit",
                (True, True): "exact_any_hit"}
 WALK_KERNELS = tuple(WALK_KERNEL.values())
 EXACT = ("exact_closest_hit", "exact_any_hit", "fetch_bounce", "fetch_rows")
+# the shading kernels: every `Renderer` frame on the card shades through them
+SHADE = ("shade_bounce", "shade_nee")
 PATH_KERNELS = {
     "cornell": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
-                "fetch_rows"),
+                "fetch_rows", *SHADE),
     "cornell_fused": ("dense_closest_hit_shade", "dense_closest_hit",
-                      "dense_any_hit", "fetch_bounce", "fetch_rows"),
+                      "dense_any_hit", "fetch_bounce", "fetch_rows", *SHADE),
     # the big scenes: the culled tracer, the walk kernel's exact-key mode
-    "helmet": EXACT,
+    "helmet": (*EXACT, *SHADE),
     # the same frame through the resident walk (`kind="resident"`)
     "helmet_resident": ("resident_closest_hit", "resident_any_hit",
-                        "fetch_bounce", "fetch_rows"),
+                        "fetch_bounce", "fetch_rows", *SHADE),
     # textured: every bounce's fetch is the row fetch on the 50-column
     # sub-table; alpha-tested: shadow rays are closest hits too, and the
     # alpha test fetches from the 19-column sub-table
-    "helmet_textured": ("exact_closest_hit", "exact_any_hit", "fetch_rows"),
-    "cutout": ("dense_closest_hit", "fetch_rows"),
+    "helmet_textured": ("exact_closest_hit", "exact_any_hit", "fetch_rows",
+                        *SHADE),
+    "cutout": ("dense_closest_hit", "fetch_rows", *SHADE),
     # the App frame graph without ReSTIR DI and SHARC: the Cornell path's
     # kernels at the internal resolution, then denoise, TAA, bloom and
     # tonemap in PyTorch
@@ -4234,6 +4247,215 @@ def walk_times(others: list, device=None) -> int:
     return 0
 
 
+# the frames whose shading `--shade-times` captures: the benchmark's scenes
+SHADE_FRAMES = ("cornell", "animated", "helmet-100k")
+
+
+@contextlib.contextmanager
+def shade_capture(record: list):
+    """Inside, every call of the shading kernel's wrapper appends its
+    arguments (the state copied first: the kernel updates it in place) to
+    `record`, in call order."""
+    from tpu_pbrt_torch.passes import pathtrace, shade_cases
+
+    saved = pathtrace.shade_cuda
+
+    def call(ctx, bounce, state, hit, block, px, py, di_valid):
+        record.append((ctx, bounce, shade_cases.clone_state(state), hit,
+                       block, px, py, di_valid))
+        return saved(ctx, bounce, state, hit, block, px, py, di_valid)
+
+    pathtrace.shade_cuda = call
+    try:
+        yield
+    finally:
+        pathtrace.shade_cuda = saved
+
+
+def shade_bound(state, hit, flags: int, made, occluded) -> dict:
+    """The shading kernels' bytes at one call, as their lanes need them:
+    an inactive lane reads its flag and writes its empty shadow ray; a
+    missing lane adds the environment term (hit, throughput, direction,
+    radiance, count in; radiance, flag, count and the empty shadow ray
+    out); a hit reads 22 attribute rows, the pixel keys and its state and
+    writes its new state and shadow ray (the contribution where one is
+    made); the NEE add reads every t_max, and the flag, contribution and
+    radiance where a ray was made, and writes the radiance where it was
+    not occluded. Their arithmetic is ~1,500 FLOP a hit lane: bytes bound
+    them."""
+    from tpu_pbrt_torch.passes import pathtrace as pt
+
+    n = state.active.shape[0]
+    live = int(state.active.sum())
+    hits = int((state.active & hit.mask).sum())
+    misses = live - hits
+    nee = bool(flags & pt.SHADE_NEE)
+    count = 4 if flags & pt.SHADE_COUNT else 0
+    shadow = 28 if nee else 0
+    hit_in = 8 + 36 + count + 88 + 16 + 4
+    hit_in += 1 if flags & (pt.SHADE_DI_NEE | pt.SHADE_DI_EMIT) else 0
+    hit_in += 4 if flags & pt.SHADE_PATH_T else 0
+    hit_out = 48 + 1 + count + 4 + shadow
+    hit_out += 8 if flags & pt.SHADE_FIRST else 0
+    hit_out += 4 if flags & pt.SHADE_PATH_T else 0
+    nbytes = (n * 1 + (n - live) * shadow
+              + misses * (8 + 36 + count + 12 + 1 + count + shadow)
+              + hits * (hit_in + hit_out))
+    nee_bytes = 0
+    if nee:
+        n_made = int(made.sum())
+        added = int((made & ~occluded).sum())
+        nbytes += int(made.sum()) * 12          # the contributions out
+        nee_bytes = n * 4 + n_made * (1 + 12 + 12) + added * 12
+    return {"shade_bounce": bound(nbytes, hits * 1500.0),
+            "shade_nee": bound(nee_bytes, 0.0) if nee else None,
+            "lanes": n, "live": live, "hits": hits}
+
+
+def time_each_ms(restore, fn, iters: int = 10) -> float:
+    """Mean device time of fn() in ms by CUDA events around each call
+    alone, `restore()` run before each outside the events (the kernel
+    updates its inputs in place); queued behind the blocker as `time_ms`."""
+    import torch
+
+    restore()
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.mm(_blocker(), _blocker())
+    for e0, e1 in ev:
+        restore()
+        e0.record()
+        fn()
+        e1.record()
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for e0, e1 in ev) / iters
+
+
+def shade_checks(record: list, tracer, name: str) -> list:
+    """Each captured shading call: the kernels held bit for bit to
+    `shade_plain` and `nee_add_plain` (every state tensor on every lane;
+    the shadow interval's sign; the shadow ray and the contribution where
+    one is made), timed (the kernel, the NEE add and the plain versions),
+    with their bounds. One dict a call."""
+    import torch
+    from tpu_pbrt_torch.ops import shade_table as st
+    from tpu_pbrt_torch.passes import pathtrace as pt
+    from tpu_pbrt_torch.passes import shade_cases
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    rows = []
+    for i, (ctx, bounce, state, hit, block, px, py, di) in enumerate(record):
+        what = f"shade {name} call {i}"
+        attrs = st.attrs_from_block(block)
+        want, wn = pt.shade_plain(ctx, bounce, shade_cases.clone_state(state),
+                                  hit, attrs, px, py, di)
+        work = shade_cases.clone_state(state)
+        got, gn = pt.shade_cuda(ctx, bounce, work, hit, block, px, py, di)
+        made = occluded = None
+        if wn is not None:
+            made = wn.t_max != -float("inf")
+            if not torch.equal(made, gn.t_max != -float("inf")):
+                fail(f"{what}: the shadow rays made differ")
+            for a, b in ((wn.origin, gn.origin), (wn.direction, gn.direction),
+                         (wn.contrib, gn.contrib)):
+                for c in "xyz":
+                    if not torch.equal(bits(getattr(a, c)[made]),
+                                       bits(getattr(b, c)[made])):
+                        fail(f"{what}: the shadow ray or contribution "
+                             f"differs ({c})")
+            occluded = tracer.any_hit(gn.origin, gn.direction, 0.0, gn.t_max)
+            want = want._replace(radiance=pt.nee_add_plain(
+                want.radiance, wn, occluded))
+            got = got._replace(radiance=pt.nee_add_cuda(
+                got.radiance, gn, occluded))
+        for f in ("active", "origin", "direction", "throughput", "radiance",
+                  "first_lobe", "first_hit_t", "ray_count", "prev_bsdf_pdf",
+                  "path_t"):
+            w, g = getattr(want, f), getattr(got, f)
+            if w is None:
+                continue
+            for a, b in (zip((w.x, w.y, w.z), (g.x, g.y, g.z))
+                         if hasattr(w, "x") else ((w, g),)):
+                if not torch.equal(bits(a), bits(b)):
+                    fail(f"{what}: {f} differs from shade_plain")
+
+        def restore():
+            for dst, src in zip(work, state):
+                if src is None:
+                    continue
+                pairs = (zip((dst.x, dst.y, dst.z), (src.x, src.y, src.z))
+                         if hasattr(src, "x") else ((dst, src),))
+                for d, s_ in pairs:
+                    d.copy_(s_)
+
+        flags = pt.shade_flags(ctx.settings, bounce, ctx.light_count)
+        row = {"config": name, "call": i, "bounce": bounce,
+               **shade_bound(state, hit, flags, made, occluded)}
+        row["shade_bounce"]["ms"] = time_each_ms(
+            restore, lambda: pt.shade_cuda(ctx, bounce, work, hit, block, px,
+                                           py, di))
+        row["shade_bounce"]["plain_ms"] = plain_ms(lambda: pt.shade_plain(
+            ctx, bounce, shade_cases.clone_state(state), hit, attrs, px, py,
+            di))
+        if gn is not None:
+            row["shade_nee"]["ms"] = time_each_ms(
+                restore, lambda: pt.nee_add_cuda(work.radiance, gn, occluded))
+            row["shade_nee"]["plain_ms"] = plain_ms(
+                lambda: pt.nee_add_plain(work.radiance, gn, occluded))
+        rows.append(row)
+    return rows
+
+
+def check_shade_kernels(renderer, camera) -> dict:
+    """The shading kernels at the main path's first pool (the primary
+    bounce, 2,073,600 lanes), held and timed by `shade_checks`: their
+    `kernels` entries."""
+    record = []
+    with shade_capture(record):
+        renderer.render_with_stats(camera, 1)
+    row = shade_checks(record[:1], renderer.tracer, "cornell")[0]
+    return {k: dict(max_abs_err=0.0, tolerance="bit-exact",
+                    rays=row["lanes"], library_ms=None, **row[k])
+            for k in ("shade_bounce", "shade_nee")}
+
+
+def shade_times(device=None) -> int:
+    """The shading kernels at the pools of the benchmark's frames
+    (`SHADE_FRAMES` at 1920x1080): every shading call of one frame
+    captured, held bit for bit to the plain versions, timed against its
+    bound (`shade_checks`), one JSON line a call; then ptxas's lines for
+    the two kernels."""
+    import torch
+    from tpu_pbrt_torch import bench_configs
+    from tpu_pbrt_torch.ops import cuda
+
+    device = device or torch.device("cuda")
+    print(gpu_line(), flush=True)
+    cuda.library()
+    for name in SHADE_FRAMES:
+        cfg = bench_configs.make(name, device=device, width=WIDTH,
+                                 height=HEIGHT)
+        target, camera = cfg.target, cfg.camera
+        frame = ((lambda f: target.render(camera, f)) if name == "animated"
+                 else (lambda f: target.render_with_stats(camera, f)))
+        frame(0)
+        record = []
+        with shade_capture(record):
+            frame(1)
+        for row in shade_checks(record, target.tracer, name):
+            print(json.dumps({"shade_call": row}), flush=True)
+        del record, target, frame
+        torch.cuda.empty_cache()
+    print(json.dumps({"ptxas_shade": ptxas_usage(
+        cuda.build_log, "pt_shade_bounce_kernel", "pt_shade_nee_kernel"),
+        "gpu": gpu_line()}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4249,6 +4471,9 @@ def main() -> int:
                         help="only check and time the exact-key walk at the "
                              "culled frames' pools (against the walks of "
                              "the checkouts DIR..., if given)")
+    parser.add_argument("--shade-times", action="store_true",
+                        help="only check and time the shading kernels at "
+                             "the benchmark frames' pools")
     parser.add_argument("--bvh-times", metavar="DIR", nargs="*",
                         default=None,
                         help="only check and time the LBVH walk at its "
@@ -4259,6 +4484,9 @@ def main() -> int:
         print("FAIL: torch.cuda.is_available() is False; this run needs a "
               "GPU and never falls back to the CPU", file=sys.stderr)
         return 2
+    if args.shade_times:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return shade_times()
     if args.bvh_times is not None:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return bvh_times(args.bvh_times)
@@ -4332,6 +4560,7 @@ def main() -> int:
     cornell, settings = renderer.scene, renderer.settings
     cam_rays = generate_rays(camera.data(device=device), WIDTH, HEIGHT)
     kres.update(check_cornell_kernels(renderer, cam_rays, device))
+    kres.update(check_shade_kernels(renderer, camera))
     print(json.dumps({"kernel_checks": {k: kres[k] for k in
                                         PATH_KERNELS["cornell"]}}),
           flush=True)

@@ -26,7 +26,12 @@ tensor of each name's renderer or App on the card, a 64x48 frame of each
 configuration first run on the card in full (`cornell-nofold`,
 `cornell-bxdf`, `sphere`, `sphere-textured`, `helmet-100k`) against the
 CPU (G-buffer ids exact, means within 1e-3 relative), and an
-`app-native` App ticked on the card against the CPU.
+`app-native` App ticked on the card against the CPU. For the shading
+kernels (`csrc/shade_bounce.cu`): the kernels
+against `pathtrace.shade_plain` on the seeded pools of
+`passes/shade_cases.py` at sizes that are not whole blocks, and 64x48
+frames (and an App tick with ReSTIR DI) through the kernels and through
+the plain shading on the card.
 
 These need an NVIDIA GPU and nvcc; elsewhere they skip. On the card (no
 JAX there, so without the JAX-pinning conftest):
@@ -37,8 +42,10 @@ Tolerances: tri ids, hit keys (t), occlusion and row fetches are
 bit-exact (-fmad=false: the kernels round op for op like PyTorch's
 separate kernels); the bounce fetch and the fused kernel are bit-exact
 except the rows derived through rsqrtf (normals, light cosine), held to
-1e-5.
+1e-5; the shading kernels are bit-exact.
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -53,6 +60,7 @@ from tpu_pbrt_torch.ops import traverse_culled as tcl
 from tpu_pbrt_torch.ops import traverse_dense as td
 from tpu_pbrt_torch.ops import traverse_resident as trs
 from tpu_pbrt_torch.ops.vec import Vec3
+from tpu_pbrt_torch.passes import pathtrace, shade_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -1402,16 +1410,18 @@ def test_bench_config_on_card_holds_no_host_tensor(dev, name):
     assert not off, off
 
 
+_SHADE = ("shade_bounce", "shade_nee")
 _CONFIG_KERNELS = {
     "cornell-nofold": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
-                       "fetch_rows"),
+                       "fetch_rows", *_SHADE),
     "cornell-bxdf": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
-                     "fetch_rows"),
+                     "fetch_rows", *_SHADE),
     "sphere": ("exact_closest_hit", "exact_any_hit", "fetch_bounce",
-               "fetch_rows"),
-    "sphere-textured": ("exact_closest_hit", "exact_any_hit", "fetch_rows"),
+               "fetch_rows", *_SHADE),
+    "sphere-textured": ("exact_closest_hit", "exact_any_hit", "fetch_rows",
+                        *_SHADE),
     "helmet-100k": ("exact_closest_hit", "exact_any_hit", "fetch_bounce",
-                    "fetch_rows"),
+                    "fetch_rows", *_SHADE),
 }
 
 
@@ -1471,3 +1481,125 @@ def test_app_native_on_card_matches_cpu(dev):
         d = np.abs(g - c)
         assert d.mean() <= 1e-3
         assert (d.max(-1) <= 1e-2).mean() >= 0.99
+
+
+# --- the shading kernel (`pathtrace.shade_cuda`, csrc/shade_bounce.cu) ----
+
+@pytest.mark.parametrize("n", [1, 1000, 4097, 70001])
+@pytest.mark.parametrize("case", sorted(shade_cases.CASES))
+def test_shade_kernel_equals_plain(dev, case, n):
+    """The shading kernel and its NEE add against `shade_plain` and
+    `nee_add_plain` on the card, on the seeded pools of
+    `passes/shade_cases.py` at sizes that are not whole blocks: `active`,
+    `first_lobe`, `ray_count` and the shadow interval's sign (-inf where
+    no shadow ray is made) equal; every float of the state bit for bit on
+    every lane; the shadow ray and the pending contribution bit for bit
+    where one is made."""
+    pool_kw, set_kw, bounce = shade_cases.CASES[case]
+    pool = shade_cases.make_pool(n, 17, device=dev, **pool_kw)
+    settings = pathtrace.PathTraceSettings(**set_kw)
+    tracer = types.SimpleNamespace(light_table=pool.light_table,
+                                   light_cdf=pool.light_cdf)
+    ctx = pathtrace.ShadeContext(tracer, pool.env, pool_kw.get("lights", 3),
+                                 settings, 0xC0FFEE42, 2)
+    want, wn = pathtrace.shade_plain(
+        ctx, bounce, shade_cases.clone_state(pool.state), pool.hit,
+        st.attrs_from_block(pool.block), pool.px, pool.py, pool.di_valid)
+    before = pathtrace.SHADE_KERNEL.launches
+    got, gn = pathtrace.shade_cuda(
+        ctx, bounce, shade_cases.clone_state(pool.state), pool.hit,
+        pool.block, pool.px, pool.py, pool.di_valid)
+    assert pathtrace.SHADE_KERNEL.launches == before + 1
+    assert (wn is None) == (gn is None) == (
+        not settings.next_event_estimation)
+    if wn is not None:
+        made = wn.t_max != -float("inf")
+        assert torch.equal(made, gn.t_max != -float("inf"))
+        for a, b in ((wn.origin, gn.origin), (wn.direction, gn.direction),
+                     (wn.contrib, gn.contrib)):
+            for c in "xyz":
+                assert torch.equal(_f32_bits(getattr(a, c)[made]),
+                                   _f32_bits(getattr(b, c)[made]))
+        assert torch.equal(_f32_bits(wn.t_max[made]),
+                           _f32_bits(gn.t_max[made]))
+        want = want._replace(radiance=pathtrace.nee_add_plain(
+            want.radiance, wn, pool.occluded))
+        got = got._replace(radiance=pathtrace.nee_add_cuda(
+            got.radiance, gn, pool.occluded))
+    torch.cuda.synchronize()
+    for name in ("active", "origin", "direction", "throughput", "radiance",
+                 "first_lobe", "first_hit_t", "ray_count", "prev_bsdf_pdf",
+                 "path_t"):
+        w, g = getattr(want, name), getattr(got, name)
+        if w is None:
+            assert g is None or name == "path_t"
+            continue
+        for c in ("xyz" if isinstance(w, Vec3) else (None,)):
+            a = getattr(w, c) if c else w
+            b = getattr(g, c) if c else g
+            assert torch.equal(_f32_bits(a), _f32_bits(b)), (name, c)
+
+
+def _f32_bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def test_shade_kernel_rejects_shared_state(dev):
+    """The kernel updates the state in place: a state whose tensors share
+    memory (`Vec3.full`'s three components) is refused."""
+    pool = shade_cases.make_pool(256, 3, device=dev)
+    tracer = types.SimpleNamespace(light_table=pool.light_table,
+                                   light_cdf=pool.light_cdf)
+    ctx = pathtrace.ShadeContext(tracer, pool.env, 3,
+                                 pathtrace.PathTraceSettings(), 1, 0)
+    shared = pool.state._replace(throughput=Vec3.full(1.0, (256,), dev))
+    with pytest.raises(ValueError, match="share memory"):
+        pathtrace.shade_cuda(ctx, 1, shared, pool.hit, pool.block, pool.px,
+                             pool.py, pool.di_valid)
+
+
+_SHADE_FRAMES = ("cornell", "cornell-bxdf", "sphere-textured", "animated",
+                 "app_di")
+
+
+@pytest.mark.parametrize("name", _SHADE_FRAMES)
+def test_shade_kernel_frame_equals_plain(dev, name, monkeypatch):
+    """A 64x48 frame (an App tick with ReSTIR DI on and SHARC off for
+    `app_di`: the external-DI path) on the card through the shading kernel
+    and through `shade_plain`: the image and the ray count equal bit for
+    bit; the kernel path launches each of the two kernels once a shading
+    call (the primary bounce and every later one, for each sample), the
+    plain path none. `sphere-textured` and `animated` see the procedural
+    sky (its pow and its division by 1.055)."""
+    from tpu_pbrt_torch import bench_configs
+    from tpu_pbrt_torch.render.app import App
+
+    def frame():
+        if name == "app_di":
+            s = bench_configs.app_settings(64, 48, path="app-native",
+                                           bounces=3, folds=(2,))
+            s.raytracing.restir_di = True
+            s.raytracing.sharc = False
+            app = App(*bench_configs.app_scene("app-native", 64, 48),
+                      s.check(), device=dev)
+            assert app.pt_settings.external_di
+            return app.tick(), app.pt_settings
+        cfg = bench_configs.make(name, device=dev, width=64, height=48)
+        r = cfg.target
+        out = (r.render(cfg.camera, 5) if name == "animated"
+               else r.render_with_stats(cfg.camera, 5))
+        return out, r.settings
+
+    cuda.reset_launches()
+    (img, rays), s = frame()
+    calls = s.samples_per_pixel * (s.bounces + 1)
+    for k in ("shade_bounce", "shade_nee"):
+        assert cuda.KERNELS[k].launches == calls, k
+    monkeypatch.setattr(pathtrace, "uses_kernel", lambda o, s: False)
+    cuda.reset_launches()
+    (img2, rays2), _ = frame()
+    assert not any(cuda.KERNELS[k].launches
+                   for k in ("shade_bounce", "shade_nee"))
+    assert torch.isfinite(img).all() and img.abs().sum() > 0
+    assert torch.equal(_f32_bits(img), _f32_bits(img2))
+    assert float(rays) == float(rays2)

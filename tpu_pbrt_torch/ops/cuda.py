@@ -161,17 +161,19 @@ class Kernel:
     def launch(self, *args, tag=None) -> None:
         """Launch on the tensor arguments' device (`launch_device`), made
         current for the call, on its current stream. Tensors pass as device
-        pointers, ints as C ints (the C signature lists them in this order,
-        then the stream; None passes a null pointer); raises on a nonzero
-        cudaGetLastError(). `tag` (hashable) files the launch under
-        `launches_by_tag` as well."""
-        c_types = [ctypes.c_void_p if a is None or isinstance(
-            a, torch.Tensor) else ctypes.c_int for a in args]
+        pointers, floats as C floats, ints as C ints (the C signature lists
+        them in this order, then the stream; None passes a null pointer);
+        raises on a nonzero cudaGetLastError(). `tag` (hashable) files the
+        launch under `launches_by_tag` as well."""
+        c_types = [ctypes.c_void_p if a is None or isinstance(a, torch.Tensor)
+                   else ctypes.c_float if isinstance(a, float)
+                   else ctypes.c_int for a in args]
         fn = getattr(library(), "tpb_" + self.name)
         fn.argtypes = [*c_types, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         c_args = [a.data_ptr() if isinstance(a, torch.Tensor)
-                  else None if a is None else int(a) for a in args]
+                  else None if a is None
+                  else a if isinstance(a, float) else int(a) for a in args]
         dev = launch_device([a for a in args if isinstance(a, torch.Tensor)])
         with torch.cuda.device(dev):
             err = fn(*c_args, torch.cuda.current_stream(dev).cuda_stream)

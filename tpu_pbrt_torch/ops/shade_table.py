@@ -517,6 +517,25 @@ def attrs_from_block(out: torch.Tensor) -> ShadeAttrs:
     )
 
 
+def block_from_attrs(attrs: ShadeAttrs) -> torch.Tensor:
+    """The (23, R) block `attrs_from_block` reads, from ShadeAttrs (the
+    front flag as 1.0 / 0.0, the tri id as a float)."""
+    a = attrs
+    rows = [None] * FB_OUT
+    for start, v in ((_FB_POS, a.position), (_FB_FLAT, a.flat_normal),
+                     (_FB_SHAD, a.shading_normal), (_FB_BASE, a.base_color),
+                     (_FB_EMIT, a.emission)):
+        rows[start:start + 3] = [v.x, v.y, v.z]
+    for i, t in ((_FB_LCOS, a.light_cos),
+                 (_FB_FRONT, a.is_front_face.to(torch.float32)),
+                 (_FB_METAL, a.metallic), (_FB_ROUGH, a.roughness),
+                 (_FB_IOR, a.ior), (_FB_TRANS, a.transmission),
+                 (_FB_LPDF, a.light_pdf_area),
+                 (_FB_TRI, a.tri.to(torch.float32))):
+        rows[i] = t
+    return torch.stack(torch.broadcast_tensors(*rows))
+
+
 def fetch_bounce(sub: torch.Tensor, slot: torch.Tensor, ray_origin: Vec3,
                  ray_dir: Vec3, atlas=None, footprint=None) -> ShadeAttrs:
     """Bounce-loop fetch of the compact column subset `sub`, the scene's

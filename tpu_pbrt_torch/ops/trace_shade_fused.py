@@ -95,18 +95,28 @@ def closest_hit_shade_block(tris: DenseTris, sub: torch.Tensor, o: Vec3,
     return closest_hit_shade_plain(tris, sub, o, d, t_min, t_max)
 
 
-def closest_hit_shade(tris: DenseTris, sub: torch.Tensor, origin: Vec3,
-                      direction: Vec3, t_min, t_max):
-    """(Hit, ShadeAttrs) matching `traverse_dense.closest_hit` +
-    `shade_table.fetch_bounce`. `sub` is the padded bounce sub-table
-    (`shade_table.bounce_subtable`)."""
+def closest_hit_and_block(tris: DenseTris, sub: torch.Tensor, origin: Vec3,
+                          direction: Vec3, t_min, t_max):
+    """(Hit, the (23, R) block of kernel 3's rows) matching
+    `traverse_dense.closest_hit` + `shade_table.fetch_bounce_block`. `sub`
+    is the padded bounce sub-table (`shade_table.bounce_subtable`)."""
     out = closest_hit_shade_block(tris, sub, origin, direction, t_min, t_max)
     found = out[ROW_FOUND] > 0.5
     # the tri id comes from the fetched row (padded rows carry -1)
     tri = torch.where(found, out[st._FB_TRI].to(torch.int32), -1)
     zeros = torch.zeros_like(out[0])
     hit = Hit(torch.where(found, out[ROW_HIT_T], INF), zeros, zeros, tri)
-    return hit, st.attrs_from_block(out[:st.FB_OUT])
+    return hit, out[:st.FB_OUT]
+
+
+def closest_hit_shade(tris: DenseTris, sub: torch.Tensor, origin: Vec3,
+                      direction: Vec3, t_min, t_max):
+    """(Hit, ShadeAttrs) matching `traverse_dense.closest_hit` +
+    `shade_table.fetch_bounce`. `sub` is the padded bounce sub-table
+    (`shade_table.bounce_subtable`)."""
+    hit, block = closest_hit_and_block(tris, sub, origin, direction, t_min,
+                                       t_max)
+    return hit, st.attrs_from_block(block)
 
 
 def any_hit(tris: DenseTris, origin: Vec3, direction: Vec3, t_min,

@@ -205,6 +205,21 @@ class Tracer(nn.Module):
             self.bounce_sub, slot, origin, direction, atlas=self.atlas,
             footprint=footprint)
 
+    def closest_hit_shade_block(self, origin, direction, t_min, t_max):
+        """`closest_hit_shade` with the attributes as the kernel's (23, R)
+        block (`shade_table.FB_OUT` rows)."""
+        return trace_shade_fused.closest_hit_and_block(
+            self.accel, self.bounce_sub, origin, direction, t_min, t_max)
+
+    def fetch_bounce_block(self, slot, origin, direction, footprint=None):
+        """`fetch_bounce` as the (23, R) block of kernel 3's rows: kernel 3
+        itself when untextured, else the textured attributes stacked."""
+        if not self.textured:
+            return shade_mod.fetch_bounce_block(self.bounce_sub, slot,
+                                                origin, direction)
+        return shade_mod.block_from_attrs(
+            self.fetch_bounce(slot, origin, direction, footprint))
+
 
 def shadow_opacity(scene) -> np.ndarray:
     """Per-triangle opacity for shadow rays: ALPHA_BLEND never occludes by

@@ -43,8 +43,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.scene import environment_radiance
-from ..ops import bxdf, rng, shade_table, vec
+from ..models.scene import EnvironmentTensors, environment_radiance
+from ..ops import bxdf, cuda, rng, shade_table, vec
 from ..ops.traverse import Hit
 from ..ops.vec import Vec3
 from ..utils import spans
@@ -163,6 +163,360 @@ def _fold_half(state: _PathState, px, py, idx, di_valid, frame,
             None if di_valid is None else sel(di_valid))
 
 
+# The shading kernels (csrc/shade_bounce.cu) and the flags of the first.
+SHADE_KERNEL = cuda.register(
+    "shade_bounce", "tpu_pbrt_torch/csrc/shade_bounce.cu",
+    "none: tpu_pbrt/passes/pathtrace.py's shading glue, fused by XLA")
+NEE_KERNEL = cuda.register(
+    "shade_nee", "tpu_pbrt_torch/csrc/shade_bounce.cu",
+    "none: tpu_pbrt/passes/pathtrace.py's shading glue, fused by XLA")
+SHADE_NEE = 1          # next-event estimation
+SHADE_EMIT_MIS = 2     # emission MIS-weighted against NEE (bounce > 0)
+SHADE_DI_NEE = 4       # external DI at bounce 0: no NEE where di_valid
+SHADE_DI_EMIT = 8      # external DI at bounce 1: no emission where di_valid
+SHADE_ROULETTE = 16    # Russian roulette at this bounce
+SHADE_COUNT = 32       # count rays
+SHADE_FIRST = 64       # bounce 0: set first_lobe / first_hit_t
+SHADE_LIGHTS = 128     # the scene has emitters
+SHADE_PATH_T = 256     # carry the path length (ray cones)
+NEE_ROWS = 10          # shadow origin, direction, t_max, contribution
+
+
+class ShadeContext(NamedTuple):
+    """What every bounce of one `trace` call shades with."""
+    tracer: object
+    env_color: object
+    light_count: int
+    settings: PathTraceSettings
+    frame: int
+    sample_offset: int
+    sharc_state: object = None
+    sharc_settings: object = None
+    camera_pos: torch.Tensor | None = None
+
+
+class Nee(NamedTuple):
+    """A bounce's pending next-event estimate: the shadow ray (t_max is
+    -inf on every lane that makes none) and the contribution it adds to
+    the radiance unless occluded. `block` is `shade_cuda`'s (10, R) block
+    that holds the rest as rows."""
+    origin: Vec3
+    direction: Vec3
+    t_max: torch.Tensor
+    contrib: Vec3
+    block: torch.Tensor | None = None
+
+
+def _draw(ctx: ShadeContext, px, py, bounce: int, slot: int):
+    counter = (ctx.sample_offset * 64 + slot) + bounce * 8
+    return rng.uniform4(px, py, ctx.frame, counter)
+
+
+def shade_plain(ctx: ShadeContext, bounce: int, state: _PathState,
+                hit: Hit, attrs: shade_table.ShadeAttrs, px, py, di_valid):
+    """A bounce's shading in PyTorch, everything after the fetch: miss
+    env, emission MIS, the NEE estimate and its shadow ray, BSDF sample,
+    RR, cutoff, continuation ray. Returns (state, Nee or None): the state's
+    radiance holds the miss and emission terms; `nee_add_plain` adds the
+    NEE term once its shadow ray is answered. The plain version of
+    `shade_cuda`, and the path for CPU tensors and the SHARC query."""
+    settings = ctx.settings
+    r = state.t_min.shape[0]
+    dev = state.t_min.device
+    zero3 = Vec3.splat(0.0)
+    is_hit = hit.mask & state.active
+    b = _bsdf_from_attrs(attrs)
+    emission = attrs.emission
+
+    # SHARC query: from bounce 1 on, terminate into cached radiance
+    # where the path footprint covers the voxel
+    radiance = state.radiance
+    if settings.sharc_mode == "query" and bounce > 0:
+        front_flat = vec.where(attrs.is_front_face, attrs.flat_normal,
+                               -attrs.flat_normal)
+        key = sharc_mod.voxel_key(attrs.position, front_flat,
+                                  ctx.camera_pos, ctx.sharc_settings)
+        cached, found = sharc_mod.query(ctx.sharc_state, key)
+        fp_ok = sharc_mod.footprint_valid(
+            hit.t, state.rough_accum, attrs.position, ctx.camera_pos,
+            ctx.sharc_settings)
+        use_cache = is_hit & found & fp_ok
+        radiance = radiance + vec.where(
+            use_cache, state.throughput * cached, zero3)
+        # cached lanes contribute nothing else at this vertex
+        is_hit = is_hit & ~use_cache
+
+    # miss: environment light, terminate
+    env = environment_radiance(ctx.env_color, state.direction)
+    radiance = radiance + vec.where(
+        state.active & ~hit.mask, state.throughput * env, zero3)
+
+    # emission pickup, MIS-weighted against NEE when enabled
+    if settings.next_event_estimation and bounce != 0:
+        cos_l = attrs.light_cos
+        p_l_sa = torch.where(
+            cos_l > 1e-6,
+            attrs.light_pdf_area * hit.t * hit.t
+            / torch.clamp(cos_l, min=1e-6), 0.0)
+        denom = state.prev_bsdf_pdf + p_l_sa
+        w_emit = torch.where(
+            denom <= 0.0, 1.0,
+            state.prev_bsdf_pdf / torch.clamp(denom, min=1e-20))
+    else:
+        w_emit = 1.0
+    if settings.external_di and bounce == 1:
+        # ReSTIR owns the first vertex's direct light: no bounce-1
+        # emission where DI was produced
+        w_emit = torch.where(di_valid, 0.0, w_emit)
+    radiance = radiance + vec.where(
+        is_hit, state.throughput * (emission * w_emit), zero3)
+
+    sv = bxdf.make_surface_vectors(attrs.is_front_face, attrs.flat_normal,
+                                   attrs.shading_normal)
+    v = -state.direction
+    weights = bxdf.lobe_weights(b, sv, v)
+
+    # next-event estimation: one power-sampled light, shadow ray,
+    # balance-heuristic MIS against the BSDF strategy
+    nee = nee_rays = None
+    if settings.next_event_estimation:
+        u3 = _draw(ctx, px, py, bounce, 2)
+        ls = shade_table.fetch_light(ctx.tracer.light_table,
+                                     ctx.tracer.light_cdf, u3[0], u3[1],
+                                     u3[2])
+        to_l = ls.position - attrs.position
+        dist = vec.length(to_l)
+        wi = to_l * torch.reciprocal(torch.clamp(dist, min=1e-8))
+        cos_light = -vec.dot(ls.normal, wi)
+        pdf_sa = torch.where(
+            cos_light > 1e-6,
+            ls.pdf_area * dist * dist / torch.clamp(cos_light, min=1e-6),
+            0.0)
+        f_d, f_s = bxdf.evaluate_combined(b, sv, wi, v, weights)
+        f_nee = f_d + f_s
+        p_b = bxdf.pdf_combined(b, sv, wi, v, weights)
+        valid_nee = (is_hit & (pdf_sa > 0.0)
+                     & ((f_nee.x > 0.0) | (f_nee.y > 0.0)
+                        | (f_nee.z > 0.0)))
+        if ctx.light_count <= 0:
+            valid_nee = torch.zeros_like(valid_nee)
+        if settings.external_di and bounce == 0:
+            valid_nee = valid_nee & ~di_valid
+        shadow_o = vec.safe_spawn_offset(attrs.position, attrs.flat_normal,
+                                         wi)
+        shadow_max = torch.where(valid_nee, dist * (1.0 - 1e-3),
+                                 -float("inf"))
+        w_mis = pdf_sa / torch.clamp(pdf_sa + p_b, min=1e-20)
+        contrib = (state.throughput * f_nee * ls.radiance
+                   * (w_mis / torch.clamp(pdf_sa, min=1e-20)))
+        nee = Nee(shadow_o, wi, shadow_max, contrib)
+        if settings.count_rays:
+            nee_rays = valid_nee.to(torch.float32)
+
+    # BSDF sampling
+    u4 = _draw(ctx, px, py, bounce, 0)
+    l, lobe, valid = bxdf.sample(b, sv, v, u4)
+    pdf = bxdf.pdf_sampled_lobe(b, sv, l, v, weights, lobe)
+    f = bxdf.evaluate_sampled_lobe(b, sv, l, v, weights, lobe)
+
+    ok = valid & (pdf > 0.0) & ((f.x != 0.0) | (f.y != 0.0) | (f.z != 0.0))
+    throughput = state.throughput * vec.where(
+        ok, f * torch.reciprocal(torch.clamp(pdf, min=1e-20)),
+        Vec3.splat(1.0))
+
+    # Russian roulette
+    rr_kill = None
+    if settings.russian_roulette and bounce > settings.rr_start_bounce:
+        p = torch.clamp(vec.max_component(throughput), 0.0, 1.0)
+        u_rr = _draw(ctx, px, py, bounce, 1)[0]
+        rr_kill = u_rr >= p
+        throughput = throughput * torch.where(
+            ~rr_kill, torch.reciprocal(torch.clamp(p, min=1e-8)), 1.0)
+
+    # luminance cutoff
+    cut = vec.luminance(throughput) <= settings.throughput_threshold
+
+    active = is_hit & ok & ~cut
+    if rr_kill is not None:
+        active = active & ~rr_kill
+
+    # continuation ray
+    new_origin = vec.safe_spawn_offset(attrs.position, attrs.flat_normal, l)
+    if bounce == 0:
+        first_lobe = torch.where(is_hit, lobe, state.first_lobe)
+        first_hit_t = torch.where(is_hit, hit.t, state.first_hit_t)
+    else:
+        first_lobe, first_hit_t = state.first_lobe, state.first_hit_t
+
+    # claimed BSDF pdf of the sampled direction for next-hit MIS
+    if settings.next_event_estimation:
+        next_pdf = bxdf.pdf_combined(b, sv, l, v, weights)
+    else:
+        next_pdf = pdf
+
+    new_count = state.ray_count
+    if settings.count_rays:
+        if nee_rays is not None:
+            new_count = new_count + nee_rays
+        new_count = new_count + state.active.to(torch.float32)
+    return _PathState(
+        active=active,
+        origin=vec.where(is_hit, new_origin, state.origin),
+        direction=vec.where(is_hit, l, state.direction),
+        t_min=torch.zeros((r,), dtype=torch.float32, device=dev),
+        t_max=torch.full((r,), float("inf"), device=dev),
+        throughput=vec.where(is_hit, throughput, state.throughput),
+        radiance=radiance,
+        first_lobe=first_lobe,
+        first_hit_t=first_hit_t,
+        ray_count=new_count,
+        prev_bsdf_pdf=torch.where(is_hit, next_pdf, state.prev_bsdf_pdf),
+        path_t=(None if state.path_t is None else torch.where(
+            is_hit, state.path_t + hit.t, state.path_t)),
+        rough_accum=(None if state.rough_accum is None else torch.where(
+            is_hit, state.rough_accum + torch.where(
+                lobe == bxdf.LOBE_DIFFUSE, 1.0, b.roughness),
+            state.rough_accum)),
+    ), nee
+
+
+def nee_add_plain(radiance: Vec3, nee: Nee, occluded) -> Vec3:
+    """The NEE term where a shadow ray was made (t_max > -inf: a made
+    one's is dist * 0.999 >= 0) and not occluded."""
+    made = nee.t_max != -float("inf")
+    return radiance + vec.where(made & ~occluded, nee.contrib,
+                                Vec3.splat(0.0))
+
+
+def _i32(v: int) -> int:
+    """A value mod 2**32 as the C int of the same bits."""
+    v &= 0xFFFFFFFF
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def shade_flags(settings: PathTraceSettings, bounce: int,
+                light_count: int) -> int:
+    """The kernel's flags for one bounce of `settings`."""
+    nee = settings.next_event_estimation
+    flags = [
+        (nee, SHADE_NEE),
+        (nee and bounce != 0, SHADE_EMIT_MIS),
+        (settings.external_di and bounce == 0, SHADE_DI_NEE),
+        (settings.external_di and bounce == 1, SHADE_DI_EMIT),
+        (settings.russian_roulette and bounce > settings.rr_start_bounce,
+         SHADE_ROULETTE),
+        (settings.count_rays, SHADE_COUNT),
+        (bounce == 0, SHADE_FIRST),
+        (light_count > 0, SHADE_LIGHTS),
+        (settings.cone_spread > 0.0, SHADE_PATH_T),
+    ]
+    return sum(bit for on, bit in flags if on)
+
+
+def shade_cuda(ctx: ShadeContext, bounce: int, state: _PathState, hit: Hit,
+               block: torch.Tensor, px, py, di_valid):
+    """`shade_plain` as one kernel (`tpb_shade_bounce`) on the (23, R)
+    attribute block of the bounce fetch (`shade_table.FB_OUT` rows); a
+    lat-long environment map's radiance comes in from PyTorch.
+    Updates the state's tensors IN PLACE: every state tensor must be this
+    trace's own, none sharing memory with another or with the caller's
+    (`trace` copies the caller's origin and direction first). Returns
+    (state, Nee or None) as `shade_plain` does; the state's t_min / t_max
+    are left for the caller (a bounce makes them uniform). A lane that was
+    not active or missed gets origin and direction 0 in its Nee. Bit-equal
+    to `shade_plain` on the card in every state tensor, and in the Nee
+    where a shadow ray is made."""
+    settings = ctx.settings
+    if settings.sharc_mode != "off":
+        raise ValueError("the shading kernel does not query SHARC")
+    r = state.active.shape[0]
+    dev = state.active.device
+    tracer = ctx.tracer
+    check = cuda.check
+    check(state.active, "active", torch.bool, (r,))
+    fields = [state.origin.x, state.origin.y, state.origin.z,
+              state.direction.x, state.direction.y, state.direction.z,
+              state.throughput.x, state.throughput.y, state.throughput.z,
+              state.radiance.x, state.radiance.y, state.radiance.z]
+    names = ("ox", "oy", "oz", "dx", "dy", "dz", "tx", "ty", "tz", "rx",
+             "ry", "rz")
+    for name, a in zip(names, fields):
+        check(a, name, torch.float32, (r,), dev)
+    check(state.first_lobe, "first_lobe", torch.int32, (r,), dev)
+    for name in ("first_hit_t", "ray_count", "prev_bsdf_pdf"):
+        check(getattr(state, name), name, torch.float32, (r,), dev)
+    path_t = state.path_t if settings.cone_spread > 0.0 else None
+    if path_t is not None:
+        check(path_t, "path_t", torch.float32, (r,), dev)
+    written = [state.active, *fields, state.first_lobe, state.first_hit_t,
+               state.ray_count, state.prev_bsdf_pdf]
+    written += [path_t] if path_t is not None else []
+    if len({a.data_ptr() for a in written}) != len(written):
+        raise ValueError("state tensors share memory: the kernel updates "
+                         "them in place")
+    check(hit.t, "hit.t", torch.float32, (r,), dev)
+    check(hit.tri, "hit.tri", torch.int32, (r,), dev)
+    check(block, "block", torch.float32, (shade_table.FB_OUT, r), dev)
+    check(px, "px", torch.int64, (r,), dev)
+    check(py, "py", torch.int64, (r,), dev)
+    flags = shade_flags(settings, bounce, ctx.light_count)
+    di = None
+    if flags & (SHADE_DI_NEE | SHADE_DI_EMIT):
+        if di_valid is None:
+            raise ValueError("external_di needs the di_valid mask")
+        di = di_valid
+        check(di, "di_valid", torch.bool, (r,), dev)
+    env, env_rad = ctx.env_color, None
+    if isinstance(env, EnvironmentTensors):
+        if env.texture is not None:    # the lat-long map's taps in PyTorch
+            env_rad = environment_radiance(env, state.direction)
+            env_rad = torch.stack([env_rad.x, env_rad.y, env_rad.z])
+        env = env.color
+    check(env, "env_color", torch.float32, (4,), dev)
+    lights, cdf = tracer.light_table, tracer.light_cdf
+    check(lights, "light_table", torch.float32,
+          (lights.shape[0], shade_table.LIGHT_COLS), dev)
+    check(cdf, "light_cdf", torch.float32, (cdf.shape[0],), dev)
+    if lights.shape[0] < 1 or cdf.shape[0] < 1:
+        raise ValueError("the light table and its CDF need a row")
+    nee = None
+    if flags & SHADE_NEE:
+        nee = torch.empty((NEE_ROWS, r), dtype=torch.float32, device=dev)
+    counter = ctx.sample_offset * 64 + bounce * 8
+    SHADE_KERNEL.launch(
+        hit.t, hit.tri, block, px, py, di, env_rad, env, lights,
+        lights.shape[0], cdf, cdf.shape[0], state.active, *fields,
+        state.first_lobe, state.first_hit_t, state.ray_count,
+        state.prev_bsdf_pdf, path_t, nee, r, _i32(ctx.frame), _i32(counter),
+        flags, float(settings.throughput_threshold), tag=r)
+    if nee is None:
+        return state, None
+    return state, Nee(Vec3(nee[0], nee[1], nee[2]),
+                      Vec3(nee[3], nee[4], nee[5]), nee[6],
+                      Vec3(nee[7], nee[8], nee[9]), nee)
+
+
+def nee_add_cuda(radiance: Vec3, nee: Nee, occluded) -> Vec3:
+    """`nee_add_plain` as one kernel (`tpb_shade_nee`) on `shade_cuda`'s
+    Nee, in place on the radiance."""
+    r = occluded.shape[0]
+    dev = occluded.device
+    cuda.check(nee.block, "nee.block", torch.float32, (NEE_ROWS, r), dev)
+    cuda.check(occluded, "occluded", torch.bool, (r,), dev)
+    for name, a in zip(("rx", "ry", "rz"),
+                       (radiance.x, radiance.y, radiance.z)):
+        cuda.check(a, name, torch.float32, (r,), dev)
+    NEE_KERNEL.launch(nee.block, occluded, radiance.x, radiance.y,
+                      radiance.z, r, tag=r)
+    return radiance
+
+
+def uses_kernel(origin: Vec3, settings: PathTraceSettings) -> bool:
+    """Does `trace` shade through the kernel? On CUDA rays with SHARC off
+    (the SHARC query's hash lookup stays in `shade_plain`)."""
+    return origin.x.is_cuda and settings.sharc_mode == "off"
+
+
 def trace(tracer, env_color, light_count: int, origin: Vec3,
           direction: Vec3, t_min, t_max, px: torch.Tensor, py: torch.Tensor,
           frame: int, settings: PathTraceSettings, sample_offset: int = 0,
@@ -174,7 +528,10 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
     (`environment_radiance`'s argument). `primary_hit` (if given) supplies
     the bounce-0 hit from the G-buffer pass. `sharc_state`,
     `sharc_settings` and `camera_pos` (a (3,) tensor) feed the SHARC
-    query; `di_valid` ((R,) bool) the external-DI demux."""
+    query; `di_valid` ((R,) bool) the external-DI demux.
+
+    Each bounce shades through the kernel (`shade_cuda`) on CUDA rays
+    with `sharc_mode="off"`, else through `shade_plain`."""
     r = origin.x.shape[0]
     dev = origin.x.device
     schedule = tuple(settings.compaction_schedule)
@@ -185,10 +542,15 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
             raise ValueError(f"schedule outside [1, bounces]: {schedule}")
         if r % (2 ** len(schedule)):
             raise ValueError(f"pool {r} not divisible by 2**{len(schedule)}")
-
-    def draw(px, py, bounce, slot):
-        counter = (sample_offset * 64 + slot) + bounce * 8
-        return rng.uniform4(px, py, frame, counter)
+    if settings.external_di and di_valid is None:
+        raise ValueError("external_di needs the di_valid mask")
+    if settings.sharc_mode == "query" and sharc_state is None:
+        raise ValueError("sharc_mode='query' needs sharc_state, "
+                         "sharc_settings and camera_pos")
+    ctx = ShadeContext(tracer, env_color, light_count, settings, frame,
+                       sample_offset, sharc_state, sharc_settings,
+                       camera_pos)
+    on_card = uses_kernel(origin, settings)
 
     def lane(value, dtype=torch.float32):
         return torch.full((r,), value, dtype=dtype, device=dev)
@@ -198,14 +560,20 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
             return torch.broadcast_to(x.to(torch.float32), (r,))
         return lane(float(x))
 
+    if on_card:
+        # the kernel updates the state in place: the caller's rays are
+        # copied into this trace's own buffers
+        own = torch.stack([origin.x, origin.y, origin.z, direction.x,
+                           direction.y, direction.z])
+        origin, direction = Vec3(*own[:3]), Vec3(*own[3:])
     state = _PathState(
         active=lane(True, torch.bool),
         origin=origin,
         direction=direction,
         t_min=bounds(t_min),
         t_max=bounds(t_max),
-        throughput=Vec3.full(1.0, (r,), dev),
-        radiance=Vec3.zeros((r,), dev),
+        throughput=Vec3(*torch.ones((3, r), device=dev)),
+        radiance=Vec3(*torch.zeros((3, r), device=dev)),
         first_lobe=lane(-1, torch.int32),
         first_hit_t=lane(float("inf")),
         ray_count=lane(0.0),
@@ -213,195 +581,49 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
         path_t=lane(0.0) if settings.cone_spread > 0.0 else None,
         rough_accum=lane(0.0) if settings.sharc_mode == "query" else None,
     )
-    if settings.external_di and di_valid is None:
-        raise ValueError("external_di needs the di_valid mask")
-    if settings.sharc_mode == "query" and sharc_state is None:
-        raise ValueError("sharc_mode='query' needs sharc_state, "
-                         "sharc_settings and camera_pos")
-    zero3 = Vec3.splat(0.0)
+    uniform = {}   # pool size -> a bounce's t_min, t_max (on the card)
+
+    def footprint(state, hit):
+        if settings.cone_spread <= 0.0:
+            return None
+        return settings.cone_spread * (state.path_t
+                                       + torch.clamp(hit.t, min=0.0))
 
     def shade(bounce: int, state: _PathState, hit: Hit, px, py, di_valid,
-              attrs: shade_table.ShadeAttrs | None = None) -> _PathState:
-        """Everything after traversal: miss env, emission MIS, NEE, BSDF
-        sample, RR, cutoff, continuation ray. `attrs` (if given) comes from
-        the fused closest-hit-and-shade kernel and replaces the fetch."""
+              fetched=None) -> _PathState:
+        """Everything after traversal, the fetch included unless `fetched`
+        (the fused kernel's attributes: a (23, R) block on the card, else
+        ShadeAttrs) brings it."""
         with spans.span("pathtrace.shade", _pool(bounce, state)):
-            return shade_pool(bounce, state, hit, px, py, di_valid, attrs)
-
-    def shade_pool(bounce, state, hit, px, py, di_valid, attrs):
-        r = state.t_min.shape[0]
-        is_hit = hit.mask & state.active
-
-        if attrs is None:
-            with spans.span("pathtrace.fetch"):
-                fp = None
-                if settings.cone_spread > 0.0:
-                    fp = settings.cone_spread * (
-                        state.path_t + torch.clamp(hit.t, min=0.0))
-                attrs = tracer.fetch_bounce(torch.clamp(hit.tri, min=0),
-                                            state.origin, state.direction,
-                                            fp)
-        b = _bsdf_from_attrs(attrs)
-        emission = attrs.emission
-
-        # SHARC query: from bounce 1 on, terminate into cached radiance
-        # where the path footprint covers the voxel
-        radiance = state.radiance
-        if settings.sharc_mode == "query" and bounce > 0:
-            front_flat = vec.where(attrs.is_front_face, attrs.flat_normal,
-                                   -attrs.flat_normal)
-            key = sharc_mod.voxel_key(attrs.position, front_flat, camera_pos,
-                                      sharc_settings)
-            cached, found = sharc_mod.query(sharc_state, key)
-            fp_ok = sharc_mod.footprint_valid(
-                hit.t, state.rough_accum, attrs.position, camera_pos,
-                sharc_settings)
-            use_cache = is_hit & found & fp_ok
-            radiance = radiance + vec.where(
-                use_cache, state.throughput * cached, zero3)
-            # cached lanes contribute nothing else at this vertex
-            is_hit = is_hit & ~use_cache
-
-        # miss: environment light, terminate
-        env = environment_radiance(env_color, state.direction)
-        radiance = radiance + vec.where(
-            state.active & ~hit.mask, state.throughput * env, zero3)
-
-        # emission pickup, MIS-weighted against NEE when enabled
-        if settings.next_event_estimation and bounce != 0:
-            cos_l = attrs.light_cos
-            p_l_sa = torch.where(
-                cos_l > 1e-6,
-                attrs.light_pdf_area * hit.t * hit.t
-                / torch.clamp(cos_l, min=1e-6), 0.0)
-            denom = state.prev_bsdf_pdf + p_l_sa
-            w_emit = torch.where(
-                denom <= 0.0, 1.0,
-                state.prev_bsdf_pdf / torch.clamp(denom, min=1e-20))
-        else:
-            w_emit = 1.0
-        if settings.external_di and bounce == 1:
-            # ReSTIR owns the first vertex's direct light: no bounce-1
-            # emission where DI was produced
-            w_emit = torch.where(di_valid, 0.0, w_emit)
-        radiance = radiance + vec.where(
-            is_hit, state.throughput * (emission * w_emit), zero3)
-
-        sv = bxdf.make_surface_vectors(attrs.is_front_face,
-                                       attrs.flat_normal,
-                                       attrs.shading_normal)
-        v = -state.direction
-        weights = bxdf.lobe_weights(b, sv, v)
-
-        # next-event estimation: one power-sampled light, shadow ray,
-        # balance-heuristic MIS against the BSDF strategy
-        nee_rays = None
-        if settings.next_event_estimation:
-            u3 = draw(px, py, bounce, 2)
-            ls = shade_table.fetch_light(tracer.light_table,
-                                         tracer.light_cdf, u3[0], u3[1],
-                                         u3[2])
-            to_l = ls.position - attrs.position
-            dist = vec.length(to_l)
-            wi = to_l * torch.reciprocal(torch.clamp(dist, min=1e-8))
-            cos_light = -vec.dot(ls.normal, wi)
-            pdf_sa = torch.where(
-                cos_light > 1e-6,
-                ls.pdf_area * dist * dist / torch.clamp(cos_light, min=1e-6),
-                0.0)
-            f_d, f_s = bxdf.evaluate_combined(b, sv, wi, v, weights)
-            f_nee = f_d + f_s
-            p_b = bxdf.pdf_combined(b, sv, wi, v, weights)
-            valid_nee = (is_hit & (pdf_sa > 0.0)
-                         & ((f_nee.x > 0.0) | (f_nee.y > 0.0)
-                            | (f_nee.z > 0.0)))
-            if light_count <= 0:
-                valid_nee = torch.zeros_like(valid_nee)
-            if settings.external_di and bounce == 0:
-                valid_nee = valid_nee & ~di_valid
-            shadow_o = vec.safe_spawn_offset(attrs.position,
-                                             attrs.flat_normal, wi)
-            with spans.span("pathtrace.shadow"):
-                shadow_max = torch.where(valid_nee, dist * (1.0 - 1e-3),
-                                         -float("inf"))
-                spans.count_lanes("shadow", bounce, 0.0, shadow_max)
-                occluded = tracer.any_hit(shadow_o, wi, 0.0, shadow_max)
-            w_mis = pdf_sa / torch.clamp(pdf_sa + p_b, min=1e-20)
-            contrib = (state.throughput * f_nee * ls.radiance
-                       * (w_mis / torch.clamp(pdf_sa, min=1e-20)))
-            radiance = radiance + vec.where(valid_nee & ~occluded, contrib,
-                                            zero3)
-            if settings.count_rays:
-                nee_rays = valid_nee.to(torch.float32)
-
-        # BSDF sampling
-        u4 = draw(px, py, bounce, 0)
-        l, lobe, valid = bxdf.sample(b, sv, v, u4)
-        pdf = bxdf.pdf_sampled_lobe(b, sv, l, v, weights, lobe)
-        f = bxdf.evaluate_sampled_lobe(b, sv, l, v, weights, lobe)
-
-        ok = valid & (pdf > 0.0) & ((f.x != 0.0) | (f.y != 0.0)
-                                    | (f.z != 0.0))
-        throughput = state.throughput * vec.where(
-            ok, f * torch.reciprocal(torch.clamp(pdf, min=1e-20)),
-            Vec3.splat(1.0))
-
-        # Russian roulette
-        rr_kill = None
-        if settings.russian_roulette and bounce > settings.rr_start_bounce:
-            p = torch.clamp(vec.max_component(throughput), 0.0, 1.0)
-            u_rr = draw(px, py, bounce, 1)[0]
-            rr_kill = u_rr >= p
-            throughput = throughput * torch.where(
-                ~rr_kill, torch.reciprocal(torch.clamp(p, min=1e-8)), 1.0)
-
-        # luminance cutoff
-        cut = vec.luminance(throughput) <= settings.throughput_threshold
-
-        active = is_hit & ok & ~cut
-        if rr_kill is not None:
-            active = active & ~rr_kill
-
-        # continuation ray
-        new_origin = vec.safe_spawn_offset(attrs.position, attrs.flat_normal,
-                                           l)
-        if bounce == 0:
-            first_lobe = torch.where(is_hit, lobe, state.first_lobe)
-            first_hit_t = torch.where(is_hit, hit.t, state.first_hit_t)
-        else:
-            first_lobe, first_hit_t = state.first_lobe, state.first_hit_t
-
-        # claimed BSDF pdf of the sampled direction for next-hit MIS
-        if settings.next_event_estimation:
-            next_pdf = bxdf.pdf_combined(b, sv, l, v, weights)
-        else:
-            next_pdf = pdf
-
-        new_count = state.ray_count
-        if settings.count_rays:
-            new_count = state.ray_count
-            if nee_rays is not None:
-                new_count = new_count + nee_rays
-            new_count = new_count + state.active.to(torch.float32)
-        return _PathState(
-            active=active,
-            origin=vec.where(is_hit, new_origin, state.origin),
-            direction=vec.where(is_hit, l, state.direction),
-            t_min=torch.zeros((r,), dtype=torch.float32, device=dev),
-            t_max=torch.full((r,), float("inf"), device=dev),
-            throughput=vec.where(is_hit, throughput, state.throughput),
-            radiance=radiance,
-            first_lobe=first_lobe,
-            first_hit_t=first_hit_t,
-            ray_count=new_count,
-            prev_bsdf_pdf=torch.where(is_hit, next_pdf, state.prev_bsdf_pdf),
-            path_t=(None if state.path_t is None else torch.where(
-                is_hit, state.path_t + hit.t, state.path_t)),
-            rough_accum=(None if state.rough_accum is None else torch.where(
-                is_hit, state.rough_accum + torch.where(
-                    lobe == bxdf.LOBE_DIFFUSE, 1.0, b.roughness),
-                state.rough_accum)),
-        )
+            if fetched is None:
+                with spans.span("pathtrace.fetch"):
+                    slot = torch.clamp(hit.tri, min=0)
+                    fp = footprint(state, hit)
+                    fetched = (tracer.fetch_bounce_block(
+                        slot, state.origin, state.direction, fp) if on_card
+                        else tracer.fetch_bounce(
+                            slot, state.origin, state.direction, fp))
+            if on_card:
+                n = state.active.shape[0]
+                if n not in uniform:
+                    uniform[n] = (torch.zeros((n,), device=dev),
+                                  torch.full((n,), float("inf"), device=dev))
+                state, nee = shade_cuda(ctx, bounce, state, hit, fetched, px,
+                                        py, di_valid)
+                state = state._replace(t_min=uniform[n][0],
+                                       t_max=uniform[n][1])
+            else:
+                state, nee = shade_plain(ctx, bounce, state, hit, fetched,
+                                         px, py, di_valid)
+            if nee is not None:
+                with spans.span("pathtrace.shadow"):
+                    spans.count_lanes("shadow", bounce, 0.0, nee.t_max)
+                    occluded = tracer.any_hit(nee.origin, nee.direction, 0.0,
+                                              nee.t_max)
+                add = nee_add_cuda if on_card else nee_add_plain
+                state = state._replace(
+                    radiance=add(state.radiance, nee, occluded))
+            return state
 
     fused = tracer.supports_fused_shade()
 
@@ -411,14 +633,16 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
             # inactive lanes traverse an empty interval
             t_max = torch.where(state.active, state.t_max, -float("inf"))
             spans.count_lanes("trace", bounce, state.t_min, t_max)
-            attrs = None
+            fetched = None
             if fused:
-                hit, attrs = tracer.closest_hit_shade(
-                    state.origin, state.direction, state.t_min, t_max)
+                query = (tracer.closest_hit_shade_block if on_card
+                         else tracer.closest_hit_shade)
+                hit, fetched = query(state.origin, state.direction,
+                                     state.t_min, t_max)
             else:
                 hit = tracer.closest_hit(state.origin, state.direction,
                                          state.t_min, t_max)
-        return shade(bounce, state, hit, px, py, di_valid, attrs)
+        return shade(bounce, state, hit, px, py, di_valid, fetched)
 
     # bounce 0 reuses the G-buffer's primary hit instead of retracing
     start = 0
@@ -436,7 +660,8 @@ def trace(tracer, env_color, light_count: int, origin: Vec3,
         if k >= len(schedule):
             break
         # compaction at bounce `end`: bank this pool's radiance per pixel
-        # (the fold discards lane identity), then halve the pool
+        # (the fold discards lane identity), then halve the pool (every
+        # field comes out a new tensor of its own)
         with spans.span("pathtrace.fold", _pool(end, state)):
             cur = vec.where(vec.all_finite(state.radiance), state.radiance,
                             Vec3.splat(0.0))
