@@ -4,11 +4,13 @@ PyTorch, written from the semantics of the renderer that the port follows
 lobe choice; one-light NEE with balance-heuristic MIS; Russian roulette
 after bounce 3; the luminance cutoff; pool folds; counted rays). It imports
 nothing of the port: it builds its triangle arrays from the same scene
-inputs the harness hands the port (`benchmark/scenes.py`), finds hits by
+inputs the harness hands the port (`benchmark/kinds/`), finds hits by
 testing every triangle of every box a ray crosses, and shades them.
 
 * `scene.py`: scene inputs -> flat triangle, material and light arrays
-  (the .glb parsed here; the skinned tube posed here);
+  (the .glb parsed here), each hit's material (`Scene.material_at`), and
+  the lookup of a scene's kind; each kind's module makes its inputs (the
+  skinned tube posed in `kinds/skinned_tube.py`);
 * `trace.py`: closest and any hit over boxes of 64 triangles;
 * `render.py`: camera rays and the path tracer.
 """

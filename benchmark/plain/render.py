@@ -20,6 +20,11 @@ roulette, 2 the light, 3 a fold's coin):
 
 Rays counted: each live lane's ray at each bounce and each shadow ray, the
 primary rays once.
+
+The material at a hit comes from the scene's `material_at`. With
+`cone_spread` > 0 each lane carries its path's length, as the renderer's
+path state does, and the hit's ray-cone width, `cone_spread` times that
+length plus the hit's distance, goes with it.
 """
 
 from __future__ import annotations
@@ -319,9 +324,12 @@ def camera_rays(cam: dict, width: int, height: int, device):
 
 class Surface:
     """What shading needs at each lane's hit on triangle `tri`, for rays
-    (o, d): barycentrics found again on the triangle, clipped to [0, 1]."""
+    (o, d): barycentrics found again on the triangle, clipped to [0, 1];
+    the material and the shading normal from the scene's `material_at`,
+    given the oriented interpolated normal and `footprint` (the ray cone's
+    width at the hit, or None)."""
 
-    def __init__(self, scene, tri, o, d):
+    def __init__(self, scene, tri, o, d, footprint=None):
         k = tri.clamp_min(0)
         c = scene.positions[k]
         p0, e1, e2 = c[:, 0], c[:, 1] - c[:, 0], c[:, 2] - c[:, 0]
@@ -340,10 +348,13 @@ class Surface:
         self.light_cos = -dot(flat, d)
         self.flat = where3(dot(flat, shading) < 0.0, -flat, flat)
         self.front = dot(self.flat, d) < 0.0
-        self.shading = where3(self.front, shading, -shading)
-        for name in ("base", "emission", "metallic", "roughness", "ior",
-                     "transmission", "light_pdf"):
-            setattr(self, name, getattr(scene, name)[k])
+        m = scene.material_at(k, u, v, where3(self.front, shading, -shading),
+                              footprint)
+        self.shading = m.shading
+        self.base, self.emission = m.base, m.emission
+        self.metallic, self.roughness = m.metallic, m.roughness
+        self.ior, self.transmission = m.ior, m.transmission
+        self.light_pdf = scene.light_pdf[k]
 
 
 def render(scene, boxes: Boxes, cam: dict, width: int, height: int,
@@ -391,6 +402,7 @@ def trace(scene, boxes, o, d, t_hit, tri, frame: int, settings: dict,
     rr_on = bool(settings["russian_roulette"])
     rr_start = int(settings["rr_start_bounce"])
     cutoff = float(settings["throughput_threshold"])
+    spread = float(settings.get("cone_spread", 0.0))
     lights = scene.lights
     pixel = torch.arange(n, device=dev)
     state = {
@@ -399,6 +411,8 @@ def trace(scene, boxes, o, d, t_hit, tri, frame: int, settings: dict,
         "o": o, "d": d,
         "throughput": torch.ones_like(o), "radiance": torch.zeros_like(o),
         "prev_pdf": torch.zeros(n, device=dev)}
+    if spread > 0.0:
+        state["path_t"] = torch.zeros(n, device=dev)   # the path's length
     bank = torch.zeros_like(o)
     rays = -float(n)            # bounce 0's rays are the primary ones
 
@@ -424,7 +438,9 @@ def trace(scene, boxes, o, d, t_hit, tri, frame: int, settings: dict,
         rays += float(act.sum())
         is_hit = (hit_tri >= 0) & act
         thr = state["throughput"]
-        s = Surface(scene, hit_tri, so, sd)
+        s = Surface(scene, hit_tri, so, sd,
+                    spread * (state["path_t"] + t.clamp_min(0.0))
+                    if spread > 0.0 else None)
         rad = state["radiance"] + where3(
             act & (hit_tri < 0), thr * environment(scene.environment, sd),
             torch.zeros_like(thr))
@@ -494,5 +510,8 @@ def trace(scene, boxes, o, d, t_hit, tri, frame: int, settings: dict,
             throughput=where3(is_hit, thr_new, thr),
             radiance=rad,
             prev_pdf=torch.where(is_hit, next_pdf, state["prev_pdf"]))
+        if spread > 0.0:
+            state["path_t"] = torch.where(is_hit, state["path_t"] + t,
+                                          state["path_t"])
     bank.index_add_(0, state["pixel"], finite(state["radiance"]))
     return bank, rays

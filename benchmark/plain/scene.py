@@ -1,7 +1,8 @@
 """A cell's scene as flat per-triangle arrays, from the inputs the harness
-hands the port (`benchmark/scenes.py`): the Cornell box's meshes, the
-helmet's .glb bytes (parsed here), the tube's arrays and bend clip (posed
-here, frame by frame).
+hands the port: each scene kind's module (`benchmark/kinds/<kind>.py`)
+makes them with `assemble` from its own inputs (the Cornell box's meshes,
+the helmet's .glb bytes parsed by `read_glb`, the tube posed frame by
+frame), and `SceneSource` finds that module by the scene file's `kind`.
 
 Materials follow the renderer's defaults (base colour 1, metallic 0,
 roughness 0.5, IOR 1.5, no transmission, no emission; glTF's own defaults
@@ -15,15 +16,27 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 import struct
 
 import numpy as np
 import torch
 
-from .. import scenes
+from .. import kinds, scenes
 
 LUMA = np.asarray([0.2126, 0.7152, 0.0722], np.float32)
+
+
+@dataclasses.dataclass
+class Material:
+    """The material at each lane's hit, as shading reads it: (R, 3) or
+    (R,) tensors, and the shading normal to use."""
+    base: torch.Tensor
+    emission: torch.Tensor
+    metallic: torch.Tensor
+    roughness: torch.Tensor
+    ior: torch.Tensor
+    transmission: torch.Tensor
+    shading: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -43,8 +56,37 @@ class Scene:
     light_count: int
     environment: tuple
 
+    def material_at(self, tri, bary_u, bary_v, shading,
+                    footprint) -> Material:
+        """The material at hits on triangles `tri` ((R,), a miss's lane
+        clamped to triangle 0 and its values unused) at barycentrics
+        `bary_u`, `bary_v` (the weights of corners 1 and 2, clipped to
+        [0, 1]; corner 0's is 1 - u - v).
 
-def _material(m: dict) -> dict:
+        `shading` is the interpolated normal after the surface has
+        oriented it: turned to the side the ray comes from. The normal
+        returned is the BSDF's shading normal as it stands: nothing turns
+        it again, and the geometric normal and the front face stay as the
+        interpolated normal set them. That is the port's order
+        (`tpu_pbrt_torch/ops/shade_table.py`: `_unpack_rows` orients,
+        then `apply_textures` perturbs that normal through the TBN).
+        `footprint` is the ray cone's world-space width at the hit,
+        `cone_spread` times the path's length to it, or None where
+        `cone_spread` is 0.
+
+        Here: each triangle's constants, and `shading` as it is. A kind
+        whose materials vary over a triangle returns a subclass that
+        overrides this."""
+        return Material(
+            base=self.base[tri], emission=self.emission[tri],
+            metallic=self.metallic[tri], roughness=self.roughness[tri],
+            ior=self.ior[tri], transmission=self.transmission[tri],
+            shading=shading)
+
+
+def material(m: dict) -> dict:
+    """A material entry (the renderer's names) with the renderer's
+    defaults."""
     emit = np.asarray(m.get("emissive_color", (0.0, 0.0, 0.0)), np.float32)
     return {"base": np.asarray(m.get("base_color", (1, 1, 1, 1)),
                                np.float32)[:3],
@@ -58,7 +100,7 @@ def _material(m: dict) -> dict:
 def _gltf_material(m: dict) -> dict:
     pbr = m.get("pbrMetallicRoughness", {})
     ext = m.get("extensions", {})
-    return _material({
+    return material({
         "base_color": pbr.get("baseColorFactor", (1.0, 1.0, 1.0, 1.0)),
         "metallic": pbr.get("metallicFactor", 1.0),
         "roughness": pbr.get("roughnessFactor", 1.0),
@@ -115,62 +157,9 @@ def read_glb(data: bytes) -> tuple[list, list]:
     return prims, [_gltf_material(m) for m in doc.get("materials", [{}])]
 
 
-# ---- the skinned tube -----------------------------------------------------
-
-def _slerp(q0: np.ndarray, q1: np.ndarray, t: float) -> np.ndarray:
-    d = float(np.dot(q0, q1))
-    if d < 0.0:
-        q1, d = -q1, -d
-    if d > 0.9995:
-        q = q0 + t * (q1 - q0)
-        return q / np.linalg.norm(q)
-    th = math.acos(min(d, 1.0))
-    return (math.sin((1 - t) * th) * q0 + math.sin(t * th) * q1) / math.sin(th)
-
-
-def clip_time(ticks: int, dt: float, duration: float) -> float:
-    """The clip's time after `ticks` advances of `dt`, wrapping at its
-    duration."""
-    time = 0.0
-    for _ in range(ticks):
-        time += dt
-        if time >= duration:
-            time = time % duration
-    return time
-
-
-def pose_tube(t: dict, time: float) -> tuple[np.ndarray, np.ndarray]:
-    """The tube's vertices and normals at clip time `time`: joint 0 the
-    root (identity), joint 1 the bend, rotated by the clip's quaternion
-    (slerp between keys); linear blend by the vertex weights; normals by the
-    blended linear part, renormalised."""
-    times = np.asarray(t["times"], np.float64)
-    qs = np.asarray(t["quats"], np.float64)
-    if time <= times[0]:
-        q = qs[0]
-    elif time >= times[-1]:
-        q = qs[-1]
-    else:
-        i = int(np.searchsorted(times, time)) - 1
-        f = (time - times[i]) / max(times[i + 1] - times[i], 1e-9)
-        q = _slerp(qs[i], qs[i + 1], f)
-    x, y, z, w = q
-    bend = np.asarray([
-        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
-        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
-        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]])
-    joint = np.stack([np.eye(3), bend])                     # (J, 3, 3)
-    m = np.einsum("vk,vkij->vij", t["weights"].astype(np.float64),
-                  joint[t["joints"]])                       # (V, 3, 3)
-    pos = np.einsum("vij,vj->vi", m, t["positions"].astype(np.float64))
-    nrm = np.einsum("vij,vj->vi", m, t["normals"].astype(np.float64))
-    nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-12)
-    return pos.astype(np.float32), nrm.astype(np.float32)
-
-
 # ---- assembly -------------------------------------------------------------
 
-def _assemble(meshes: list, materials: list, environment, device) -> Scene:
+def assemble(meshes: list, materials: list, environment, device) -> Scene:
     """Scene from [(positions (V, 3), normals (V, 3), indices (T, 3),
     material index)] and material dicts."""
     corners, normals, mat = [], [], []
@@ -229,38 +218,26 @@ def _assemble(meshes: list, materials: list, environment, device) -> Scene:
         environment=tuple(float(c) for c in environment))
 
 
-class SceneSource:
-    """A cell's scene: `at(ticks)` the scene after `ticks` frames (a
-    skinned scene posed at its clip's time then; a static one as built)."""
+class Static:
+    """A scene that frames do not change: `at(ticks)` is `static`."""
 
-    def __init__(self, name: str, root, device, dt: float):
-        self.spec = scenes.load_spec(name, root)
-        self.device = device
-        self.dt = float(dt)
-        env = self.spec["environment"]["color"]
-        kind = self.spec["kind"]
-        self.tube = None
-        if kind == "primitives":
-            meshes = [(m["positions"], m["normals"], m["indices"],
-                       m["material"])
-                      for m in scenes.primitive_meshes(self.spec)]
-            mats = [_material(m) for m in self.spec["materials"]]
-        elif kind == "latlong_glb":
-            meshes, mats = read_glb(scenes.latlong_glb(self.spec))
-        elif kind == "skinned_tube":
-            self.tube = scenes.tube_inputs(self.spec)
-            meshes = [(self.tube["positions"], self.tube["normals"],
-                       self.tube["indices"], 0)]
-            mats = [_material(self.spec["material"])]
-        else:
-            raise ValueError(f"unknown scene kind {kind!r}")
-        self.static = _assemble(meshes, mats, env, device)
-        self._args = (mats, env)
+    def __init__(self, scene: Scene):
+        self.static = scene
 
     def at(self, ticks: int) -> Scene:
-        if self.tube is None:
-            return self.static
-        duration = float(self.tube["times"][-1])
-        pos, nrm = pose_tube(self.tube, clip_time(ticks, self.dt, duration))
-        return _assemble([(pos, nrm, self.tube["indices"], 0)], *self._args,
-                         self.device)
+        return self.static
+
+
+class SceneSource:
+    """A cell's scene from its kind's `reference` (`benchmark/kinds`):
+    `static`, the scene as built, and `at(ticks)`, the scene after
+    `ticks` frames (a skinned scene posed at its clip's time then)."""
+
+    def __init__(self, name: str, root, device, dt: float):
+        spec = scenes.load_spec(name, root)
+        self._source = kinds.load(spec["kind"]).reference(
+            spec, root, device, float(dt))
+        self.static = self._source.static
+
+    def at(self, ticks: int) -> Scene:
+        return self._source.at(ticks)

@@ -10,10 +10,11 @@ presents a frame before it renders the next). `--seed` is the first frame
 index, and so sets every random draw. It then profiles a few more frames:
 with `--trace 0` their kernels alone, for the device's busy time a frame
 (`device_frame_ms`); with `--trace 1` the host and the device, for the
-per-layer metrics (`tracing.py`). Once the window has closed and the peak
-memory is read, the program is freed and the plain reference
-(`benchmark/plain`) renders the frames that were kept from the window,
-drawn from the seed (`check.py`).
+per-layer metrics (`tracing.py`), from the first step that is a multiple
+of the traffic's `trace_period` (default 1). Once the window has closed
+and the peak memory is read, the program is freed and the plain
+reference (`benchmark/plain`) renders the frames that were kept from the
+window, drawn from the seed (`check.py`).
 
 It prints a line with the frame count and the host-sync sites, then as its
 last line one JSON object: `correct`, `attempted`, `failed`, `metrics`
@@ -111,6 +112,14 @@ def kept_steps(seed: int, check: dict) -> list[int]:
     return sorted(rng.sample(range(check["span"]), check["frames"]))
 
 
+def trace_start(ticks: int, period: int) -> int:
+    """The step the traced frames start at, after `ticks` steps: the
+    first multiple of the traffic's `trace_period` (the ticks after which
+    an animated scene's clock returns to its start) at or after them, so
+    that the traced frames show the same poses in every run."""
+    return -(-ticks // period) * period
+
+
 def read_metric(root: Path, name: str, source):
     """Metric `name`'s reader (`metrics/<name>.py`) applied to `source`;
     None when it finds nothing to read."""
@@ -181,7 +190,12 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     del img, r, rays
     tr = None
     if trace:
-        tr = tracing.collect(target, warm + n, int(cfg["trace_frames"]),
+        first = trace_start(warm + n,
+                            int(cell.traffic.get("trace_period", 1)))
+        for k in range(warm + n, first):
+            target.step(k)
+        sync()
+        tr = tracing.collect(target, first, int(cfg["trace_frames"]),
                              window.window_s * 1e3 / n)
         tr.window = window
     elif device.type == "cuda":

@@ -24,10 +24,12 @@ def test_reference_agrees_with_the_port_on_the_cpu(name):
 
 def test_reference_imports_nothing_of_the_port():
     """The reference's sources import torch, numpy, the standard library
-    and, relatively, the benchmark's own scene inputs (`scenes.py`), which
-    import no package at module level."""
+    and, relatively, the benchmark's own scene inputs (`scenes.py` and the
+    scene kinds' modules, `kinds/`), which import no package at module
+    level."""
     allowed = {"torch", "numpy", "__future__"} | set(sys.stdlib_module_names)
     paths = list((REPO / "benchmark" / "plain").glob("*.py"))
+    paths += list((REPO / "benchmark" / "kinds").glob("*.py"))
     paths.append(REPO / "benchmark" / "scenes.py")
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):

@@ -7,6 +7,11 @@ call of the port's row fetch (K4), bounce fetch (K3) and dense sweeps
 (kernels 1 and 2) (references only: nothing is launched or copied inside
 the profiled frames); their sizes (slots, referenced rows, live lanes,
 occluded lanes) are counted after the frames, for the roofline bounds.
+The per-span table (`spans.table`), `Trace.spans`, comes from a second
+profiled block of as many frames, each synchronised as the window's are,
+with the port's lane count (`tpu_pbrt_torch.utils.spans.counting`) open
+and no profile hook: the hook's cost falls on the host between launches,
+and would read as device idle under the spans.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import time
 
 import torch
 
-from . import attribution
+from . import attribution, spans
 
 # host ranges the program opens (render/app.py, render/animated.py)
 APP_STAGES = ("gbuffer", "regir", "restir", "sharc_update", "sharc_resolve",
@@ -56,6 +61,7 @@ class Trace:
     idle_gaps: list
     window: object = None   # the run's `run.Window`, for the window's
                             # numbers read per layer
+    spans: dict | None = None   # `spans.table` of the profiled frames
 
 
 class _Calls:
@@ -141,24 +147,55 @@ def _idle_gaps(kernels: list, host: list, top: int = 10) -> list:
     return out
 
 
+def from_events(events, frames: int, span_events=None, lanes=None,
+                **fields) -> Trace:
+    """The `Trace` of a profiled event list that holds `frames` frames:
+    the kernels with the App or refit range each was launched in, the
+    launch calls and the longest idle gaps. `span_events`, the events of
+    the block profiled for the spans (as many frames), give the per-span
+    table, with `lanes` (a `LaneCount`'s `queries`) the live lanes too;
+    `fields` gives the rest of the `Trace`."""
+    kernels = attribution.device_kernels(events, APP_STAGES)
+    launches, ranges = attribution.host_index(events, APP_STAGES)
+    stage_of = {}
+    for stage in APP_STAGES:
+        for e in attribution.range_kernels(kernels, launches, ranges[stage]):
+            stage_of[e.correlation_id()] = stage
+    ks = [Kernel(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3,
+                 stage_of.get(e.correlation_id())) for e in kernels]
+    cpu = torch.autograd.DeviceType.CPU
+    host = [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+            for e in events if e.device_type() == cpu]
+    calls = sum(1 for name, _, _ in host if name.startswith(LAUNCH_CALLS))
+    table = (None if span_events is None
+             else spans.table(span_events, frames, lanes))
+    return Trace(frames=frames, kernels=ks, launch_calls=calls,
+                 idle_gaps=_idle_gaps(ks, host), spans=table, **fields)
+
+
 def collect(target, first_k: int, frames: int,
             wall_ms_per_frame: float) -> Trace:
-    """Profile `frames` steps of `target`, then count the host syncs of one
-    more step. The kept arguments hold device memory, so `frames` steps
-    from step `first_k` with the wrappers on go first, unprofiled: the
-    allocator's cache then holds that memory, and the profiled steps (the
-    `frames` after them) make no cudaMalloc."""
+    """Profile `frames` steps of `target` with the wrappers' arguments
+    kept, count the host syncs of one more step, then profile `frames`
+    steps more with the port's lane count open and no profile hook, each
+    synchronised, for the span table. The kept arguments and the count's
+    kept bounds hold device memory, so `frames` steps from step `first_k`
+    with both on go first, unprofiled: the allocator's cache then holds
+    that memory, and the profiled steps make no cudaMalloc."""
     from torch.profiler import ProfilerActivity, profile
 
+    from tpu_pbrt_torch.utils import spans as program
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     rec = _Calls()
     with rec:
-        for k in range(first_k, first_k + frames):
-            target.step(k)
-        torch.cuda.synchronize()
+        with program.counting():
+            for k in range(first_k, first_k + frames):
+                target.step(k)
+            torch.cuda.synchronize()
         rec.calls.clear()
         first_k += frames
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             for k in range(first_k, first_k + frames):
                 target.step(k)
@@ -167,24 +204,21 @@ def collect(target, first_k: int, frames: int,
     fetches, sweeps = rec.sizes()
     rec.calls.clear()
     events = prof.profiler.kineto_results.events()
-    kernels = attribution.device_kernels(events, APP_STAGES)
-    launches, spans = attribution.host_index(events, APP_STAGES)
-    stage_of = {}
-    for stage in APP_STAGES:
-        for e in attribution.range_kernels(kernels, launches, spans[stage]):
-            stage_of[e.correlation_id()] = stage
-    ks = [Kernel(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3,
-                 stage_of.get(e.correlation_id())) for e in kernels]
-    cpu = torch.autograd.DeviceType.CPU
-    host = [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
-            for e in events if e.device_type() == cpu]
-    calls = sum(1 for name, _, _ in host if name.startswith(LAUNCH_CALLS))
-    del prof, events, kernels
-    sites = attribution.sync_sites(lambda: target.step(first_k + frames))
-    return Trace(frames=frames, wall_ms_per_frame=wall_ms_per_frame,
-                 profiled_wall_s=wall, kernels=ks, launch_calls=calls,
-                 sync_sites=sites, fetches=fetches, sweeps=sweeps,
-                 idle_gaps=_idle_gaps(ks, host))
+    first_k += frames
+    sites = attribution.sync_sites(lambda: target.step(first_k))
+    first_k += 1
+    with program.counting() as lanes:
+        with profile(activities=activities) as span_prof:
+            for k in range(first_k, first_k + frames):
+                target.step(k)
+                torch.cuda.synchronize()
+    tr = from_events(events, frames,
+                     span_prof.profiler.kineto_results.events(),
+                     lanes.queries, wall_ms_per_frame=wall_ms_per_frame,
+                     profiled_wall_s=wall, sync_sites=sites,
+                     fetches=fetches, sweeps=sweeps)
+    del prof, span_prof, events
+    return tr
 
 
 def device_busy_ms(target, first_k: int, frames: int,
