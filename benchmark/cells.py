@@ -7,7 +7,8 @@ takes for that scene). `Target(cell, device, first)` builds the port's
 renderer on one device with the frame index `first` (which sets every
 random draw); its `step(k)` renders the k-th frame from `first` and
 returns (image, rays as a 0-dim device tensor):
-`render.renderer.Renderer.render_with_stats(camera, frame)`, or for a
+`render.renderer.Renderer.render_with_stats(camera, frame)` (a textured
+scene's images, `scenes.Built.textures`, in the renderer's atlas), or for a
 skinned scene `render.animated.AnimatedRenderer.render(camera, frame, dt)`,
 with `PathTraceSettings` from the configuration's `pathtrace` entry and the
 traffic's `pathtrace` entry (bounces, folds).
@@ -93,16 +94,23 @@ class Target:
         if cell.config["renderer"] != "frame":
             raise ValueError(f"unknown renderer {cell.config['renderer']!r}")
         w, h = cell.width, cell.height
-        built = scenes.build(PROGRAM, cell.traffic["scene"], cell.root)
+        name = cell.traffic["scene"]
+        built = scenes.build(PROGRAM, name, cell.root)
         self.camera = scenes.camera(PROGRAM, cell.traffic["camera"], w, h)
         settings = pathtrace_settings(cell)
         self.animated = built.skinned is not None
         if self.animated:
+            if built.textures:
+                raise ValueError(f"scene {name!r}: a skinned scene takes no "
+                                 "textures (AnimatedRenderer has no atlas)")
             self.renderer = _mod("render.animated").AnimatedRenderer(
                 built.scene, built.skinned, w, h, settings, device=device)
         else:
+            images = ({"textures": built.textures,
+                       "texture_srgb": built.texture_srgb}
+                      if built.textures else {})
             self.renderer = _mod("render.renderer").Renderer(
-                built.scene, w, h, settings, device=device)
+                built.scene, w, h, settings, device=device, **images)
 
     def step(self, k: int):
         frame = self.first + k

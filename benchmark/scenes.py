@@ -58,10 +58,16 @@ def environment(pkg: str, spec: dict):
 
 @dataclasses.dataclass
 class Built:
-    """A scene on the host: the package's `Scene` and, for a skinned scene,
-    its prepared skinned object (`render.animated.prepare_skinned`)."""
+    """A scene on the host: the package's `Scene`; for a skinned scene,
+    its prepared skinned object (`render.animated.prepare_skinned`); for a
+    textured scene, its images ((H, W, 4) uint8, as the package's
+    `models.gltf.load(...).textures` gives them) and their sRGB flags
+    (`.texture_srgb`), which the renderer packs into its atlas. An
+    untextured scene leaves both empty."""
     scene: object
     skinned: object = None
+    textures: list = dataclasses.field(default_factory=list)
+    texture_srgb: list = dataclasses.field(default_factory=list)
 
 
 def build(pkg: str, name: str, root: Path = HERE) -> Built:
