@@ -258,6 +258,20 @@ inputs in turns, and each frame runs through each version's walk in
 the same turns (wall ms, device ms, launches, idle share, the walk's
 device ms).
 
+    python3 chip_smoke.py --query-times [DIR ...]
+
+runs only the exact-key queries of the benchmark cells `pt.tube-animated`
+and `pt.helmet-100k` (`query_times`): every query of one frame, with its
+rows built in ray order by the row kernel (`csrc/exact_rows.cu`, held bit
+for bit against its plain version and timed against its bound), the walk
+of those rows held against the plain walk and against the walk of the
+same rays sorted (`sort_rays`) and scattered back, both walks timed in
+turns, and each version's whole query (DIR...: the parent's) held equal
+and timed in turns; then each cell's frames through each version's query
+in turns (wall ms, device ms, launches, idle share, the kernels inside
+`traverse.sort`; the row kernel's launches a frame equal the walk's, and
+no sort kernel runs in that span).
+
     python3 chip_smoke.py --shade-times
 
 runs only the shading kernels (`csrc/shade_bounce.cu`) at the pools of
@@ -325,6 +339,10 @@ PEAK_F32_FLOPS = 67e12
 FLOPS_TEST_DIV = 46
 FLOPS_TEST_SCALED = 48
 FLOPS_UNPACK = 110
+# FP32 operations a lane of the exact-key mode's row build: three
+# divisions, six subtracts and six multiplies of the scene-box slab test,
+# the far bound's multiply and add (its compares and selects not counted)
+FLOPS_ROWS = 17
 # FP32 subtracts and multiplies of one slab test (a node visit of the LBVH
 # walk; its mins, maxes and compares not counted)
 FLOPS_SLAB = 12
@@ -336,7 +354,8 @@ BVH_HELD = 1 << 16
 # empty)
 BVH_SHADOW = 1 << 19
 # above this many blocks the oracle walk (every block for every lane) holds
-# a strided subset of a pool's chunks, not all of them (`held_chunks`)
+# a strided subset of a pool's chunks or lanes, not all of them
+# (`held_lanes`)
 HELD_BLOCKS = 400
 # the 1080p frames that run the LBVH walk (`bvh_frame`)
 BVH_FRAMES = ("helmet_bvh", "helmet_bvh_framed", "golden_bvh",
@@ -344,6 +363,8 @@ BVH_FRAMES = ("helmet_bvh", "helmet_bvh_framed", "golden_bvh",
 # the culled tracer's 1080p frames and App tick `--walk-times` captures
 # (`walk_frame`)
 WALK_FRAMES = ("helmet", "helmet-100k", "sphere", "animated", "golden")
+# the benchmark cells whose exact-key queries `--query-times` captures
+QUERY_CELLS = ("pt.tube-animated", "pt.helmet-100k")
 
 # the tracer kinds forced onto the cutout scenes (each takes the re-trace
 # loop around its closest hit)
@@ -355,6 +376,7 @@ KERNEL_PATH = {
     "dense_closest_hit_shade": "cornell_fused",
     "shade_bounce": "cornell", "shade_nee": "cornell",
     "exact_closest_hit": "helmet", "exact_any_hit": "helmet",
+    "exact_rows": "helmet",
     "resident_closest_hit": "helmet_resident",
     "resident_any_hit": "helmet_resident",
     "bvh_closest_hit": "helmet_bvh", "bvh_any_hit": "helmet_bvh",
@@ -365,7 +387,8 @@ WALK_KERNEL = {(False, False): "resident_closest_hit",
                (True, False): "exact_closest_hit",
                (True, True): "exact_any_hit"}
 WALK_KERNELS = tuple(WALK_KERNEL.values())
-EXACT = ("exact_closest_hit", "exact_any_hit", "fetch_bounce", "fetch_rows")
+EXACT = ("exact_closest_hit", "exact_any_hit", "exact_rows", "fetch_bounce",
+         "fetch_rows")
 # the shading kernels: every `Renderer` frame on the card shades through them
 SHADE = ("shade_bounce", "shade_nee")
 PATH_KERNELS = {
@@ -381,8 +404,8 @@ PATH_KERNELS = {
     # textured: every bounce's fetch is the row fetch on the 50-column
     # sub-table; alpha-tested: shadow rays are closest hits too, and the
     # alpha test fetches from the 19-column sub-table
-    "helmet_textured": ("exact_closest_hit", "exact_any_hit", "fetch_rows",
-                        *SHADE),
+    "helmet_textured": ("exact_closest_hit", "exact_any_hit", "exact_rows",
+                        "fetch_rows", *SHADE),
     "cutout": ("dense_closest_hit", "fetch_rows", *SHADE),
     # the App frame graph without ReSTIR DI and SHARC: the Cornell path's
     # kernels at the internal resolution, then denoise, TAA, bloom and
@@ -439,7 +462,8 @@ CONFIG_KERNELS = {
     "cornell-bxdf": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
                      "fetch_rows"),
     "sphere": EXACT,
-    "sphere-textured": ("exact_closest_hit", "exact_any_hit", "fetch_rows"),
+    "sphere-textured": ("exact_closest_hit", "exact_any_hit", "exact_rows",
+                        "fetch_rows"),
     "helmet-100k": EXACT,
     "app-native": ("dense_closest_hit", "dense_any_hit", "fetch_bounce",
                    "fetch_rows"),
@@ -1304,34 +1328,43 @@ def walk_needed_tests(res, rays, best, occlusion: bool,
     return pairs * trs.BLOCK + extra, blocks
 
 
-def held_chunks(res, rays, octs, reach=None):
-    """The chunks of a sorted pool the oracle walk holds: all of them, or
-    above HELD_BLOCKS blocks every k-th, at most BVH_HELD lanes (a chunk's
-    walk reads only its own lanes, so a held chunk's result is the whole
-    pool's there). Returns (chunk index or None, rays, octs, reach)."""
+def held_lanes(res, rays, octs, reach=None):
+    """The lanes of a pool the oracle walk holds: all of them, or above
+    HELD_BLOCKS blocks at most BVH_HELD of them: every k-th 256-ray chunk
+    of sorted rows (a chunk's walk reads only its own lanes, so a held
+    chunk's result is the whole pool's there), or every k-th lane of the
+    exact-key mode's ray-order rows (`octs` None: each lane walks alone).
+    Returns (lane index or None, rays, octs, reach)."""
     import torch
     from tpu_pbrt_torch.ops import traverse_resident as trs
 
-    nch = octs.shape[0]
-    held = BVH_HELD // trs.CHUNK
-    if res.tris.shape[0] <= HELD_BLOCKS or nch <= held:
+    r = rays.shape[0]
+    if res.tris.shape[0] <= HELD_BLOCKS or r <= BVH_HELD:
         return None, rays, octs, reach
-    idx = torch.arange(0, nch, nch // held, device=octs.device)[:held]
-    sel = rays.view(nch, trs.CHUNK, 8)[idx].reshape(-1, 8)
+    if octs is None:
+        idx = torch.arange(0, r, r // BVH_HELD, device=rays.device)[:BVH_HELD]
+    else:
+        nch = octs.shape[0]
+        held = BVH_HELD // trs.CHUNK
+        chunks = torch.arange(0, nch, nch // held, device=octs.device)[:held]
+        octs = octs[chunks]
+        idx = (chunks[:, None] * trs.CHUNK + torch.arange(
+            trs.CHUNK, device=octs.device)).reshape(-1)
     if reach is not None:
-        reach = (reach[0], reach[1].view(nch, trs.CHUNK)[idx].reshape(-1))
-    return idx, sel, octs[idx], reach
+        reach = (reach[0], reach[1][idx])
+    return idx, rays[idx], octs, reach
 
 
 def hold_walk(res, rays, octs, occlusion: bool, exact: bool, reach, got,
               what: str):
-    """The walk kernel's result `got` on a sorted pool against the plain
+    """The walk kernel's result `got` on a pool (sorted rows, or the
+    exact-key mode's ray-order rows with `octs` None) against the plain
     walk: the whole pool bit for bit against the plain walk's kept-pair
     sweep (`sweep_all=False`, the plain version the wrapper takes on the
-    CPU; its one call timed), and the held chunks (`held_chunks`) against
+    CPU; its one call timed), and the held lanes (`held_lanes`) against
     the oracle that sweeps every block, which must find no skipped (lane,
     block) pair that held a hit. Returns (plain ms, the full pool's
-    WalkCounts, the held chunks' missed_hits)."""
+    WalkCounts, the held lanes' missed_hits)."""
     import torch
     from tpu_pbrt_torch.ops import traverse_resident as trs
 
@@ -1342,10 +1375,10 @@ def hold_walk(res, rays, octs, occlusion: bool, exact: bool, reach, got,
     if not torch.equal(got, want):
         fail(f"{what}: {int((got != want).sum())} walk "
              f"{'flags' if occlusion else 'keys'} differ")
-    idx, hr, ho, hreach = held_chunks(res, rays, octs, reach)
+    idx, hr, ho, hreach = held_lanes(res, rays, octs, reach)
     want, oracle = trs.walk_plain(res, hr, ho, occlusion, exact, hreach)
     if idx is not None:
-        got = got.view(-1, trs.CHUNK)[idx].reshape(-1)
+        got = got[idx]
     if not torch.equal(got, want):
         fail(f"{what}: the held chunks differ from the oracle walk")
     if oracle.missed_hits != 0:
@@ -1398,6 +1431,38 @@ def walk_bound(res, rays, got, occlusion: bool, exact: bool) -> dict:
               + blocks * rows * trs.BLOCK * 4)
     return {"needed_tests": tests, "needed_blocks": blocks, **bound(
         nbytes, tests * (FLOPS_TEST_DIV if exact else FLOPS_TEST_SCALED))}
+
+
+def rows_bound(rays, r: int) -> dict:
+    """The exact-key mode's row build at `rays` (origin, direction, t_min,
+    t_max; r lanes): its bytes, each once (the six ray components, 24 a
+    lane; a per-lane t_min or t_max, 4 a lane each, a number none; the
+    32-byte row out: 64 a lane when both bounds are per lane), and
+    FLOPS_ROWS a lane."""
+    import torch
+
+    per_lane = [isinstance(t, torch.Tensor) and t.numel() > 1
+                for t in rays[2:]]
+    return bound(r * (24 + 4 * sum(per_lane) + 32), r * FLOPS_ROWS)
+
+
+def check_exact_rows(tris, rays, what: str) -> dict:
+    """The row kernel (`traverse_resident.exact_rows_cuda`) on `rays`
+    (origin, direction, t_min, t_max) against `exact_rows_plain`, bit for
+    bit; both timed, with the bound (`rows_bound`)."""
+    import torch
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+
+    got = trs.exact_rows_cuda(tris, *rays)
+    want = trs.exact_rows_plain(tris, *rays)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail(f"exact_rows ({what}): rows differ bitwise from the plain "
+             f"build")
+    r = rays[0].x.shape[0]
+    return dict(rays=r, max_abs_err=0.0, tolerance="bit-exact",
+                ms=time_ms(lambda: trs.exact_rows_cuda(tris, *rays)),
+                plain_ms=plain_ms(lambda: trs.exact_rows_plain(tris, *rays)),
+                library_ms=None, **rows_bound(rays, r))
 
 
 def walk_check(res, rays_in, occlusion: bool, name: str,
@@ -1662,13 +1727,14 @@ def check_small_config(name: str) -> dict:
 
 @contextlib.contextmanager
 def checked_wrappers(record: dict, keep: dict | None = None):
-    """Inside, every launch of kernels 1-4, of the walk kernel (either mode)
-    and of the LBVH walk through its wrapper (as the path's own code makes
-    it) is held against the plain version on the same inputs, by the rules
-    of `check_closest`, `check_any`, `check_bounce_block`, the row fetch's
+    """Inside, every launch of kernels 1-4, of the walk kernel (either mode),
+    of the exact-key mode's row build and of the LBVH walk through its
+    wrapper (as the path's own code makes it) is held against the plain
+    version on the same inputs, by the rules of `check_closest`,
+    `check_any`, `check_bounce_block`, the row fetch's and the row build's
     bit-exactness, the walk's (keys or flags bit for bit against the oracle
-    walk, on strided held chunks above HELD_BLOCKS blocks; no skipped block
-    that held a hit) and `bvh_check` (on the launch's held
+    walk, on strided held chunks or lanes above HELD_BLOCKS blocks; no
+    skipped block that held a hit) and `bvh_check` (on the launch's held
     lanes: t, u, v, ids or flags bit for bit); `record` gets {kernel:
     {rays: {"launches": n, "max_abs_err": e}}} (for the row fetch keyed
     "<columns>x<slots>", for the resident walk by its sorted, chunk-padded
@@ -1687,7 +1753,7 @@ def checked_wrappers(record: dict, keep: dict | None = None):
 
     saved = (td.closest_hit_cuda, td.any_hit_cuda,
              st.fetch_bounce_block_cuda, st.fetch_rows_cuda, trs.walk_cuda,
-             tv.closest_hit_cuda, tv.any_hit_cuda)
+             tv.closest_hit_cuda, tv.any_hit_cuda, trs.exact_rows_cuda)
 
     lock = threading.Lock()
 
@@ -1739,20 +1805,27 @@ def checked_wrappers(record: dict, keep: dict | None = None):
     def walk(tris, rays, octs, occlusion, exact=False, reach=None):
         got = saved[4](tris, rays, octs, occlusion, exact, reach)
         kname = WALK_KERNEL[exact, occlusion]
-        idx, hr, ho, hreach = held_chunks(tris, rays, octs, reach)
+        idx, hr, ho, hreach = held_lanes(tris, rays, octs, reach)
         want, counts = trs.walk_plain(tris, hr, ho, occlusion, exact, hreach)
-        held = got if idx is None else got.view(-1, trs.CHUNK)[idx].reshape(
-            -1)
+        held = got if idx is None else got[idx]
         if not torch.equal(held, want):
-            fail(f"{kname} at {rays.shape[0]} sorted rays: "
+            fail(f"{kname} at {rays.shape[0]} rays: "
                  f"{int((held != want).sum())} walk results differ")
         if counts.missed_hits != 0:
-            fail(f"{kname} at {rays.shape[0]} sorted rays: the cull skipped "
+            fail(f"{kname} at {rays.shape[0]} rays: the cull skipped "
                  f"{counts.missed_hits} (lane, block) pairs that held a hit")
         if exact:
-            cull_check(counts, True, f"{kname} at {rays.shape[0]} sorted "
-                                     f"rays", tris.tris.shape[0])
+            cull_check(counts, True, f"{kname} at {rays.shape[0]} rays",
+                       tris.tris.shape[0])
         note(kname, rays.shape[0], 0.0, (tris, rays, octs, exact, reach))
+        return got
+
+    def exact_rows(tris, o, d, t_min, t_max):
+        got = saved[7](tris, o, d, t_min, t_max)
+        if not torch.equal(got.view(torch.int32), trs.exact_rows_plain(
+                tris, o, d, t_min, t_max).view(torch.int32)):
+            fail(f"exact_rows at {o.x.shape[0]} rays: rows differ bitwise")
+        note("exact_rows", o.x.shape[0], 0.0, (tris, o, d, t_min, t_max))
         return got
 
     def bvh_walk(occlusion):
@@ -1773,14 +1846,15 @@ def checked_wrappers(record: dict, keep: dict | None = None):
 
     (td.closest_hit_cuda, td.any_hit_cuda, st.fetch_bounce_block_cuda,
      st.fetch_rows_cuda, trs.walk_cuda, tv.closest_hit_cuda,
-     tv.any_hit_cuda) = (closest, occluded, bounce, rows, walk,
-                         bvh_walk(False), bvh_walk(True))
+     tv.any_hit_cuda, trs.exact_rows_cuda) = (
+        closest, occluded, bounce, rows, walk, bvh_walk(False),
+        bvh_walk(True), exact_rows)
     try:
         yield
     finally:
         (td.closest_hit_cuda, td.any_hit_cuda, st.fetch_bounce_block_cuda,
          st.fetch_rows_cuda, trs.walk_cuda, tv.closest_hit_cuda,
-         tv.any_hit_cuda) = saved
+         tv.any_hit_cuda, trs.exact_rows_cuda) = saved
 
 
 def run_app(app, name: str, ticks: int, keep: dict | None = None,
@@ -1964,6 +2038,12 @@ def shape_rows(name: str, keep: dict, by_tag: dict, ticks: int) -> list:
                                                reach))
             err = 0.0
             bd = walk_bound(res, srt, got, occl, exact)
+            tag = str(shape)
+        elif kernel == "exact_rows":
+            tris, *rays = args
+            held = check_exact_rows(tris, rays, f"{name} {shape}")
+            ms, pl, err = held["ms"], held["plain_ms"], 0.0
+            bd = held
             tag = str(shape)
         elif kernel == "dense_closest_hit":
             tris, *rays = args
@@ -4112,8 +4192,9 @@ def walk_capture(record: list):
     saved = trs.walk_cuda
 
     def launch(tris, rays, octs, occlusion, exact=False, reach=None):
-        record.append((tris, rays.clone(), octs.clone(), occlusion, exact,
-                       reach))
+        record.append((tris, rays.clone(),
+                       None if octs is None else octs.clone(), occlusion,
+                       exact, reach))
         return saved(tris, rays, octs, occlusion, exact, reach)
 
     trs.walk_cuda = launch
@@ -4152,21 +4233,22 @@ def walk_times(others: list, device=None) -> int:
     replay's counts (live lanes, box groups, kept pairs, triangle tests)
     beside the tests its function needs and the bound, and timed; on
     `helmet` and `helmet-100k` the resident mode as well, on the resident
-    tables of the same triangles at the same sorted rays (the two sort by
-    the same bounds). With `others` (checkouts of other versions, the
-    parent first, unpacked with `git archive` into the git-ignored
-    `_checkout/` and loaded under an alias, `load_package`) their walk is
-    held bit for bit on the same inputs and every launch is timed in turns
-    (the others, this, this, the others in reverse); then the frames
-    through each version's walk in the same turns (wall ms, device ms,
-    launches, idle share, the walk's device ms). Ends with the kernels'
-    ptxas lines."""
+    tables of the same triangles at the same rays, sorted for them (the
+    exact-key mode walks them in ray order). With `others` (checkouts of
+    other versions, the parent first, unpacked with `git archive` into the
+    git-ignored `_checkout/` and loaded under an alias, `load_package`)
+    their walk is held bit for bit on the same inputs and every launch is
+    timed in turns (the others, this, this, the others in reverse); then
+    the frames through each version's walk in the same turns (wall ms,
+    device ms, launches, idle share, the walk's device ms). Ends with the
+    kernels' ptxas lines."""
     import importlib
 
     import torch
     from tpu_pbrt_torch.ops import cuda
     from tpu_pbrt_torch.ops import traverse_resident as trs
     from tpu_pbrt_torch.ops.tracer import build_for_scene
+    from tpu_pbrt_torch.ops.vec import Vec3
     from tpu_pbrt_torch.profile_frame import sync_sites
 
     device = device or torch.device("cuda")
@@ -4207,26 +4289,31 @@ def walk_times(others: list, device=None) -> int:
                    "query": "any_hit" if occl else "closest_hit",
                    "rays": rays.shape[0],
                    "live": int((~(rays[:, 7] <= rays[:, 6])).sum())}
-            modes = [("exact", acc, True, reach)]
+            modes = [("exact", acc, True, reach, rays, octs)]
             if res is not None:
-                modes.append(("resident", res, False, None))
-            for mode, tables, ex, rch in modes:
+                # the resident mode walks sorted chunks: the same rows
+                # sorted for its tables
+                srt, _, soct = trs.sort_rays(
+                    res, Vec3(*rays[:, 0:3].unbind(-1)),
+                    Vec3(*rays[:, 3:6].unbind(-1)), rays[:, 6], rays[:, 7])
+                modes.append(("resident", res, False, None, srt, soct))
+            for mode, tables, ex, rch, mrays, moct in modes:
                 what = f"walk_times {name} {i} {mode}"
-                got = change(tables, rays, octs, occl, ex, rch)
-                pl, counts, _ = hold_walk(tables, rays, octs, occl, ex, rch,
+                got = change(tables, mrays, moct, occl, ex, rch)
+                pl, counts, _ = hold_walk(tables, mrays, moct, occl, ex, rch,
                                           got, what)
                 if ex:
                     cull_check(counts, True, what, tables.tris.shape[0])
                 for version in names:
                     if not torch.equal(walks[version](
-                            tables, rays, octs, occl, ex, rch), got):
+                            tables, mrays, moct, occl, ex, rch), got):
                         fail(f"{what}: {version}'s walk differs")
                 entry = {**counts._asdict(), "plain_ms": pl,
-                         **walk_bound(tables, rays, got, occl, ex)}
+                         **walk_bound(tables, mrays, got, occl, ex)}
                 entry.pop("missed_hits")
                 for version in turns:
                     entry.setdefault(f"{version}_ms", []).append(time_ms(
-                        lambda: walks[version](tables, rays, octs, occl, ex,
+                        lambda: walks[version](tables, mrays, moct, occl, ex,
                                                rch)))
                 row[mode] = entry
             print(json.dumps({"walk_launch": row}), flush=True)
@@ -4243,6 +4330,197 @@ def walk_times(others: list, device=None) -> int:
                           "host_syncs_per_frame": len(syncs),
                           "gpu": gpu_line()}), flush=True)
         del record, target, frame, res
+        torch.cuda.empty_cache()
+    return 0
+
+
+@contextlib.contextmanager
+def query_capture(record: list):
+    """Inside, every exact-key query (`traverse_resident.query` with
+    `exact`, as the culled and blocked tracers call it) appends (tables,
+    copies of its rays, occlusion, reach) to `record`, in call order."""
+    import torch
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+    from tpu_pbrt_torch.ops.vec import Vec3
+
+    saved = trs.query
+
+    def copy(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def call(tris, origin, direction, t_min, t_max, *, occlusion, exact,
+             on_card, reach=None):
+        if exact:
+            record.append((tris, (
+                Vec3(copy(origin.x), copy(origin.y), copy(origin.z)),
+                Vec3(copy(direction.x), copy(direction.y),
+                     copy(direction.z)), copy(t_min), copy(t_max)),
+                occlusion, reach))
+        return saved(tris, origin, direction, t_min, t_max,
+                     occlusion=occlusion, exact=exact, on_card=on_card,
+                     reach=reach)
+
+    trs.query = call
+    try:
+        yield
+    finally:
+        trs.query = saved
+
+
+def span_kernels(frame, f: int, span: str = "traverse.sort") -> dict:
+    """The device kernels launched inside the span `span` (`utils/spans.py`)
+    in frame f under `torch.profiler`: their count, device ms, count by
+    name, and how many are sort kernels (a name holding "sort")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from tpu_pbrt_torch.profile_frame import (_device_kernels, _host_index,
+                                              _range_kernels)
+    from tpu_pbrt_torch.utils import spans
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        frame(f)
+        torch.cuda.synchronize()
+    events, kernels = _device_kernels(prof, spans.NAMES)
+    launches, ranges = _host_index(events, (span,))
+    inside = _range_kernels(kernels, launches, ranges[span])
+    by_name: dict = {}
+    for e in inside:
+        by_name[e.name()[:80]] = by_name.get(e.name()[:80], 0) + 1
+    return {"launches": len(inside),
+            "device_ms": sum(e.duration_ns() for e in inside) / 1e6,
+            "sort_kernels": sum(n for k, n in by_name.items()
+                                if "sort" in k.lower()),
+            "by_name": by_name}
+
+
+def query_times(others: list, device=None, cells=QUERY_CELLS,
+                seed: int = 2100000011) -> int:
+    """The exact-key queries of the benchmark cells `cells` (the port's
+    renderer of each, `benchmark.cells.Target`, first frame `seed`), one
+    JSON line a query and one a cell. Every query of one frame, captured:
+    the row kernel held bit for bit against `exact_rows_plain` and timed
+    against its bound (`rows_bound`); the walk on the ray-order rows held
+    against the plain walk (`hold_walk`) and against the walk of the
+    sorted rows scattered back, both walks timed in turns (sorted, ray
+    order, ray order, sorted), beside the sort alone (`sort_rays`); the
+    whole query of each version (`others`: checkouts of other versions,
+    the parent first, loaded under an alias) held equal and timed in
+    turns (the others, this, this, the others in reverse). Then each
+    cell's frames through each version's query in the same turns (wall
+    ms, device ms, launches, idle share, the walk's device ms, the same
+    frame indices for each), with the kernels inside `traverse.sort` in
+    one profiled frame and, for this version, the row kernel's launches a
+    frame, which must equal the walk's, and no sort kernel inside
+    `traverse.sort`."""
+    import importlib
+
+    import torch
+    from benchmark import cells as bench_cells
+    from tpu_pbrt_torch.ops import cuda
+    from tpu_pbrt_torch.ops import traverse_resident as trs
+
+    device = device or torch.device("cuda")
+    print(gpu_line(), flush=True)
+    cuda.library()
+    versions, names = {"change": trs}, []
+    for j, root in enumerate(others):
+        name = os.path.basename(os.path.normpath(root))
+        pkg = load_package(root, f"tpu_pbrt_torch_{j}")
+        importlib.import_module(f"{pkg.__name__}.ops.cuda").library()
+        versions[name] = importlib.import_module(
+            f"{pkg.__name__}.ops.traverse_resident")
+        names.append(name)
+    turns = names + ["change", "change"] + names[::-1]
+    change = trs.query
+    for cell in cells:
+        target = bench_cells.Target(bench_cells.load(cell), device, seed)
+        if target.renderer.tracer.kind != "culled":
+            fail(f"query_times {cell}: tracer {target.renderer.tracer.kind}")
+
+        def frame(f):
+            return target.step(f)
+
+        frame(0)
+        record = []
+        with query_capture(record):
+            frame(1)
+        for i, (tris, rays, occl, reach) in enumerate(record):
+            what = f"query_times {cell} {i}"
+            r = rays[0].x.shape[0]
+            row = {"cell": cell, "query": i,
+                   "kind": "any_hit" if occl else "closest_hit", "rays": r,
+                   "rows": check_exact_rows(tris, rays, what)}
+            rows = trs.exact_rows_cuda(tris, *rays)
+            srt, perm, _ = trs.sort_rays(tris, *rays)
+            lanes = srt_lanes = None
+            if reach is not None:
+                mask, tile = reach
+                lanes = (mask.to(torch.uint8), torch.arange(
+                    r, dtype=torch.int32, device=device) // tile)
+                srt_lanes = (lanes[0], torch.where(
+                    perm < r, perm // tile, 0).to(torch.int32))
+            got = trs.walk_cuda(tris, rows, None, occl, True, lanes)
+            best = trs.walk_cuda(tris, srt, None, occl, True, srt_lanes)
+            back = torch.empty_like(got)
+            back[perm[:r]] = best[:r]
+            if not torch.equal(got, back):
+                fail(f"{what}: the walk of the ray-order rows differs from "
+                     f"the sorted walk's")
+            pl, counts, _ = hold_walk(tris, rows, None, occl, True, lanes,
+                                      got, what)
+            cull_check(counts, True, what, tris.tris.shape[0])
+            answer = got > 0 if occl else got
+            for version in names:
+                if not torch.equal(versions[version].query(
+                        tris, *rays, occlusion=occl, exact=True,
+                        on_card=True, reach=reach), answer):
+                    fail(f"{what}: {version}'s query differs")
+            row["walk"] = {**counts._asdict(), "plain_ms": pl,
+                           **walk_bound(tris, rows, got, occl, True)}
+            row["walk"].pop("missed_hits")
+            row["sort_ms"] = time_ms(lambda: trs.sort_rays(tris, *rays))
+            walks = {"sorted": (srt, srt_lanes), "ray_order": (rows, lanes)}
+            for order in ("sorted", "ray_order", "ray_order", "sorted"):
+                rr, ll = walks[order]
+                row["walk"].setdefault(f"{order}_ms", []).append(time_ms(
+                    lambda: trs.walk_cuda(tris, rr, None, occl, True, ll)))
+            for version in turns:
+                row.setdefault(f"{version}_query_ms", []).append(time_ms(
+                    lambda: versions[version].query(
+                        tris, *rays, occlusion=occl, exact=True,
+                        on_card=True, reach=reach)))
+            print(json.dumps({"query_launch": row}), flush=True)
+        frames = {}
+        for version in turns:
+            trs.query = versions[version].query
+            try:
+                before = (trs.EXACT_ROWS_KERNEL.launches,
+                          trs.EXACT_CLOSEST_HIT_KERNEL.launches
+                          + trs.EXACT_ANY_HIT_KERNEL.launches)
+                frame(2)
+                made = trs.EXACT_ROWS_KERNEL.launches - before[0]
+                walked = (trs.EXACT_CLOSEST_HIT_KERNEL.launches
+                          + trs.EXACT_ANY_HIT_KERNEL.launches - before[1])
+                torch.cuda.synchronize()
+                entry = bvh_frame_times(frame, 100, ("exact_walk_kernel",))
+                entry["sort_span"] = span_kernels(frame, 120)
+            finally:
+                trs.query = change
+            if version == "change":
+                entry["rows_launches_per_frame"] = made
+                if made != walked or made != len(record):
+                    fail(f"query_times {cell}: {made} row launches, {walked} "
+                         f"walks, {len(record)} queries a frame")
+                if entry["sort_span"]["sort_kernels"]:
+                    fail(f"query_times {cell}: a sort kernel inside "
+                         f"traverse.sort: {entry['sort_span']['by_name']}")
+            frames.setdefault(version, []).append(entry)
+        print(json.dumps({"query_times": cell, "frames": frames,
+                          "queries_per_frame": len(record),
+                          "gpu": gpu_line()}), flush=True)
+        del record, target
         torch.cuda.empty_cache()
     return 0
 
@@ -4471,6 +4749,13 @@ def main() -> int:
                         help="only check and time the exact-key walk at the "
                              "culled frames' pools (against the walks of "
                              "the checkouts DIR..., if given)")
+    parser.add_argument("--query-times", metavar="DIR", nargs="*",
+                        default=None,
+                        help="only check and time the exact-key queries "
+                             "(row build, walk in ray order against the "
+                             "sorted walk, whole query and frames) of the "
+                             "tube and helmet-100k cells (against the "
+                             "queries of the checkouts DIR..., if given)")
     parser.add_argument("--shade-times", action="store_true",
                         help="only check and time the shading kernels at "
                              "the benchmark frames' pools")
@@ -4493,6 +4778,9 @@ def main() -> int:
     if args.walk_times is not None:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return walk_times(args.walk_times)
+    if args.query_times is not None:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return query_times(args.query_times)
     if args.dense_times is not None:
         return dense_times(args.dense_times)
     if args.fetch_times is not None:
@@ -4600,6 +4888,8 @@ def main() -> int:
     resident = build_for_scene(scene, device=device, kind="resident")
     kres.update(check_walk_kernels(renderer.tracer.accel, tcl, True,
                                    scene.geometry, cam_rays, device))
+    kres["exact_rows"] = check_exact_rows(renderer.tracer.accel, cam_rays,
+                                          "helmet camera")
     kres.update(check_walk_kernels(resident.accel, trs, False,
                                    scene.geometry, cam_rays, device))
     print(json.dumps({"kernel_checks": {k: kres[k] for k in WALK_KERNELS}}),

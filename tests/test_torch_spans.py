@@ -104,11 +104,12 @@ def test_span_tree_is_the_documented_one(rig):
     if name == "cornell":
         assert not any(k.startswith("traverse.") for k in n)
     else:
-        # a sort, walk and unsort per query (the G-buffer's, b bounces',
-        # b + 1 shadow rays'), and a closest query's key decode
+        # the exact-key mode's row build and walk per query (the
+        # G-buffer's, b bounces', b + 1 shadow rays'), and an unsort around
+        # each shadow query's flags and each closest query's key decode
         queries, closest = 1 + b + b + 1, 1 + b
         assert n["traverse.sort"] == n["traverse.walk"] == queries
-        assert n["traverse.unsort"] == queries + closest
+        assert n["traverse.unsort"] == (b + 1) + closest
     # the camera's and every bounce's taps, in a textured scene only
     assert n["shade.textures"] == (b + 2 if name == "helmet-textured"
                                    else 0)

@@ -35,10 +35,11 @@
 // The design: the unit of work is a live lane, walked by one warp.
 //   * A persistent grid (SM count x the blocks per SM the occupancy API
 //     gives, fewer only for a pool of fewer tiles) of 256-thread blocks.
-//     The sorted rows are cut into tiles of 4 (128 bytes), and tile k
-//     goes to block k mod G of G, so the live lanes of a pool, which sit
-//     near the front of its sort, land on as many blocks as they fill
-//     tiles, on every SM. A block checks 1,024 rows at a time, 4 a thread
+//     The rows, in the callers' ray order (no result depends on it: no
+//     sort), are cut into tiles of 4 (128 bytes), and tile k goes to
+//     block k mod G of G, so a run of live lanes, wherever it lies in the
+//     pool, is dealt over as many blocks as it fills tiles, on every SM.
+//     A block checks 1,024 rows at a time, 4 a thread
 //     with their t0 and t1 loaded together (a warp reads 8 whole 128-byte
 //     lines, so an idle pool is a stream of loads and stores), answers
 //     the idle rows (t1 <= t0) at once and gathers the busy ones in shared
@@ -373,7 +374,8 @@ int launch(const float* rays, const float* tris, const float* boxes,
 
 extern "C" {
 
-// rays (rp, 8) sorted rows ox,oy,oz,dx,dy,dz,t0,teff; tris (nb, 16, 128);
+// rays (rp, 8) rows ox,oy,oz,dx,dy,dz,t0,teff in any order (the callers'
+// ray order, ops/traverse_resident.py::exact_rows_cuda); tris (nb, 16, 128);
 // boxes (nb, 6); orders and keys (8, nb); reach ((tiles, nb) bytes) and
 // lane_tile (rp,) or both null; out (rp,): int64 keys (closest) or int32
 // flags (occlusion)

@@ -20,9 +20,11 @@ Five kinds, as the reference's, chosen as the reference chooses them:
 `culled` and `blocked` are XLA in the reference, built around TPU costs (a
 one-hot MXU fetch of each chunk's working set, sorts where it would
 gather, a cascade and tile sweeps under `lax.cond`). The port computes
-their function and leaves that design out: both run on the sorted-chunk
-walk of `ops/traverse_resident` (one thread block per 256-ray chunk) in
-its exact-key mode, and `resident` on the same kernel in its own mode.
+their function and leaves that design out: both run on the block tables
+of `ops/traverse_resident` in its exact-key mode (a warp per live lane,
+the rays unsorted, in ray order; blocked's any hit in the resident mode),
+and `resident` on its sorted-chunk walk (one thread block per 256-ray
+chunk).
 `TPU_PBRT_FORCE_TRACER` is not ported: pass `kind=`.
 
 The scene tables are registered buffers, so `Tracer.to(device)` moves them

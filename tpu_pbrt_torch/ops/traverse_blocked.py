@@ -4,9 +4,10 @@
 
 The reference sweeps Morton-sorted 128-triangle blocks for 65,536-ray
 tiles under a tile-level `lax.cond`, a design built around TPU costs. The
-port computes its function on the sorted-chunk walk of `traverse_resident`
-(the same Morton order and 128-triangle blocks, so the reference's row r
-is the port's slot r):
+port computes its function on the block tables of `traverse_resident` (the
+same Morton order and 128-triangle blocks, so the reference's row r is
+the port's slot r), the closest hit in the exact-key mode on the rays in
+ray order, the any hit on the sorted-chunk walk:
   * `closest_hit`: the inv-form Möller-Trumbore of the reference's
     `_mt_chunk_T`; the winner is the exact smallest t, the lowest Morton
     row on equal t (the reference's blocks run in slot order with a
@@ -30,9 +31,10 @@ is the port's slot r):
 `BlockedTris` carries the resident walk's tables (exact-key mode) and the
 reference's own `block_min`, `block_max` (exact bounds of the raw corners)
 and `scene_diag` (the reach cap's; `prepare` takes it over v0 alone, as
-the reference does). `lo` / `hi` steer the ray sort and the far-bound
-clamp only; they are taken from the packed rows' valid corners, so
-`prepare`, `refit` and `convert.accel_from_numpy` give the same tables.
+the reference does). `lo` / `hi` steer the any hit's ray sort and the
+far-bound clamp only; they are taken from the packed rows' valid corners,
+so `prepare`, `refit` and `convert.accel_from_numpy` give the same
+tables.
 """
 
 from __future__ import annotations

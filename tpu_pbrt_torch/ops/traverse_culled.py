@@ -5,11 +5,11 @@
 The reference's `culled` is XLA built around TPU costs (a per-chunk
 ranked working set fetched by a one-hot MXU product, a cascade under
 `lax.cond`, sorts where it would gather). The port computes its function
-and leaves that design out: the sorted rays and block tables of
-`traverse_resident`, walked in the exact-key mode (`traverse_resident.
-walk_plain` / `walk_cuda` with `exact=True`: a warp per live lane, each
-lane in its own octant's block order with the block cull), which runs
-culled's test and keeps the exact nearest hit.
+and leaves that design out: the block tables of `traverse_resident`,
+walked in the exact-key mode on the rays in ray order (`traverse_resident.
+query` with `exact=True`: one kernel builds each lane's row, then a warp
+walks each live lane in its own octant's block order with the block
+cull), which runs culled's test and keeps the exact nearest hit.
 
 What it computes:
   * a hit is the inv-form Möller-Trumbore of the reference's

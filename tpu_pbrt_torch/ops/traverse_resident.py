@@ -43,10 +43,17 @@ t. Since no order decides a result, its kernel (`csrc/exact_trace.cu`,
 `tpb_exact_closest_hit` / `tpb_exact_any_hit`) schedules by lane, not by
 chunk: a warp walks one busy lane in that lane's own octant order, GROUP
 block boxes at a time, and tests only the lane's kept blocks.
-`walk_plain` replays that schedule for its counts (`LaneCounts`). `query`
-sorts, walks and unsorts for all three kinds; a `reach` mask
-(traverse_blocked's tile reach) keeps a lane off the blocks its input
+`walk_plain` replays that schedule for its counts (`LaneCounts`). A `reach`
+mask (traverse_blocked's tile reach) keeps a lane off the blocks its input
 tile cannot reach.
+
+`query` runs each kind's walk. The resident mode (`exact=False`: the
+resident kind, blocked's any hit) sorts, walks and unsorts: its chunk
+schedule needs the order and whole chunks. The exact-key mode (the culled
+kind, blocked's closest hit) needs neither: it builds each lane's row in
+ray order (`exact_rows_cuda`, the kernel `csrc/exact_rows.cu`, on the card;
+`exact_rows_plain`, the same build in PyTorch, on the CPU), walks those
+rows and returns the walk's output as it is.
 """
 
 from __future__ import annotations
@@ -93,6 +100,12 @@ EXACT_CLOSEST_HIT_KERNEL = cuda.register(
     "tpu_pbrt/ops/traverse_blocked.py:158")
 EXACT_ANY_HIT_KERNEL = cuda.register(
     "exact_any_hit", _EXACT_SOURCE, "tpu_pbrt/ops/traverse_culled.py:1098")
+# the exact-key walk's rows in ray order: what is left of the reference's ray
+# sort (XLA) once the order is not needed, its far bound
+EXACT_ROWS_KERNEL = cuda.register(
+    "exact_rows", "tpu_pbrt_torch/csrc/exact_rows.cu",
+    "tpu_pbrt/ops/traverse_resident.py:305 `_sort_for_traversal` (the far "
+    "bound)")
 
 
 class ResidentTris(NamedTuple):
@@ -379,6 +392,76 @@ def _lane(x, r: int, like: torch.Tensor) -> torch.Tensor:
     return torch.full((r,), float(x), dtype=torch.float32, device=like.device)
 
 
+def far_bound(tris: ResidentTris, origin: Vec3, direction: Vec3,
+              t_min: torch.Tensor, t_max: torch.Tensor,
+              active: torch.Tensor) -> torch.Tensor:
+    """Each lane's finite far bound teff (t_min, t_max and `active`, t_max
+    > t_min, per lane): its exit from the scene box [lo, hi] widened,
+    min(t_max, t_exit * (1 + 1e-4) + 1e-5), and -1 where the lane is not
+    active or misses the box (t_exit < t_enter, or NaN). The rule of
+    `sort_rays` and of `exact_rows_plain` (`csrc/exact_rows.cu` computes
+    it in this operation order)."""
+    def axis(o_, d_, lo_, hi_):
+        inv = _safe_inv(d_)
+        a = (lo_ - o_) * inv
+        b = (hi_ - o_) * inv
+        return torch.minimum(a, b), torch.maximum(a, b)
+
+    nx_, fx_ = axis(origin.x, direction.x, tris.lo[0], tris.hi[0])
+    ny_, fy_ = axis(origin.y, direction.y, tris.lo[1], tris.hi[1])
+    nz_, fz_ = axis(origin.z, direction.z, tris.lo[2], tris.hi[2])
+    t_enter = torch.maximum(torch.maximum(nx_, ny_), torch.maximum(nz_, t_min))
+    t_exit = torch.minimum(torch.minimum(fx_, fy_), fz_)
+    active = active & (t_exit >= t_enter)
+    teff = torch.minimum(t_max, t_exit * (1.0 + 1e-4) + 1e-5)
+    return torch.where(active, teff, -1.0)
+
+
+def exact_rows_plain(tris: ResidentTris, origin: Vec3, direction: Vec3,
+                     t_min, t_max) -> torch.Tensor:
+    """The exact-key walk's (R, 8) f32 rows ox,oy,oz,dx,dy,dz,t0,teff in
+    ray order (teff from `far_bound`): `sort_rays`' rows before its sort,
+    with no pad rows."""
+    r = origin.x.shape[0]
+    t_min = _lane(t_min, r, origin.x)
+    t_max = _lane(t_max, r, origin.x)
+    teff = far_bound(tris, origin, direction, t_min, t_max, t_max > t_min)
+    return torch.stack([origin.x, origin.y, origin.z, direction.x,
+                        direction.y, direction.z, t_min, teff], -1)
+
+
+def _column(x, r: int):
+    """A kernel column: (x as an f32 (R,) CUDA view, its element stride),
+    or (None, 0) for a Python number."""
+    if not isinstance(x, torch.Tensor):
+        return None, 0
+    if not x.is_cuda:
+        raise ValueError(f"exact_rows: a column on {x.device}, expected a "
+                         f"CUDA tensor")
+    x = torch.broadcast_to(x.to(torch.float32), (r,))
+    return x, x.stride(0)
+
+
+def exact_rows_cuda(tris: ResidentTris, origin: Vec3, direction: Vec3,
+                    t_min, t_max) -> torch.Tensor:
+    """`exact_rows_plain` in one launch (`csrc/exact_rows.cu`, bit-equal):
+    each column read where it lies (at any stride; 0: one value for every
+    lane), a Python t_min or t_max passed by value."""
+    r = origin.x.shape[0]
+    dev = origin.x.device
+    cols = [_column(c, r) for c in (origin.x, origin.y, origin.z,
+                                     direction.x, direction.y, direction.z,
+                                     t_min, t_max)]
+    cuda.check(tris.lo, "lo", torch.float32, (3,), dev)
+    cuda.check(tris.hi, "hi", torch.float32, (3,), dev)
+    out = torch.empty((r, 8), dtype=torch.float32, device=dev)
+    EXACT_ROWS_KERNEL.launch(
+        *(c for c, _ in cols), tris.lo, tris.hi, *(s for _, s in cols),
+        *(0.0 if isinstance(t, torch.Tensor) else float(t)
+          for t in (t_min, t_max)), r, out, tag=r)
+    return out
+
+
 def sort_rays(tris: ResidentTris, origin: Vec3, direction: Vec3, t_min,
               t_max):
     """Octant+Morton ray sort (the reference's `_sort_for_traversal`).
@@ -401,22 +484,7 @@ def sort_rays(tris: ResidentTris, origin: Vec3, direction: Vec3, t_min,
     t_max = _lane(t_max, r, origin.x)
     active = t_max > t_min
     key = torch.where(active, key, 0xFFFFFFFE)
-
-    def axis(o_, d_, lo_, hi_):
-        inv = _safe_inv(d_)
-        a = (lo_ - o_) * inv
-        b = (hi_ - o_) * inv
-        return torch.minimum(a, b), torch.maximum(a, b)
-
-    nx_, fx_ = axis(origin.x, direction.x, tris.lo[0], tris.hi[0])
-    ny_, fy_ = axis(origin.y, direction.y, tris.lo[1], tris.hi[1])
-    nz_, fz_ = axis(origin.z, direction.z, tris.lo[2], tris.hi[2])
-    t_enter = torch.maximum(torch.maximum(nx_, ny_), torch.maximum(nz_, t_min))
-    t_exit = torch.minimum(torch.minimum(fx_, fy_), fz_)
-    active = active & (t_exit >= t_enter)
-    teff = torch.minimum(t_max, t_exit * (1.0 + 1e-4) + 1e-5)
-    teff = torch.where(active, teff, -1.0)
-
+    teff = far_bound(tris, origin, direction, t_min, t_max, active)
     rows = torch.stack([origin.x, origin.y, origin.z, direction.x,
                         direction.y, direction.z, t_min, teff], -1)
     if rp > r:
@@ -676,12 +744,13 @@ def _sweep_octants(tris: ResidentTris, bid, lo, lc, b, occlusion: bool,
     return found, out
 
 
-def walk_plain(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
-               occlusion: bool, exact: bool = False, reach=None,
-               sweep_all: bool = True):
+def walk_plain(tris: ResidentTris, rays: torch.Tensor,
+               octs: torch.Tensor | None, occlusion: bool,
+               exact: bool = False, reach=None, sweep_all: bool = True):
     """Plain PyTorch walk on its kernel's schedule: the resident mode's
     chunk steps (`walk_chunks`), or with `exact` the exact-key kernel's
-    lanes (`_walk_lanes`; `octs` is not read). `reach` = (mask (tiles, NB)
+    lanes (`_walk_lanes`; `octs` is not read, and the rows may lie in any
+    order: `query` passes them in ray order). `reach` = (mask (tiles, NB)
     u8 or bool, lane_tile (Rp,) i32) drops the blocks a lane's tile cannot
     reach (their pairs are neither kept nor swept). By default it sweeps
     every block the schedule walks for every lane (the oracle) and counts
@@ -798,14 +867,15 @@ def walk_chunks(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
     return best.view(-1), WalkCounts(*(int(c) for c in counts.tolist()))
 
 
-def walk_cuda(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
-              occlusion: bool, exact: bool = False, reach=None
-              ) -> torch.Tensor:
+def walk_cuda(tris: ResidentTris, rays: torch.Tensor,
+              octs: torch.Tensor | None, occlusion: bool,
+              exact: bool = False, reach=None) -> torch.Tensor:
     """The kernel: `tpb_resident_closest_hit` / `tpb_resident_any_hit`
     (one 256-thread block per chunk), or in the exact-key mode
     `tpb_exact_closest_hit` / `tpb_exact_any_hit` (a warp per busy lane:
-    `octs` is not read and `rays` need not fill whole chunks); each skips the blocks `block_may_hit` (or the
-    `reach` mask) rejects, and is bit-equal to `walk_plain`."""
+    `octs` is not read, and `rays` may lie in any order and need not fill
+    whole chunks); each skips the blocks `block_may_hit` (or the `reach`
+    mask) rejects, and is bit-equal to `walk_plain`."""
     dev = rays.device
     rp = rays.shape[0]
     nb = tris.tris.shape[0]
@@ -843,11 +913,18 @@ def walk_cuda(tris: ResidentTris, rays: torch.Tensor, octs: torch.Tensor,
 def query(tris, origin: Vec3, direction: Vec3, t_min, t_max, *,
           occlusion: bool, exact: bool, on_card: bool, reach=None
           ) -> torch.Tensor:
-    """Sort the rays (`sort_rays`), walk them (the kernel when `on_card`,
-    else the plain walk) and return each lane's result in ray order: the
-    int32 key, the int64 exact key, or the occlusion flag (bool). `reach`
-    = (mask (tiles, NB) bool, tile): lane i belongs to input tile i //
-    tile, and a lane walks only the blocks its tile's mask row holds."""
+    """Each lane's result in ray order: the int32 key, the int64 exact key,
+    or the occlusion flag (bool), from the kernel when `on_card`, else from
+    the plain walk. The resident mode sorts the rays (`sort_rays`), walks
+    the sorted rows and scatters the results back; the exact-key mode
+    (`_query_exact`) walks rows built in ray order. `reach` = (mask (tiles,
+    NB) bool, tile): lane i belongs to input tile i // tile, and a lane
+    walks only the blocks its tile's mask row holds. Spans:
+    `traverse.sort` around the sort or the row build, `traverse.walk`
+    around the walk, `traverse.unsort` around the scatter or the flags."""
+    if exact:
+        return _query_exact(tris, origin, direction, t_min, t_max, occlusion,
+                            on_card, reach)
     r = origin.x.shape[0]
     with spans.span("traverse.sort"):
         rays, perm, octs = sort_rays(tris, origin, direction, t_min, t_max)
@@ -861,9 +938,9 @@ def query(tris, origin: Vec3, direction: Vec3, t_min, t_max, *,
             lanes = (mask.to(torch.uint8), lane_tile)
     with spans.span("traverse.walk"):
         if on_card:
-            best = walk_cuda(tris, rays, octs, occlusion, exact, lanes)
+            best = walk_cuda(tris, rays, octs, occlusion, False, lanes)
         else:
-            best = walk_plain(tris, rays, octs, occlusion, exact, lanes,
+            best = walk_plain(tris, rays, octs, occlusion, False, lanes,
                               sweep_all=False)[0]
     with spans.span("traverse.unsort"):
         # back to ray order: the pad rows sort last, so the first R sorted
@@ -871,6 +948,34 @@ def query(tris, origin: Vec3, direction: Vec3, t_min, t_max, *,
         out = torch.empty((r,), dtype=best.dtype, device=best.device)
         out[perm[:r]] = best[:r]
         return out > 0 if occlusion else out
+
+
+def _query_exact(tris, origin: Vec3, direction: Vec3, t_min, t_max,
+                 occlusion: bool, on_card: bool, reach) -> torch.Tensor:
+    """`query` in the exact-key mode, where no lane order counts: the rows
+    in ray order (`exact_rows_cuda`, one launch, or `exact_rows_plain`),
+    the walk on them (no octants; `reach`'s lane tile is i // tile), and
+    its output as it is: int64 keys, or int32 flags turned to bool."""
+    r = origin.x.shape[0]
+    with spans.span("traverse.sort"):
+        build = exact_rows_cuda if on_card else exact_rows_plain
+        rays = build(tris, origin, direction, t_min, t_max)
+        lanes = None
+        if reach is not None:
+            mask, tile = reach
+            lanes = (mask.to(torch.uint8),
+                     torch.arange(r, dtype=torch.int32,
+                                  device=rays.device) // tile)
+    with spans.span("traverse.walk"):
+        if on_card:
+            best = walk_cuda(tris, rays, None, occlusion, True, lanes)
+        else:
+            best = walk_plain(tris, rays, None, occlusion, True, lanes,
+                              sweep_all=False)[0]
+    if not occlusion:
+        return best
+    with spans.span("traverse.unsort"):
+        return best > 0
 
 
 def _closest(tris, origin, direction, t_min, t_max, on_card: bool) -> Hit:

@@ -40,11 +40,16 @@ lists for it:
   pathtrace.shadow   the NEE shadow query
   pathtrace.fold     the fold: the radiance banked, the pool halved
   shade.textures     the texture taps (`shade_table.apply_textures`)
-  traverse.sort      the culled walk's ray sort: keys, sort, row gather,
-                     padding (`ops/traverse_resident.query`)
+  traverse.sort      a big-scene query's preparation
+                     (`ops/traverse_resident.query`): in the exact-key
+                     mode (culled, blocked's closest hit) the row build in
+                     ray order, one kernel (`csrc/exact_rows.cu`); in the
+                     resident mode the ray sort (keys, sort, row gather,
+                     padding)
   traverse.walk      the walk kernel (or the plain walk)
-  traverse.unsort    the scatter back to ray order; again around a
-                     closest query's key decode
+  traverse.unsort    the return to the caller: the resident mode's scatter
+                     back to ray order, the exact-key any hit's flags to
+                     bool; again around a closest query's key decode
 
 The frame's own remainder holds the path state's set-up, the last bank
 add and the ray count's reduction.
